@@ -1,0 +1,72 @@
+"""Box residual coders — port of ``modest_tpu/models/box_coders.py``
+(reference pcdet/utils/box_coder_utils.py), the settings PointRCNN uses:
+7-dim residuals with a plain heading for the RoI head, and mean-size
+anchors with a (cos, sin) heading for the point head."""
+from __future__ import annotations
+
+import torch
+
+
+class ResidualCoder:
+    """Anchor-relative 7-dim residual coder (heading as a plain residual)."""
+
+    code_size = 7
+
+    def encode(self, boxes, anchors):
+        anchors = torch.cat([anchors[..., :3], anchors[..., 3:6].clamp_min(1e-5),
+                             anchors[..., 6:7]], -1)
+        boxes = torch.cat([boxes[..., :3], boxes[..., 3:6].clamp_min(1e-5), boxes[..., 6:7]], -1)
+        xa, ya, za, dxa, dya, dza, ra = torch.split(anchors, 1, dim=-1)
+        xg, yg, zg, dxg, dyg, dzg, rg = torch.split(boxes, 1, dim=-1)
+        diag = torch.sqrt(dxa**2 + dya**2)
+        return torch.cat([(xg - xa) / diag, (yg - ya) / diag, (zg - za) / dza,
+                          torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza),
+                          rg - ra], dim=-1)
+
+    def decode(self, encodings, anchors):
+        xa, ya, za, dxa, dya, dza, ra = torch.split(anchors[..., :7], 1, dim=-1)
+        xt, yt, zt, dxt, dyt, dzt, rt = torch.split(encodings[..., :7], 1, dim=-1)
+        diag = torch.sqrt(dxa**2 + dya**2)
+        # clip: exp overflow would turn masked-out rows into nan downstream
+        return torch.cat([xt * diag + xa, yt * diag + ya, zt * dza + za,
+                          torch.exp(dxt.clamp(-12.0, 12.0)) * dxa,
+                          torch.exp(dyt.clamp(-12.0, 12.0)) * dya,
+                          torch.exp(dzt.clamp(-12.0, 12.0)) * dza,
+                          rt + ra], dim=-1)
+
+
+class PointResidualCoder:
+    """Point-relative 8-dim (cos, sin) coder with per-class mean-size anchors."""
+
+    def __init__(self, mean_size, code_size: int = 8, use_mean_size: bool = True):
+        if not use_mean_size or code_size != 8:
+            raise NotImplementedError("PointResidualCoder port: mean-size anchors, 8 dims only")
+        self.code_size = code_size
+        self.mean_size = torch.tensor(mean_size, dtype=torch.float32)
+
+    def _anchor(self, classes, device):
+        """Mean size of each 1-based class (class 0 and below read row 0)."""
+        return self.mean_size.to(device)[(classes.long() - 1).clamp_min(0)]
+
+    def encode(self, gt_boxes, points, gt_classes):
+        """gt_boxes (N, 7), points (N, 3), gt_classes (N,) in 1..C → (N, 8)."""
+        gt_boxes = torch.cat([gt_boxes[..., :3], gt_boxes[..., 3:6].clamp_min(1e-5),
+                              gt_boxes[..., 6:7]], -1)
+        xg, yg, zg, dxg, dyg, dzg, rg = torch.split(gt_boxes, 1, dim=-1)
+        xa, ya, za = torch.split(points[..., :3], 1, dim=-1)
+        dxa, dya, dza = torch.split(self._anchor(gt_classes, gt_boxes.device), 1, dim=-1)
+        diag = torch.sqrt(dxa**2 + dya**2)
+        return torch.cat([(xg - xa) / diag, (yg - ya) / diag, (zg - za) / dza,
+                          torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza),
+                          torch.cos(rg), torch.sin(rg)], dim=-1)
+
+    def decode(self, encodings, points, pred_classes):
+        xt, yt, zt, dxt, dyt, dzt, cost, sint = torch.split(encodings[..., :8], 1, dim=-1)
+        xa, ya, za = torch.split(points[..., :3], 1, dim=-1)
+        dxa, dya, dza = torch.split(self._anchor(pred_classes, encodings.device), 1, dim=-1)
+        diag = torch.sqrt(dxa**2 + dya**2)
+        return torch.cat([xt * diag + xa, yt * diag + ya, zt * dza + za,
+                          torch.exp(dxt.clamp(-12.0, 12.0)) * dxa,
+                          torch.exp(dyt.clamp(-12.0, 12.0)) * dya,
+                          torch.exp(dzt.clamp(-12.0, 12.0)) * dza,
+                          torch.atan2(sint, cost)], dim=-1)

@@ -1,0 +1,104 @@
+"""Rules of the PyTorch port package: it never imports JAX or the JAX
+package, it runs on the card unless the caller asks for the CPU, it ships the
+flagship config as a dict equal to the YAML, and its state-dict keys are
+pcdet's."""
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from modest_tpu.utils.config import cfg_from_yaml_file as j_cfg_from_yaml_file
+from modest_tpu_torch.configs import (POINTRCNN_DYNAMIC_OBJ, POINTRCNN_DYNAMIC_OBJ_CLASS_NAMES,
+                                      POINTRCNN_DYNAMIC_OBJ_NUM_POINTS)
+from modest_tpu_torch.models import build_network
+from modest_tpu_torch.utils.config import Config, cfg_from_yaml_file
+
+REPO = Path(__file__).resolve().parents[1]
+FLAGSHIP_YAML = REPO / "configs/models/lyft_models/pointrcnn_dynamic_obj.yaml"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|modest_tpu)\b(?!_torch)",
+                       re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*(REPO / "modest_tpu_torch").rglob("*.py"),
+                                      REPO / "chip_smoke.py"]))
+def test_port_never_imports_jax_or_the_jax_package(path):
+    src = (REPO / path).read_text()
+    assert not FORBIDDEN.findall(src), f"{path} imports {FORBIDDEN.findall(src)}"
+
+
+def test_flagship_dict_equals_the_yaml():
+    cfg = cfg_from_yaml_file(FLAGSHIP_YAML)
+    assert cfg.MODEL.to_dict() == POINTRCNN_DYNAMIC_OBJ
+    assert list(cfg.CLASS_NAMES) == POINTRCNN_DYNAMIC_OBJ_CLASS_NAMES
+    assert cfg.DATA_CONFIG.DATA_PROCESSOR[1].NUM_POINTS.test == POINTRCNN_DYNAMIC_OBJ_NUM_POINTS
+    # and the JAX package's loader reads the same file the same way
+    assert j_cfg_from_yaml_file(str(FLAGSHIP_YAML)).MODEL.to_dict() == POINTRCNN_DYNAMIC_OBJ
+
+
+def test_build_network_runs_on_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; the refusal needs a host without one")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_network(Config(POINTRCNN_DYNAMIC_OBJ), 1)
+    model = build_network(Config(POINTRCNN_DYNAMIC_OBJ), 1, device="cpu")
+    assert not model.training
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+@pytest.mark.parametrize("name,backbone", [("SECONDNet", "VoxelBackBone8x"),
+                                           ("PointRCNN", "UNetV2")])
+def test_build_network_refuses_unported_detectors(name, backbone):
+    cfg = Config(POINTRCNN_DYNAMIC_OBJ)
+    cfg.NAME = name
+    cfg.BACKBONE_3D.NAME = backbone
+    with pytest.raises(NotImplementedError):
+        build_network(cfg, 1, device="cpu")
+
+
+def test_forward_refuses_train_mode():
+    model = build_network(Config(POINTRCNN_DYNAMIC_OBJ), 1, device="cpu").train()
+    with pytest.raises(NotImplementedError, match="eval"):
+        model(torch.zeros(1, 64, 4))
+
+
+def test_seeded_init_and_pcdet_state_dict_keys():
+    a = build_network(Config(POINTRCNN_DYNAMIC_OBJ), 1, device="cpu", seed=5).state_dict()
+    b = build_network(Config(POINTRCNN_DYNAMIC_OBJ), 1, device="cpu", seed=5).state_dict()
+    c = build_network(Config(POINTRCNN_DYNAMIC_OBJ), 1, device="cpu", seed=6).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["point_head.cls_layers.0.weight"], c["point_head.cls_layers.0.weight"])
+    for key in ("backbone_3d.SA_modules.0.mlps.1.3.weight",     # 2nd Linear of a BN stack
+                "backbone_3d.SA_modules.3.mlps.0.7.running_var",
+                "backbone_3d.FP_modules.3.mlp.0.weight",
+                "point_head.cls_layers.6.bias",                  # the FC head's final Linear
+                "roi_head.xyz_up_layer.2.bias",                  # USE_BN False: Linear, ReLU
+                "roi_head.merge_down_layer.0.weight",
+                "roi_head.SA_modules.2.mlps.0.1.running_mean",   # the tower always has BN
+                "roi_head.reg_layers.6.weight"):
+        assert key in a, key
+    assert a["backbone_3d.FP_modules.0.mlp.0.weight"].shape == (128, 256 + 1)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_refuses_without_a_card(alone, tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line on a host
+    without CUDA, and in a directory that holds nothing else of the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    script = REPO / "chip_smoke.py"
+    cwd = REPO
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    proc = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    lines = proc.stdout.strip().splitlines()
+    assert not lines or '"ok": true' not in lines[-1]
+    assert all(not line.startswith("{") or "ok" not in json.loads(line) for line in lines)
