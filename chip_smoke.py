@@ -1,22 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-The main path is the flagship detector's eval forward plus post-processing
-(PointRCNN, configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288
-points per scan), at full width with random weights from a fixed seed.
+Two paths, each at full size from fixed seeds:
+
+* the flagship detector's eval forward plus post-processing (PointRCNN,
+  configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
+  scan, random weights);
+* the label-free seed path: the PP-score CLI (pre_compute_pp_score) over a
+  synthetic multi-traversal dataset written to a temporary directory (5
+  traversals of 8 frames and 16 origin frames of ~89.6k points, the
+  bench_pipeline.py recipe), then the seed-mask CLI (generate_mask) on those
+  scores in groups of 4 frames.
+
 Phases, each printing one JSON line:
 
-1. build the hand-written CUDA kernels from modest_tpu_torch/csrc;
-2. hold each kernel against its plain PyTorch version on the card at every
-   shape the main path gives it (indices must be equal), with both times;
+1. build the hand-written CUDA kernels from modest_tpu_torch/csrc, one nvcc
+   per source, all at once;
+2. hold FPS against its plain PyTorch version at every shape the forward
+   gives it (indices must be equal), with both times;
 3. run the forward + post_process on 4 synthetic scans (the bench.py scene
-   recipe) and check the output, the kernels' launch counts and the
-   per-stage times;
+   recipe) and check the output, the FPS launch count and the stage times;
 4. compare the card's final boxes on one scan with the port's own CPU
    forward (>= 98% must match 1:1);
-5. list the kernels with their launches, errors and times.
+5. run the PP-score CLI on the card: origins/s, radius-count launches per
+   origin, stage split, peak memory; the scores must be finite and rank the
+   ephemeral clusters below the ground;
+6. run the seed-mask CLI on the card: frames/s, DBSCAN launches, stage
+   split, seed boxes (must be > 0);
+7. hold the radius count against its plain version at the PP path's shape
+   (0 mismatches), and the DBSCAN edge and propagation kernels against
+   theirs on a group of 4 full-size frames (equal rows, core flags, labels);
+8. card vs CPU on the seed path: the transformed, sorted PP inputs equal,
+   PP counts equal on every 4th query tile, and one frame's seed labels
+   (>= 99.9% up to the cluster-id permutation) and boxes (1:1, centre
+   < 1 cm) equal;
+9. list the kernels with their launches on the main paths, errors and
+   times.
 
 Then the card's name and power limit (nvidia-smi) and, last, the result line.
 Any failed check exits non-zero before the result line. Imports torch,
@@ -25,9 +46,13 @@ numpy and the repository's modest_tpu_torch package, nothing else.
 from __future__ import annotations
 
 import json
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -49,6 +74,15 @@ FPS_PATH_SHAPES = [
     ("roi_sa2", BATCH * 100, 128, 32),
 ]
 FPS_EXTRA_SHAPES = [("ragged_n", BATCH, 1000, 100), ("npoint_1", BATCH, 12288, 1)]
+KERNEL_SOURCES = ("fps", "radius_count", "dbscan")
+# seed path: the PP dataset (bench_pipeline.py sizes) and the seed-mask groups
+PP_TRAVERSALS, PP_FRAMES_PER_TRAVERSAL, PP_ORIGINS = 5, 8, 16
+FRAME = {"n_ground": 60000, "n_objects": 12, "n_wall": 20000}  # tools/pipeline_scenes.synth_frame
+SEED_GROUP = 4
+PP_RADIUS = 0.3
+# radius count work per pair test: 3 sub, 3 mul, 2 add, 1 compare, 1 add
+RC_OPS_PER_PAIR = 10
+CPU_TILE_STRIDE = 4  # the CPU side of the PP card-vs-CPU check counts every 4th query tile
 
 
 def emit(obj) -> None:
@@ -257,6 +291,355 @@ def phase_card_vs_cpu(torch, np, api, build_network, model, cfg, scenes, card):
         fail(f"card vs CPU: {len(pairs) - bad_yaw_or_label}/{total} final boxes match (< 98%)")
 
 
+def build_kernels(card):
+    """One nvcc per source, all started together."""
+    from modest_tpu_torch.ops import _build
+
+    def one(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        return name, lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        for name, lib, seconds in pool.map(one, KERNEL_SOURCES):
+            emit({"phase": "build", "kernel": name, "seconds": seconds,
+                  "ptxas": [ln for ln in lib.with_suffix(".log").read_text().splitlines()
+                            if "registers" in ln or "spill" in ln], "card": card})
+
+
+def bound(ops: float, nbytes: float):
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def pipeline_overrides(root, data_root, *extra):
+    return [f"work_dir={root}", f"data_root={data_root}", *extra]
+
+
+def origin_ids(root):
+    with open(Path(root) / "meta_data/lyft/fw70_2m_train_idx.txt") as f:
+        return [int(x) for x in f.read().split()]
+
+
+def phase_pp_score(torch, np, dev, root, data_root, card):
+    """The PP CLI on the card: one warm-up origin, then the other origins
+    timed on the host clock with the CLI's defaults (2 origins in flight);
+    then all origins again, one at a time, with the stage timer."""
+    from modest_tpu_torch.cli import pre_compute_pp_score
+    from modest_tpu_torch.ops.radius_count import radius_count_sorted_cuda as rc
+    from modest_tpu_torch.utils.device import StageTimer
+    from modest_tpu_torch.utils.kitti_io import load_velo_scan
+
+    ov = pipeline_overrides(root, data_root, "device=cuda")
+    pre_compute_pp_score.main(ov + [f"total_part={PP_ORIGINS}", "part=0"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rc.launches = 0
+    t0 = time.perf_counter()
+    pre_compute_pp_score.main(ov)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rc.launches
+    timed = PP_ORIGINS - 1
+    if launches != timed:
+        fail(f"{timed} PP origins launched the radius-count kernel {launches} times")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    timer = StageTimer(dev)
+    t1 = time.perf_counter()
+    pre_compute_pp_score.main(ov + [f"data_paths.pp_score_path={root}/pp_staged",
+                                    "pipeline_workers=1"], timer=timer)
+    staged_wall = time.perf_counter() - t1
+
+    pp_dir = Path(root) / "intermediate_results/lyft_pp_score_fw70_2m_r0.3"
+    ground, objects = [], []
+    for gid in origin_ids(root):
+        pp = np.load(pp_dir / f"{gid:06d}.npy")
+        n = load_velo_scan(Path(data_root) / "velodyne" / f"{gid:06d}.bin").shape[0]
+        if pp.shape != (n,) or not np.isfinite(pp).all() or pp.min() < -1e-6 or pp.max() > 1 + 1e-6:
+            fail(f"PP scores of origin {gid}: shape {pp.shape} for {n} points, or out of [0, 1]")
+        n_ground = FRAME["n_ground"]
+        ground.append(pp[:n_ground].mean())
+        objects.append(pp[n_ground:n_ground + 800 * FRAME["n_objects"]].mean())
+        staged = np.load(Path(root) / "pp_staged" / f"{gid:06d}.npy")
+        if not np.array_equal(pp, staged):
+            fail(f"PP scores of origin {gid} differ between the pipelined and the staged run")
+    if not max(objects) < min(ground):
+        fail(f"PP does not rank the ephemeral clusters ({objects}) below the ground ({ground})")
+    row = {"phase": "pp_score", "origins_timed": timed, "origin_points": n,
+           "traversals": PP_TRAVERSALS, "frames_per_traversal": PP_FRAMES_PER_TRAVERSAL,
+           "origins_per_s": timed / wall, "wall_s": wall,
+           "radius_count_launches": launches, "radius_count_launches_per_origin": launches / timed,
+           "stage_ms_per_origin": {k: v / PP_ORIGINS for k, v in timer.ms().items()},
+           "staged_origins_per_s": PP_ORIGINS / staged_wall,
+           "peak_mem_gb": peak, "pp_ground_mean": float(np.mean(ground)),
+           "pp_objects_mean": float(np.mean(objects)), "card": card}
+    emit(row)
+    return row
+
+
+def phase_seed_labels(torch, np, dev, root, data_root, card):
+    """The seed-mask CLI on the card over the PP scores: one warm-up group,
+    then the other group timed with the CLI's defaults; then all frames
+    again, one group at a time, with the stage timer."""
+    from modest_tpu_torch.cli import generate_mask
+    from modest_tpu_torch.ops import dbscan as D
+    from modest_tpu_torch.utils.device import StageTimer
+
+    ov = pipeline_overrides(root, data_root, "device=cuda", f"device_batch_frames={SEED_GROUP}")
+    generate_mask.main(ov + [f"total_part={PP_ORIGINS // SEED_GROUP}", "part=0"])  # one group
+    torch.cuda.synchronize()
+    for fn in (D.dbscan_edge_cuda, D.dbscan_prop_cuda):
+        fn.launches = fn.calls = 0
+    D.dbscan_prop_cuda.sweeps = D.dbscan_prop_cuda.host_reads = 0
+    t0 = time.perf_counter()
+    generate_mask.main(ov)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"dbscan_edge": D.dbscan_edge_cuda.launches,
+                "dbscan_prop": D.dbscan_prop_cuda.launches}
+    calls = {"dbscan_edge": D.dbscan_edge_cuda.calls, "dbscan_prop": D.dbscan_prop_cuda.calls}
+    sweeps, host_reads = D.dbscan_prop_cuda.sweeps, D.dbscan_prop_cuda.host_reads
+    timed = PP_ORIGINS - SEED_GROUP
+    groups = timed // SEED_GROUP
+    # per group: kth + edge kernels; 2 kernels per sweep and a border kernel
+    if calls != {"dbscan_edge": groups, "dbscan_prop": groups} or launches != {
+            "dbscan_edge": 2 * groups, "dbscan_prop": 2 * sweeps + groups}:
+        fail(f"{groups} seed groups called the DBSCAN wrappers {calls} times and launched "
+             f"{launches} kernels in {sweeps} sweeps")
+
+    timer = StageTimer(dev)
+    t1 = time.perf_counter()
+    generate_mask.main(ov + [f"data_paths.seg_save_dst={root}/seg_staged",
+                             f"data_paths.bbox_info_save_dst={root}/bbox_staged",
+                             "pipeline_workers=1"], timer=timer)
+    staged_wall = time.perf_counter() - t1
+
+    seg_dir = Path(root) / "intermediate_results/lyft_seg_pp_score_fw70_2m_r0.3"
+    bbox_dir = Path(root) / "intermediate_results/lyft_bbox_pp_score_fw70_2m_r0.3"
+    boxes = 0
+    for gid in origin_ids(root):
+        seg = np.load(seg_dir / f"{gid:06d}.npy")
+        with open(bbox_dir / f"{gid:06d}.pkl", "rb") as f:
+            objs = pickle.load(f)
+        if seg.max() != len(objs) or not np.array_equal(seg, np.load(Path(root) / "seg_staged"
+                                                                     / f"{gid:06d}.npy")):
+            fail(f"seed masks of frame {gid}: {seg.max()} clusters for {len(objs)} boxes, "
+                 f"or the staged run differs")
+        for o in objs:
+            if not np.isfinite([*o.t, o.l, o.w, o.h, o.ry]).all():
+                fail(f"frame {gid}: a non-finite seed box")
+        boxes += len(objs)
+    if boxes == 0:
+        fail("the seed path made no seed boxes")
+    row = {"phase": "seed_labels", "frames_timed": timed, "group": SEED_GROUP,
+           "frames_per_s": timed / wall, "wall_s": wall, "dbscan_launches": launches,
+           "dbscan_calls": calls, "dbscan_sweeps": sweeps, "dbscan_host_reads": host_reads,
+           "dbscan_sweeps_per_group": sweeps / max(groups, 1),
+           "stage_ms_per_frame": {k: v / PP_ORIGINS for k, v in timer.ms().items()},
+           "staged_frames_per_s": PP_ORIGINS / staged_wall, "seed_boxes": boxes,
+           "seed_boxes_per_frame": boxes / PP_ORIGINS, "card": card}
+    emit(row)
+    return row
+
+
+def pp_kernel_inputs(torch, dev, data_root, root):
+    """The radius count's inputs for the first origin, built by the PP path
+    on ``dev``."""
+    from modest_tpu_torch.pipeline.pp_score import (FrameCache, TraversalIndex, _cached_pools,
+                                                    _sorted_inputs)
+
+    with open(Path(root) / "meta_data/lyft/fw70_2m_train_track_list.pkl", "rb") as f:
+        track_list = pickle.load(f)
+    with open(Path(root) / "meta_data/lyft/fw70_2m_valid_train_idx_info.pkl", "rb") as f:
+        valid_idx = pickle.load(f)
+    index = TraversalIndex(data_root, track_list, valid_idx)
+    q_pad, coords, n = _cached_pools(index, FrameCache(index._velo, dev), origin_ids(root)[0])
+    q_s, t_sorted, lohi, _ = _sorted_inputs(q_pad, *coords, PP_RADIUS)
+    return q_s, t_sorted, lohi, n
+
+
+def phase_radius_count(torch, np, dev, data_root, root, card):
+    from modest_tpu_torch.ops.radius_count import (BM, BN, PAD, radius_count_sorted_cuda,
+                                                   radius_count_sorted_plain)
+    from modest_tpu_torch.pipeline.pp_score import radius2
+
+    q_s, t_sorted, lohi, n = pp_kernel_inputs(torch, dev, data_root, root)
+    r2 = radius2(PP_RADIUS)
+    got = radius_count_sorted_cuda(q_s, t_sorted, lohi, r2)
+    want = radius_count_sorted_plain(q_s, t_sorted, lohi, r2)
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    max_abs_err = int((got.long() - want.long()).abs().max())
+    ms = cuda_ms(lambda: radius_count_sorted_cuda(q_s, t_sorted, lohi, r2), 10)
+    plain_ms = cuda_ms(lambda: radius_count_sorted_plain(q_s, t_sorted, lohi, r2), 1)
+    t_count, _, m = t_sorted.shape
+    nq_total = q_s.shape[1]
+    lo, hi = lohi[..., 0].long(), lohi[..., 1].long()
+    tiles = hi - lo  # (T, nq) pool tiles per query tile
+    pairs = int(tiles.sum()) * BM * BN  # the pair tests the kernel makes
+    mixed = (n - 1) // BN if n % BN else None  # the tile that mixes real and pad queries
+    mixed_pairs = int(tiles[:, mixed].sum()) * BM * BN if mixed is not None else 0
+    # the pair tests the count needs: real queries x real pool points of each
+    # window (pads sort to the end of the queries and of each pool)
+    real_q = (n - torch.arange(nq_total // BN, device=dev) * BN).clamp(0, BN)
+    m_real = (t_sorted[:, 0] < PAD).sum(dim=1, keepdim=True)
+    real_pool = (torch.minimum(hi * BM, m_real) - lo * BM).clamp_min(0)
+    needed = int((real_q * real_pool).sum())
+    nbytes = 3 * nq_total * 4 + t_count * 3 * m * 4 + lohi.numel() * 4 + t_count * nq_total * 4
+    bound_ms, bound_by = bound(needed * RC_OPS_PER_PAIR, nbytes)
+    row = {"phase": "radius_count_vs_plain", "queries": n, "Nq": nq_total, "T": t_count, "M": m,
+           "mismatches": mismatches, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "pair_tests": pairs, "pair_tests_needed": needed,
+           "pad_pair_share": 1 - needed / max(pairs, 1), "mixed_tile_pair_tests": mixed_pairs,
+           "mixed_tile_share": mixed_pairs / max(pairs, 1),
+           "pair_tests_per_s": pairs / (ms * 1e-3), "card": card}
+    emit(row)
+    if mismatches:
+        fail(f"radius count kernel disagrees with its plain version on {mismatches} counts")
+    return row, (q_s, t_sorted, lohi, got, n)
+
+
+def seed_group_graph(torch, np, dev, data_root, root):
+    """The kNN graph the seed path builds for its first group of frames."""
+    from modest_tpu_torch.cli.common import load_pipeline_config
+    from modest_tpu_torch.pipeline.clustering import _knn_graph, _prepare_group
+    from modest_tpu_torch.pipeline.seed_labels import _frame_final_mask
+    from modest_tpu_torch.utils.kitti_io import load_velo_scan
+
+    cfg = load_pipeline_config("generate_mask", pipeline_overrides(root, data_root))
+    pp_dir = Path(root) / "intermediate_results/lyft_pp_score_fw70_2m_r0.3"
+    group = []
+    for gid in origin_ids(root)[:SEED_GROUP]:
+        ptc = load_velo_scan(Path(data_root) / "velodyne" / f"{gid:06d}.bin")
+        pp = np.load(pp_dir / f"{gid:06d}.npy")
+        m = _frame_final_mask(ptc, cfg)
+        group.append((ptc[m, :3], pp[m]))
+    preps, ns, n_pad, k, kc, w = _prepare_group(group, cfg.graph.n_neighbors, cfg.graph.radius,
+                                                1024)
+    idx, d2, pb, vb = _knn_graph(preps, n_pad, k, kc, w, cfg.graph.radius, dev)
+    return cfg, (idx, d2, pb, vb), ns, n_pad, k, w
+
+
+def phase_dbscan(torch, np, dev, data_root, root, card):
+    from modest_tpu_torch.ops import dbscan as D
+    from modest_tpu_torch.pipeline.clustering import dbscan_params
+
+    cfg, (idx, d2, pb, vb), ns, n_pad, k, w = seed_group_graph(torch, np, dev, data_root, root)
+    args = (idx, d2, pb, vb, *dbscan_params(cfg.graph.radius, cfg.clustering.DBSCAN.eps),
+            cfg.clustering.DBSCAN.min_samples)
+    graph, graph_p = D.dbscan_edge_cuda(*args), D.dbscan_edge_plain(*args)
+    sweeps0, reads0 = D.dbscan_prop_cuda.sweeps, D.dbscan_prop_cuda.host_reads
+    raw, raw_p = D.dbscan_prop_cuda(graph), D.dbscan_prop_plain(graph_p)
+    sweeps = D.dbscan_prop_cuda.sweeps - sweeps0
+    host_reads = D.dbscan_prop_cuda.host_reads - reads0
+    torch.cuda.synchronize()
+    nbr_mm = int((graph.nbr != graph_p.nbr).sum())
+    core_mm = int((graph.core != graph_p.core).sum())
+    lab_mm = int((raw != raw_p).sum())
+    edge_ms = cuda_ms(lambda: D.dbscan_edge_cuda(*args), 10)
+    edge_plain_ms = cuda_ms(lambda: D.dbscan_edge_plain(*args), 3)
+    prop_ms = cuda_ms(lambda: D.dbscan_prop_cuda(graph), 10)
+    prop_plain_ms = cuda_ms(lambda: D.dbscan_prop_plain(graph_p), 1)
+    b, n = graph.core.shape
+    total = b * n
+    rows = total * k * 4
+    edges = int((graph.nbr >= 0).sum())
+    # edge: idx and d2 rows and pp, valid read once; nbr rows, core, labels written once
+    edge_bound = bound(0, 2 * rows + total * (4 + 1) + rows + total * (1 + 4))
+    # prop, what the function needs (not the sweeps this algorithm makes): the
+    # nbr rows of valid points once (core rows to propagate, the others for
+    # their border labels), one 4-byte label gather per edge, the initial
+    # label table and core and valid flags read once, the labels written once
+    valid_rows = int(graph.valid.sum()) * k * 4
+    prop_bound = bound(0, valid_rows + 4 * edges + total * (4 + 1 + 1) + 4 * total)
+    row = {"phase": "dbscan_vs_plain", "frames": b, "in_range_points": ns, "N": n, "k": k,
+           "window": w, "edges": edges, "core": int(graph.core.sum()),
+           "clusters": int(sum(len(np.unique(r[r >= 0])) for r in raw.cpu().numpy())),
+           "nbr_mismatches": nbr_mm, "core_mismatches": core_mm, "label_mismatches": lab_mm,
+           "sweeps": sweeps, "host_reads": host_reads, "edge_ms": edge_ms,
+           "edge_plain_ms": edge_plain_ms,
+           "edge_bound_ms": edge_bound[0], "prop_ms": prop_ms, "prop_plain_ms": prop_plain_ms,
+           "prop_bound_ms": prop_bound[0], "bound_by": "bytes", "library_ms": None,
+           "card": card}
+    emit(row)
+    if nbr_mm or core_mm or lab_mm:
+        fail(f"DBSCAN kernels disagree with their plain versions: {nbr_mm} edge slots, "
+             f"{core_mm} core flags, {lab_mm} labels")
+    return row
+
+
+def match_centres(np, boxes, ref, tol=1e-2):
+    used = np.zeros(len(ref), bool)
+    pairs = 0
+    for b in boxes:
+        d = np.linalg.norm(ref - b, axis=1) if len(ref) else np.zeros(0)
+        cand = np.flatnonzero((d < tol) & ~used)
+        if len(cand):
+            used[cand[np.argmin(d[cand])]] = True
+            pairs += 1
+    return pairs
+
+
+def phase_pipeline_card_vs_cpu(torch, np, dev, data_root, root, rc_state, card):
+    """Seed path on the card vs the port's CPU run: the PP kernel inputs are
+    built again on the CPU and must be equal, the CPU counts every 4th query
+    tile with the plain twin, and one frame goes through generate_mask on
+    both devices."""
+    from modest_tpu_torch.cli.common import load_pipeline_config
+    from modest_tpu_torch.ops.radius_count import BN, radius_count_sorted_plain
+    from modest_tpu_torch.pipeline.pp_score import radius2
+    from modest_tpu_torch.pipeline.seed_labels import generate_mask_for_frame
+    from modest_tpu_torch.utils.kitti_io import Calibration, load_velo_scan
+
+    q_s, t_sorted, lohi, got, n = rc_state
+    t0 = time.perf_counter()
+    c_q, c_t, c_lohi, _ = pp_kernel_inputs(torch, torch.device("cpu"), data_root, root)
+    inputs_equal = (torch.equal(c_q, q_s.cpu()) and torch.equal(c_t, t_sorted.cpu())
+                    and torch.equal(c_lohi, lohi.cpu()))
+    nq = q_s.shape[1] // BN
+    tiles = torch.arange(0, nq, CPU_TILE_STRIDE)
+    cols = (tiles[:, None] * BN + torch.arange(BN)).reshape(-1)
+    want = radius_count_sorted_plain(c_q[:, cols].contiguous(), c_t,
+                                      c_lohi[:, tiles].contiguous(), radius2(PP_RADIUS))
+    count_mm = int((got.cpu()[:, cols] != want).sum())
+    pp_cpu_s = time.perf_counter() - t0
+
+    cfg = load_pipeline_config("generate_mask", pipeline_overrides(root, data_root))
+    gid = origin_ids(root)[0]
+    ptc = load_velo_scan(Path(data_root) / "velodyne" / f"{gid:06d}.bin")
+    pp = np.load(Path(root) / "intermediate_results/lyft_pp_score_fw70_2m_r0.3" / f"{gid:06d}.npy")
+    calib = Calibration(str(Path(data_root) / "calib" / f"{gid:06d}.txt"))
+    lab_g, objs_g = generate_mask_for_frame(ptc, pp, calib, cfg, device="cuda")
+    t1 = time.perf_counter()
+    lab_c, objs_c = generate_mask_for_frame(ptc, pp, calib, cfg, device="cpu")
+    seed_cpu_s = time.perf_counter() - t1
+    # labels up to a permutation of the cluster ids: map each card id to the
+    # CPU id most of its points carry, one to one
+    mapping = {}
+    for g in np.unique(lab_g):
+        vals, cnt = np.unique(lab_c[lab_g == g], return_counts=True)
+        mapping[int(g)] = int(vals[np.argmax(cnt)])
+    injective = len(set(mapping.values())) == len(mapping)
+    agree = float((np.vectorize(mapping.get)(lab_g) == lab_c).mean()) if injective else 0.0
+    centres_g = np.array([o.t for o in objs_g]).reshape(-1, 3)
+    centres_c = np.array([o.t for o in objs_c]).reshape(-1, 3)
+    matched = match_centres(np, centres_g, centres_c)
+    row = {"phase": "pipeline_card_vs_cpu", "origin": gid, "pp_inputs_equal": inputs_equal,
+           "pp_count_mismatches": count_mm, "pp_cut": f"CPU counts query tiles i % "
+           f"{CPU_TILE_STRIDE} == 0 ({len(tiles)} of {nq} tiles), all {t_sorted.shape[0]} "
+           f"traversals", "pp_cpu_s": pp_cpu_s, "seed_points": int(len(lab_g)),
+           "label_agreement": agree, "card_boxes": len(objs_g), "cpu_boxes": len(objs_c),
+           "boxes_matched": matched, "seed_cpu_s": seed_cpu_s, "card": card}
+    emit(row)
+    if not inputs_equal or count_mm:
+        fail(f"PP card vs CPU: inputs equal {inputs_equal}, {count_mm} count mismatches")
+    if agree < 0.999 or matched != len(objs_g) or len(objs_g) != len(objs_c) or not objs_g:
+        fail(f"seed card vs CPU: label agreement {agree}, boxes {matched} matched of "
+             f"{len(objs_g)} card / {len(objs_c)} CPU")
+
+
 def main() -> int:
     import torch
 
@@ -272,7 +655,7 @@ def main() -> int:
 
     from modest_tpu_torch.configs import POINTRCNN_DYNAMIC_OBJ, POINTRCNN_DYNAMIC_OBJ_CLASS_NAMES
     from modest_tpu_torch.models import api, build_network
-    from modest_tpu_torch.ops import _build
+    from modest_tpu_torch.tools.pipeline_scenes import write_synth_dataset
     from modest_tpu_torch.tools.scenes import bench_scans
     from modest_tpu_torch.utils.config import Config
 
@@ -285,11 +668,7 @@ def main() -> int:
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
-    t0 = time.perf_counter()
-    lib = _build.build("fps")
-    emit({"phase": "build", "kernel": "fps", "seconds": time.perf_counter() - t0,
-          "ptxas": [ln for ln in lib.with_suffix(".log").read_text().splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    build_kernels(card)
 
     scenes = bench_scans(BATCH, N_POINTS, seed=0)
     fps_rows = phase_fps(torch, fps_inputs(torch, dev, scenes), card)
@@ -300,6 +679,22 @@ def main() -> int:
     launches = phase_forward(torch, dev, api, model, cfg, scenes, card)
     phase_card_vs_cpu(torch, np, api, build_network, model, cfg, scenes, card)
 
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
+    try:
+        t0 = time.perf_counter()
+        root, data_root = write_synth_dataset(
+            tmp, traversals=PP_TRAVERSALS, frames_per_traversal=PP_FRAMES_PER_TRAVERSAL,
+            origins=PP_ORIGINS, seed=0, **FRAME)
+        emit({"phase": "pipeline_dataset", "frames": PP_TRAVERSALS * PP_FRAMES_PER_TRAVERSAL
+              + PP_ORIGINS, "seconds": time.perf_counter() - t0, "card": card})
+        pp_row = phase_pp_score(torch, np, dev, root, data_root, card)
+        seed_row = phase_seed_labels(torch, np, dev, root, data_root, card)
+        rc_row, rc_state = phase_radius_count(torch, np, dev, data_root, root, card)
+        db_row = phase_dbscan(torch, np, dev, data_root, root, card)
+        phase_pipeline_card_vs_cpu(torch, np, dev, data_root, root, rc_state, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     path = [fps_rows[stage] for stage, *_ in FPS_PATH_SHAPES]
     emit({"kernels": [{
         "name": "fps", "route": "cuda", "source": "modest_tpu_torch/csrc/fps.cu",
@@ -309,6 +704,37 @@ def main() -> int:
         "ms": sum(r["ms"] for r in path), "plain_ms": sum(r["plain_ms"] for r in path),
         "bound_ms": sum(r["bound_ms"] for r in path), "bound_by": "operations",
         "library_ms": None, "shapes": "sum over the 6 FPS calls of one B=4 forward",
+    }, {
+        "name": "radius_count", "route": "cuda", "source": "modest_tpu_torch/csrc/radius_count.cu",
+        "replaces": "modest_tpu/ops/pallas_radius_count.py:81",
+        "launches": pp_row["radius_count_launches"], "max_abs_err": rc_row["max_abs_err"],
+        "mismatches": rc_row["mismatches"], "ms": rc_row["ms"], "plain_ms": rc_row["plain_ms"],
+        "bound_ms": rc_row["bound_ms"], "bound_by": rc_row["bound_by"], "library_ms": None,
+        "shapes": f"one PP origin: {rc_row['queries']} queries, T={rc_row['T']}, "
+                  f"M={rc_row['M']}; launches over {pp_row['origins_timed']} origins",
+    }, {
+        "name": "dbscan_edge", "route": "cuda", "source": "modest_tpu_torch/csrc/dbscan.cu",
+        "replaces": "modest_tpu/ops/pallas_dbscan.py:75",
+        "launches": seed_row["dbscan_launches"]["dbscan_edge"],
+        "calls": seed_row["dbscan_calls"]["dbscan_edge"], "max_abs_err": 0 if not (
+            db_row["nbr_mismatches"] or db_row["core_mismatches"]) else None,
+        "mismatches": db_row["nbr_mismatches"] + db_row["core_mismatches"],
+        "ms": db_row["edge_ms"], "plain_ms": db_row["edge_plain_ms"],
+        "bound_ms": db_row["edge_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "shapes": f"one group of {db_row['frames']} frames, N={db_row['N']}, k={db_row['k']}; "
+                  f"launches over {seed_row['frames_timed']} frames",
+    }, {
+        "name": "dbscan_prop", "route": "cuda", "source": "modest_tpu_torch/csrc/dbscan.cu",
+        "replaces": "modest_tpu/ops/pallas_dbscan.py:117",
+        "launches": seed_row["dbscan_launches"]["dbscan_prop"],
+        "calls": seed_row["dbscan_calls"]["dbscan_prop"],
+        "host_reads": seed_row["dbscan_host_reads"], "sweeps": seed_row["dbscan_sweeps"],
+        "max_abs_err": 0 if not db_row["label_mismatches"] else None,
+        "mismatches": db_row["label_mismatches"],
+        "ms": db_row["prop_ms"], "plain_ms": db_row["prop_plain_ms"],
+        "bound_ms": db_row["prop_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "shapes": f"the same group, {db_row['sweeps']} sweeps to the fixpoint; launches, "
+                  f"calls, host reads and sweeps over {seed_row['frames_timed']} frames",
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-"""Model configs as Python dicts, so a run needs no YAML parser.
+"""Configs as Python dicts, so a run needs no YAML parser.
 
 ``POINTRCNN_DYNAMIC_OBJ`` is the ``MODEL`` section of
 ``configs/models/lyft_models/pointrcnn_dynamic_obj.yaml`` (the flagship
-detector, 12288-point Lyft scans) exactly as PyYAML parses it; a test holds
-the two equal.
+detector, 12288-point Lyft scans) and ``PIPELINE_*`` are
+``configs/pipeline/{pp_score,generate_mask}.yaml`` and the
+``data_paths/{fw70_2m,nusc}.yaml`` group, each exactly as PyYAML parses it;
+tests hold them equal.
 """
 from __future__ import annotations
 
@@ -121,3 +123,78 @@ POINTRCNN_DYNAMIC_OBJ = {
         },
     },
 }
+
+
+# ---------------------------------------------------------------------------
+# Label-free pipeline configs: ``configs/pipeline/<name>.yaml`` and its
+# ``data_paths`` group, as PyYAML parses them (``${...}`` interpolations are
+# left in place and resolved by ``cli/common.py::load_pipeline_config``, the
+# way ``modest_tpu/utils/config.py::resolve_interpolations`` does). A test
+# holds each dict equal to its YAML file.
+# ---------------------------------------------------------------------------
+
+PIPELINE_PP_SCORE = {
+    "data_paths": "fw70_2m",
+    "work_dir": ".",
+    "total_part": 1,
+    "part": 0,
+    "seed": 1024,
+    "max_neighbor_dist": 0.3,
+    "remove_ground_plane": False,
+    "limit_traversals": -1,
+    "data_root": "???",
+    "nusc": False,
+    "add_random_noise": 0,
+    "skip_ephe": False,
+    "ephe_type": "entropy",
+}
+
+PIPELINE_GENERATE_MASK = {
+    "data_paths": "fw70_2m",
+    "work_dir": ".",
+    "total_part": 1,
+    "part": 0,
+    "data_root": "???",
+    "calib_path": "${data_root}/calib",
+    "ptc_path": "${data_root}/velodyne",
+    "plane_estimate": {"range": [[-70, 70], [-20, 20]], "max_hs": -1.5, "offset": 0.05},
+    "limit_range": [[-70, 70], [-40, 40]],
+    "graph": {"neighbor_type": "radius_mutual_knn", "affinity_type": "l1",
+              "n_neighbors": 70, "radius": 2.0},
+    "clustering": {"method": "DBSCAN", "DBSCAN": {"eps": 0.1, "min_samples": 10}},
+    "filtering": {"min_points": 10, "max_volume": 120, "min_volume": 0.5,
+                  "min_max_height": 0.5, "max_min_height": 1.0, "percentile": 20,
+                  "min_percentile_pp_score": 0.7},
+    "bbox_gen": {"fit_method": "closeness_to_edge"},
+}
+
+
+def _data_paths(dataset: str, name: str, pp: str, seg: str, bbox: str, labels: str):
+    meta = "${work_dir}/meta_data/" + dataset
+    out = "${work_dir}/intermediate_results/"
+    return {
+        "track_path": f"{meta}/{name[0]}",
+        "idx_info": f"{meta}/{name[1]}",
+        "load_precomputed_lidars": None,
+        "load_save_precomputed_trans_mat": None,
+        "idx_list": f"{meta}/{name[2]}",
+        "pp_score_path": out + pp,
+        "seg_save_dst": out + seg,
+        "bbox_info_save_dst": out + bbox,
+        "label_file_save_dst": out + labels,
+    }
+
+
+PIPELINE_DATA_PATHS = {
+    "fw70_2m": _data_paths(
+        "lyft", ("fw70_2m_train_track_list.pkl", "fw70_2m_valid_train_idx_info.pkl",
+                 "fw70_2m_train_idx.txt"),
+        "lyft_pp_score_fw70_2m_r0.3", "lyft_seg_pp_score_fw70_2m_r0.3/",
+        "lyft_bbox_pp_score_fw70_2m_r0.3/", "lyft_labels_pp_score_fw70_2m_r0.3_fov/"),
+    "nusc": _data_paths(
+        "nuscenes", ("track_list.pkl", "valid_idx_info.pkl", "train_idx.txt"),
+        "nusc_pp_score_fw_30_r0.3/", "nusc_seg_pp_score_fw_30_r0.3/",
+        "nusc_bbox_pp_score_fw_30_r0.3/", "nusc_labels_pp_score_fw_30_r0.3_fov/"),
+}
+
+PIPELINE_CONFIGS = {"pp_score": PIPELINE_PP_SCORE, "generate_mask": PIPELINE_GENERATE_MASK}

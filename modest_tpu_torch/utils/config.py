@@ -93,3 +93,82 @@ def cfg_from_yaml_file(cfg_file, config: Config | None = None) -> Config:
     cfg_file = Path(cfg_file)
     _merge_new_config(config, _load_yaml(cfg_file) or {}, cfg_file.parent)
     return config
+
+
+# YAML 1.1's words for booleans and null, as PyYAML reads them
+_WORDS = {form: value
+          for word, value in (("true", True), ("false", False), ("yes", True), ("no", False),
+                              ("on", True), ("off", False), ("null", None))
+          for form in (word, word.capitalize(), word.upper())} | {"~": None, "": None}
+
+
+def parse_value(text: str):
+    """A ``key=value`` override's value without a YAML parser: JSON first
+    (numbers, lists, quoted strings), then YAML's words for booleans and
+    null, else the text itself."""
+    import json
+
+    try:
+        return json.loads(text)
+    except ValueError:
+        pass
+    return _WORDS.get(text, text)
+
+
+def cfg_from_kv_overrides(overrides, config: Config) -> Config:
+    """Apply hydra-style ``a.b.c=value`` overrides; a bool keeps its type and
+    a list must stay a list, as in ``modest_tpu/utils/config.py::_coerce``."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} must be key=value")
+        full_key, text = item.split("=", 1)
+        keys = full_key.split(".")
+        d = config
+        for sub in keys[:-1]:
+            if sub not in d:
+                d[sub] = Config()
+            d = d[sub]
+        old, new = d.get(keys[-1]), parse_value(text)
+        if old is not None and new is not None:
+            if isinstance(old, bool):
+                new = bool(new)
+            elif isinstance(old, (list, tuple)) and not isinstance(new, (list, tuple)):
+                raise ValueError(f"expected list for override, got {text!r}")
+        d[keys[-1]] = new
+    return config
+
+
+def resolve_interpolations(cfg: Config) -> Config:
+    """Resolve ``${a.b.c}`` references against the root config until a fixed
+    point; a whole-string reference keeps the referenced value's type."""
+    import re
+
+    pattern = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
+
+    def lookup(path):
+        d = cfg
+        for part in path.split("."):
+            d = d[part]
+        return d
+
+    def resolve_str(s):
+        m = pattern.fullmatch(s)
+        if m:
+            return lookup(m.group(1))
+        return pattern.sub(lambda mm: str(lookup(mm.group(1))), s)
+
+    def walk(node):
+        changed = False
+        items = node.items() if isinstance(node, Config) else enumerate(node)
+        for k, v in list(items):
+            if isinstance(v, str) and pattern.search(v):
+                node[k] = resolve_str(v)
+                changed = True
+            elif isinstance(v, (Config, list)):
+                changed |= walk(v)
+        return changed
+
+    for _ in range(10):
+        if not walk(cfg):
+            break
+    return cfg

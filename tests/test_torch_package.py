@@ -1,7 +1,7 @@
 """Rules of the PyTorch port package: it never imports JAX or the JAX
-package, it runs on the card unless the caller asks for the CPU, it ships the
-flagship config as a dict equal to the YAML, and its state-dict keys are
-pcdet's."""
+package (nor PyYAML, tqdm or sklearn, which the card's machine lacks), it
+runs on the card unless the caller asks for the CPU, it ships the flagship
+config as a dict equal to the YAML, and its state-dict keys are pcdet's."""
 import json
 import re
 import shutil
@@ -30,6 +30,25 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|modest
 def test_port_never_imports_jax_or_the_jax_package(path):
     src = (REPO / path).read_text()
     assert not FORBIDDEN.findall(src), f"{path} imports {FORBIDDEN.findall(src)}"
+
+
+THIRD_PARTY = re.compile(r"^\s*(?:import|from)\s+(yaml|tqdm|sklearn)\b", re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in [*(REPO / "modest_tpu_torch").rglob("*.py"),
+                                      REPO / "chip_smoke.py"]))
+def test_port_never_imports_yaml_tqdm_or_sklearn(path):
+    """The card's machine has none of them. The one exception is the lazy
+    ``import yaml`` inside ``utils/config.py::_load_yaml``, which only
+    ``cfg_from_yaml_file`` reaches."""
+    src = (REPO / path).read_text()
+    found = THIRD_PARTY.findall(src)
+    if path == "modest_tpu_torch/utils/config.py":
+        lazy = re.findall(r"def _load_yaml\(.*\):\n    import yaml\b", src)
+        assert found == ["yaml"] and len(lazy) == 1, found
+        return
+    assert not found, f"{path} imports {found}"
 
 
 def test_flagship_dict_equals_the_yaml():
