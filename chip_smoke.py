@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Two paths, each at full size from fixed seeds:
+Four paths, each at full size from fixed seeds:
 
 * the flagship detector's eval forward plus post-processing (PointRCNN,
   configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
@@ -12,7 +12,11 @@ Two paths, each at full size from fixed seeds:
   synthetic multi-traversal dataset written to a temporary directory (5
   traversals of 8 frames and 16 origin frames of ~89.6k points, the
   bench_pipeline.py recipe), then the seed-mask CLI (generate_mask) on those
-  scores in groups of 4 frames.
+  scores in groups of 4 frames;
+* the windowed kNN (nearest_k) at the flagship backbone's four kNN shapes,
+  B = 4, through modest_tpu_torch/tools/knn_bench.py;
+* the label-table gathers (take, take_along_axis) at the DBSCAN gather
+  probe's sizes, through modest_tpu_torch/tools/gather_probe.py.
 
 Phases, each printing one JSON line:
 
@@ -36,8 +40,17 @@ Phases, each printing one JSON line:
    PP counts equal on every 4th query tile, and one frame's seed labels
    (>= 99.9% up to the cluster-id permutation) and boxes (1:1, centre
    < 1 cm) equal;
-9. list the kernels with their launches on the main paths, errors and
-   times.
+9. run tools/knn_bench.py: per shape the certificate, the slot match
+   against the dense exact path (>= 99.9% where certified), the dense
+   fallbacks and the windowed and dense times; then hold the kNN kernel
+   against its plain version on the same windows (packed keys equal);
+10. run tools/gather_probe.py (every probe's result checked); then hold both
+   gather kernels against their plain versions at the probe's shapes
+   (equal), with the one PyTorch call for each timed beside them, and check
+   that an index outside the table is refused;
+11. list the kernels with their launches on the main paths, errors and
+   times. Each path's launch counts are set to 0 just before it and read
+   just after.
 
 Then the card's name and power limit (nvidia-smi) and, last, the result line.
 Any failed check exits non-zero before the result line. Imports torch,
@@ -74,7 +87,7 @@ FPS_PATH_SHAPES = [
     ("roi_sa2", BATCH * 100, 128, 32),
 ]
 FPS_EXTRA_SHAPES = [("ragged_n", BATCH, 1000, 100), ("npoint_1", BATCH, 12288, 1)]
-KERNEL_SOURCES = ("fps", "radius_count", "dbscan")
+KERNEL_SOURCES = ("fps", "radius_count", "dbscan", "knn", "gather")
 # seed path: the PP dataset (bench_pipeline.py sizes) and the seed-mask groups
 PP_TRAVERSALS, PP_FRAMES_PER_TRAVERSAL, PP_ORIGINS = 5, 8, 16
 FRAME = {"n_ground": 60000, "n_objects": 12, "n_wall": 20000}  # tools/pipeline_scenes.synth_frame
@@ -83,6 +96,12 @@ PP_RADIUS = 0.3
 # radius count work per pair test: 3 sub, 3 mul, 2 add, 1 compare, 1 add
 RC_OPS_PER_PAIR = 10
 CPU_TILE_STRIDE = 4  # the CPU side of the PP card-vs-CPU check counts every 4th query tile
+# windowed kNN work per pair: 3 sub, 3 mul, 2 add, the key's and, or
+KNN_OPS_PER_PAIR = 10
+KNN_ITERS = 10     # timed calls per shape in tools/knn_bench.py
+GATHER_ITERS = 10  # timed calls per probe in tools/gather_probe.py
+SECTOR_BYTES = 32  # the smallest piece of device memory a read moves
+MIN_SLOT_MATCH_PCT = 99.9
 
 
 def emit(obj) -> None:
@@ -100,18 +119,27 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up."""
+def kernel_device_ms(fn, reps: int, kernel: str):
+    """Device time per call of the CUDA kernels whose name holds ``kernel``
+    over ``reps`` calls of ``fn``, by torch.profiler: the kernel alone,
+    without the host time between launches that ``device_ms`` sees when a
+    call is shorter than its launch. None when the profiler records no
+    device time for it (``device_ms`` stays the kernel's time then)."""
     import torch
 
     fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if kernel in evt.key and evt.device_type.name == "CUDA":
+            dev_us = getattr(evt, "self_device_time_total", None)
+            total_us += float(dev_us if dev_us is not None else evt.self_cuda_time_total)
+    return total_us / 1e3 / reps if total_us > 0 else None
 
 
 def fps_bound(b: int, n: int, npoint: int):
@@ -144,17 +172,19 @@ def fps_inputs(torch, dev, scenes):
 
 def phase_fps(torch, inputs, card):
     from modest_tpu_torch.ops.fps import furthest_point_sample_cuda, furthest_point_sample_plain
+    from modest_tpu_torch.utils.device import device_ms
 
     rows = {}
     for stage, b, n, npoint in FPS_PATH_SHAPES + FPS_EXTRA_SHAPES:
         x = inputs[stage]
+        dev = x.device
         got = furthest_point_sample_cuda(x, npoint)
         want = furthest_point_sample_plain(x, npoint)
         torch.cuda.synchronize()
         mismatches = int((got != want).sum())
         max_abs_err = int((got.long() - want.long()).abs().max())
-        ms = cuda_ms(lambda: furthest_point_sample_cuda(x, npoint), 10)
-        plain_ms = cuda_ms(lambda: furthest_point_sample_plain(x, npoint), 1)
+        ms = device_ms(lambda: furthest_point_sample_cuda(x, npoint), dev, 10)
+        plain_ms = device_ms(lambda: furthest_point_sample_plain(x, npoint), dev, 1)
         bound_ms, bound_by = fps_bound(b, n, npoint)
         row = {"phase": "fps_vs_plain", "stage": stage, "B": b, "N": n, "npoint": npoint,
                "mismatches": mismatches, "max_abs_err": max_abs_err, "ms": ms,
@@ -201,12 +231,15 @@ def phase_forward(torch, dev, api, model, cfg, scenes, card):
     from modest_tpu_torch.ops.fps import furthest_point_sample_cuda
 
     points = torch.from_numpy(scenes).to(dev)
-    furthest_point_sample_cuda.launches = 0
+    counts = furthest_point_sample_cuda.launches  # per kernel
+    counts.update(dict.fromkeys(counts, 0))
     final = run_path(api, model, cfg, points)
     torch.cuda.synchronize()
-    launches = furthest_point_sample_cuda.launches
-    if launches != 6:
-        fail(f"one forward launched the fps kernel {launches} times, not 6")
+    kernel_launches = dict(counts)
+    launches = sum(kernel_launches.values())
+    # SA1-3 (N >= 1024) take the block kernel; SA4 and the RoI tower the warp kernel
+    if kernel_launches != {"fps_block_kernel": 3, "fps_warp_kernel": 3}:
+        fail(f"one forward launched the fps kernels {kernel_launches} times, not 3 and 3")
     detections = check_final(torch, final, BATCH, "forward on the card")
 
     events = []
@@ -219,7 +252,7 @@ def phase_forward(torch, dev, api, model, cfg, scenes, card):
     stage_ms = {name: 0.0 for name in (*STAGES, "post_nms")}
     forward_ms = []
     torch.cuda.reset_peak_memory_stats(dev)
-    furthest_point_sample_cuda.launches = 0
+    counts.update(dict.fromkeys(counts, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(TIMED_ITERS):
@@ -234,16 +267,17 @@ def phase_forward(torch, dev, api, model, cfg, scenes, card):
             stage_ms[name] += a.elapsed_time(b) / TIMED_ITERS
     wall = time.perf_counter() - t0
     forward_ms.sort()
-    if furthest_point_sample_cuda.launches != 6 * TIMED_ITERS:
-        fail(f"{TIMED_ITERS} forwards launched fps {furthest_point_sample_cuda.launches} times")
+    if sum(counts.values()) != 6 * TIMED_ITERS:
+        fail(f"{TIMED_ITERS} forwards launched the fps kernels {counts} times")
     check_final(torch, final, BATCH, "timed forward on the card")
     emit({"phase": "forward", "batch": BATCH, "points_per_scan": N_POINTS,
-          "fps_launches_per_forward": launches, "detections": detections,
+          "fps_launches_per_forward": launches, "fps_kernel_launches": kernel_launches,
+          "detections": detections,
           "stage_ms": stage_ms, "forward_ms_median": forward_ms[len(forward_ms) // 2],
           "forward_ms_max": forward_ms[-1], "timed_forwards": TIMED_ITERS,
           "scans_per_s": BATCH * TIMED_ITERS / wall,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "card": card})
-    return launches
+    return kernel_launches
 
 
 def match_1to1(np, boxes, scores, rb, rs):
@@ -463,6 +497,7 @@ def phase_radius_count(torch, np, dev, data_root, root, card):
     from modest_tpu_torch.ops.radius_count import (BM, BN, PAD, radius_count_sorted_cuda,
                                                    radius_count_sorted_plain)
     from modest_tpu_torch.pipeline.pp_score import radius2
+    from modest_tpu_torch.utils.device import device_ms
 
     q_s, t_sorted, lohi, n = pp_kernel_inputs(torch, dev, data_root, root)
     r2 = radius2(PP_RADIUS)
@@ -471,8 +506,8 @@ def phase_radius_count(torch, np, dev, data_root, root, card):
     torch.cuda.synchronize()
     mismatches = int((got != want).sum())
     max_abs_err = int((got.long() - want.long()).abs().max())
-    ms = cuda_ms(lambda: radius_count_sorted_cuda(q_s, t_sorted, lohi, r2), 10)
-    plain_ms = cuda_ms(lambda: radius_count_sorted_plain(q_s, t_sorted, lohi, r2), 1)
+    ms = device_ms(lambda: radius_count_sorted_cuda(q_s, t_sorted, lohi, r2), dev, 10)
+    plain_ms = device_ms(lambda: radius_count_sorted_plain(q_s, t_sorted, lohi, r2), dev, 1)
     t_count, _, m = t_sorted.shape
     nq_total = q_s.shape[1]
     lo, hi = lohi[..., 0].long(), lohi[..., 1].long()
@@ -525,6 +560,7 @@ def seed_group_graph(torch, np, dev, data_root, root):
 def phase_dbscan(torch, np, dev, data_root, root, card):
     from modest_tpu_torch.ops import dbscan as D
     from modest_tpu_torch.pipeline.clustering import dbscan_params
+    from modest_tpu_torch.utils.device import device_ms
 
     cfg, (idx, d2, pb, vb), ns, n_pad, k, w = seed_group_graph(torch, np, dev, data_root, root)
     args = (idx, d2, pb, vb, *dbscan_params(cfg.graph.radius, cfg.clustering.DBSCAN.eps),
@@ -538,10 +574,10 @@ def phase_dbscan(torch, np, dev, data_root, root, card):
     nbr_mm = int((graph.nbr != graph_p.nbr).sum())
     core_mm = int((graph.core != graph_p.core).sum())
     lab_mm = int((raw != raw_p).sum())
-    edge_ms = cuda_ms(lambda: D.dbscan_edge_cuda(*args), 10)
-    edge_plain_ms = cuda_ms(lambda: D.dbscan_edge_plain(*args), 3)
-    prop_ms = cuda_ms(lambda: D.dbscan_prop_cuda(graph), 10)
-    prop_plain_ms = cuda_ms(lambda: D.dbscan_prop_plain(graph_p), 1)
+    edge_ms = device_ms(lambda: D.dbscan_edge_cuda(*args), dev, 10)
+    edge_plain_ms = device_ms(lambda: D.dbscan_edge_plain(*args), dev, 3)
+    prop_ms = device_ms(lambda: D.dbscan_prop_cuda(graph), dev, 10)
+    prop_plain_ms = device_ms(lambda: D.dbscan_prop_plain(graph_p), dev, 1)
     b, n = graph.core.shape
     total = b * n
     rows = total * k * 4
@@ -640,6 +676,169 @@ def phase_pipeline_card_vs_cpu(torch, np, dev, data_root, root, rc_state, card):
              f"{len(objs_g)} card / {len(objs_c)} CPU")
 
 
+def phase_knn(torch, dev, card):
+    """The windowed kNN's path: tools/knn_bench.py at its four shapes, B = 4
+    (nearest_k with the dense fallback, the checks, the timed calls)."""
+    from modest_tpu_torch.ops import knn
+    from modest_tpu_torch.tools import knn_bench
+
+    knn.knn_windows_cuda.launches = 0
+    knn.nearest_k.dense_fallbacks = 0
+    rows = knn_bench.run(dev, batch=BATCH, iters=KNN_ITERS)
+    torch.cuda.synchronize()
+    launches, fallbacks = knn.knn_windows_cuda.launches, knn.nearest_k.dense_fallbacks
+    # per shape: nearest_k, the checked run, a warm-up and the timed runs
+    if launches != len(rows) * (3 + KNN_ITERS):
+        fail(f"tools/knn_bench.py launched the knn kernel {launches} times over {len(rows)} "
+             f"shapes")
+    for row in rows:
+        emit({"phase": "knn", **row, "card": card})
+        if row["certificate"] and row["slot_match_pct"] < MIN_SLOT_MATCH_PCT:
+            fail(f"knn {row['tag']}: slot match {row['slot_match_pct']}% < {MIN_SLOT_MATCH_PCT}%")
+        if row["dense_fallbacks"] != (0 if row["certificate"] else 1):
+            fail(f"knn {row['tag']}: certificate {row['certificate']} but "
+                 f"{row['dense_fallbacks']} dense fallbacks")
+    return rows, launches, fallbacks
+
+
+def phase_knn_vs_plain(torch, np, dev, card):
+    """The kNN kernel against its plain twin on the window inputs nearest_k
+    builds at the four shapes: packed keys equal."""
+    from modest_tpu_torch.ops import knn
+    from modest_tpu_torch.tools import knn_bench
+    from modest_tpu_torch.utils.device import device_ms
+
+    rows = []
+    for case in knn_bench.shape_cases(BATCH):
+        new_xyz = torch.from_numpy(case["new_xyz"]).to(dev)
+        xyz = torch.from_numpy(case["xyz"]).to(dev)
+        k, w = case["k"], knn._pick_window(case["n"])
+        args = knn.sorted_windows(new_xyz, xyz, w, case["radius"])["args"]
+        got = knn.knn_windows_cuda(*args, w=w, k=k, frames=BATCH)
+        want = knn.knn_windows_plain(*args, w=w, k=k, frames=BATCH)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        max_abs_err = int((got.long() - want.long()).abs().max())
+        errors = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def launch():
+            return knn.knn_windows_cuda(*args, w=w, k=k, frames=BATCH, errors=errors)
+
+        ms = device_ms(launch, dev, 10)
+        kernel_ms = kernel_device_ms(launch, 10, "knn_window_kernel")
+        if int(errors.item()):
+            fail(f"knn kernel at {case['tag']}: a window outside its frame")
+        plain_ms = device_ms(lambda: knn.knn_windows_plain(*args, w=w, k=k, frames=BATCH), dev, 3)
+        bm, bn = BATCH * case["m"], BATCH * case["n"]
+        pairs = bm * w
+        nbytes = 3 * bm * 4 + 3 * bn * 4 + (bm // knn.QC) * 4 + bm * k * 4
+        bound_ms, bound_by = bound(pairs * KNN_OPS_PER_PAIR, nbytes)
+        row = {"phase": "knn_vs_plain", "tag": case["tag"], "B": BATCH, "M": case["m"],
+               "N": case["n"], "k": k, "window": w, "pairs": pairs, "mismatches": mismatches,
+               "max_abs_err": max_abs_err, "ms": ms, "kernel_device_ms": kernel_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None, "card": card}
+        emit(row)
+        if mismatches:
+            fail(f"knn kernel disagrees with its plain version at {case['tag']}: "
+                 f"{mismatches} keys")
+        rows.append(row)
+    # a window that leaves its frame is refused, not read
+    bad = args[-1].clone()
+    bad[-1] = 0  # the last chunk belongs to the last frame
+    try:
+        knn.knn_windows_cuda(*args[:-1], bad, w=w, k=k, frames=BATCH)
+    except ValueError:
+        pass
+    else:
+        fail("knn_windows_cuda accepted a window outside its frame")
+    return rows
+
+
+def phase_gather(torch, dev, card):
+    """The gathers' path: tools/gather_probe.py at its full size."""
+    from modest_tpu_torch.ops import gather
+    from modest_tpu_torch.tools import gather_probe
+
+    gather.take_cuda.launches = gather.take_along_axis_cuda.launches = 0
+    rows = gather_probe.run(dev, iters=GATHER_ITERS)
+    torch.cuda.synchronize()
+    launches = {"take": gather.take_cuda.launches,
+                "take_along_axis": gather.take_along_axis_cuda.launches}
+    for row in rows:
+        emit({"phase": "gather_probe", **row, "card": card})
+        if not row.get("correct", True):
+            fail(f"gather probe {row['probe']} is wrong")
+    # take: the small and the full probe, each checked, warmed up and timed;
+    # take_along_axis: two tiles, each checked, warmed up and timed
+    want = {"take": 2 * (2 + GATHER_ITERS), "take_along_axis": 2 * (2 + GATHER_ITERS)}
+    if launches != want:
+        fail(f"tools/gather_probe.py launched the gather kernels {launches} times, not {want}")
+    return launches
+
+
+def phase_gather_vs_plain(torch, np, dev, card):
+    """Both gather kernels against their plain twins at the probe's shapes,
+    with the one PyTorch call that computes each (timed only)."""
+    from modest_tpu_torch.ops import gather
+    from modest_tpu_torch.tools import gather_probe as gp
+    from modest_tpu_torch.utils.device import device_ms
+
+    idx_h, labels_h, _ = gp.probe_data()
+    idx = torch.from_numpy(idx_h).to(dev)
+    labels = torch.from_numpy(labels_h).to(dev)
+    cases = [("take", "full", labels, idx),
+             ("take", "small", labels[:1024].contiguous(), (idx[:256] % 1024).contiguous())]
+    for r in (8, 256):
+        cases.append(("take_along_axis", f"rows_{r}", labels[:gp.W].repeat(r, 1).contiguous(),
+                      (idx[:r] % gp.W).contiguous()))
+    rows = {}
+    for name, probe, tab, ix in cases:
+        cuda_fn = getattr(gather, f"{name}_cuda")
+        plain_fn = getattr(gather, f"{name}_plain")
+        errors = torch.zeros(1, dtype=torch.int32, device=dev)
+        got, want = cuda_fn(tab, ix), plain_fn(tab, ix)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        max_abs_err = int((got.long() - want.long()).abs().max())
+        ms = device_ms(lambda: cuda_fn(tab, ix, errors), dev, 20)
+        kernel_ms = kernel_device_ms(lambda: cuda_fn(tab, ix, errors), 20, f"{name}_kernel")
+        gather.raise_on_errors(errors, name)
+        plain_ms = device_ms(lambda: plain_fn(tab, ix), dev, 5)
+        if name == "take":  # the library call: one index, int32 indices as they are
+            library_ms = device_ms(lambda: tab[ix], dev, 20)
+        else:  # torch.gather takes only int64 indices: widened beforehand
+            ix64 = ix.long()
+            library_ms = device_ms(lambda: torch.gather(tab, 1, ix64), dev, 20)
+        # idx read and out written once; of the table, the 32-byte sectors
+        # this run's indices touch, each read once
+        flat = ix.long() if name == "take" else ix.long() + torch.arange(
+            ix.shape[0], device=dev)[:, None] * tab.shape[1]
+        table_sectors = int(torch.unique(flat // (SECTOR_BYTES // 4)).numel())
+        nbytes = ix.numel() * 4 * 2 + table_sectors * SECTOR_BYTES
+        bound_ms, bound_by = bound(0, nbytes)
+        row = {"phase": "gather_vs_plain", "kernel": name, "probe": probe,
+               "table": list(tab.shape), "idx": list(ix.shape),
+               "table_sectors_touched": table_sectors, "mismatches": mismatches,
+               "max_abs_err": max_abs_err, "ms": ms, "kernel_device_ms": kernel_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "card": card}
+        emit(row)
+        if mismatches:
+            fail(f"{name} kernel disagrees with its plain version at {probe}: {mismatches}")
+        rows[(name, probe)] = row
+    # an out-of-range index is refused, not clamped
+    bad = idx[:4].clone()
+    bad[1, 3] = labels.shape[0]
+    try:
+        gather.take_cuda(labels, bad)
+    except IndexError:
+        pass
+    else:
+        fail("take_cuda accepted an index outside its table")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -676,7 +875,7 @@ def main() -> int:
     cfg = Config(POINTRCNN_DYNAMIC_OBJ)
     model = build_network(cfg, len(POINTRCNN_DYNAMIC_OBJ_CLASS_NAMES), device="cuda", seed=0)
     randomise_bn(torch, model, seed=0)
-    launches = phase_forward(torch, dev, api, model, cfg, scenes, card)
+    fps_launches = phase_forward(torch, dev, api, model, cfg, scenes, card)
     phase_card_vs_cpu(torch, np, api, build_network, model, cfg, scenes, card)
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
@@ -695,16 +894,28 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    path = [fps_rows[stage] for stage, *_ in FPS_PATH_SHAPES]
-    emit({"kernels": [{
-        "name": "fps", "route": "cuda", "source": "modest_tpu_torch/csrc/fps.cu",
-        "replaces": "modest_tpu/ops/pallas_fps.py:137", "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in fps_rows.values()),
-        "mismatches": sum(r["mismatches"] for r in fps_rows.values()),
-        "ms": sum(r["ms"] for r in path), "plain_ms": sum(r["plain_ms"] for r in path),
-        "bound_ms": sum(r["bound_ms"] for r in path), "bound_by": "operations",
-        "library_ms": None, "shapes": "sum over the 6 FPS calls of one B=4 forward",
-    }, {
+    knn_rows, knn_launches, knn_fallbacks = phase_knn(torch, dev, card)
+    knn_kernel_rows = phase_knn_vs_plain(torch, np, dev, card)
+    gather_launches = phase_gather(torch, dev, card)
+    gather_rows = phase_gather_vs_plain(torch, np, dev, card)
+
+    fps_kernels = []
+    for kernel, replaces, stages in (
+            ("fps_block_kernel", "modest_tpu/ops/pallas_fps.py:146",
+             ("backbone_sa1", "backbone_sa2", "backbone_sa3")),
+            ("fps_warp_kernel", "modest_tpu/ops/pallas_fps.py:157",
+             ("backbone_sa4", "roi_sa1", "roi_sa2"))):
+        path = [fps_rows[stage] for stage in stages]
+        fps_kernels.append({
+            "name": kernel, "route": "cuda", "source": "modest_tpu_torch/csrc/fps.cu",
+            "replaces": replaces, "launches": fps_launches[kernel],
+            "max_abs_err": max(r["max_abs_err"] for r in path),
+            "mismatches": sum(r["mismatches"] for r in path),
+            "ms": sum(r["ms"] for r in path), "plain_ms": sum(r["plain_ms"] for r in path),
+            "bound_ms": sum(r["bound_ms"] for r in path), "bound_by": "operations",
+            "library_ms": None,
+            "shapes": f"sum over the FPS calls {', '.join(stages)} of one B=4 forward"})
+    emit({"kernels": [*fps_kernels, {
         "name": "radius_count", "route": "cuda", "source": "modest_tpu_torch/csrc/radius_count.cu",
         "replaces": "modest_tpu/ops/pallas_radius_count.py:81",
         "launches": pp_row["radius_count_launches"], "max_abs_err": rc_row["max_abs_err"],
@@ -735,6 +946,35 @@ def main() -> int:
         "bound_ms": db_row["prop_bound_ms"], "bound_by": "bytes", "library_ms": None,
         "shapes": f"the same group, {db_row['sweeps']} sweeps to the fixpoint; launches, "
                   f"calls, host reads and sweeps over {seed_row['frames_timed']} frames",
+    }, {
+        "name": "knn", "route": "cuda", "source": "modest_tpu_torch/csrc/knn.cu",
+        "replaces": "modest_tpu/ops/pallas_knn.py:99", "launches": knn_launches,
+        "dense_fallbacks": knn_fallbacks,
+        "max_abs_err": max(r["max_abs_err"] for r in knn_kernel_rows),
+        "mismatches": sum(r["mismatches"] for r in knn_kernel_rows),
+        "ms": sum(r["ms"] for r in knn_kernel_rows),
+        "kernel_device_ms": None if any(r["kernel_device_ms"] is None for r in knn_kernel_rows)
+        else sum(r["kernel_device_ms"] for r in knn_kernel_rows),
+        "plain_ms": sum(r["plain_ms"] for r in knn_kernel_rows),
+        "bound_ms": sum(r["bound_ms"] for r in knn_kernel_rows), "bound_by": "operations",
+        "library_ms": None, "dense_ms": sum(r["dense_ms"] for r in knn_rows),
+        "shapes": "sum over the 4 shapes of tools/knn_bench.py at B=4 (SA1, SA2, FP0, FP1); "
+                  "launches over its run",
+    }, {
+        "name": "take", "route": "cuda", "source": "modest_tpu_torch/csrc/gather.cu",
+        "replaces": "scripts_dev/gather_probe.py:119", "launches": gather_launches["take"],
+        **{key: gather_rows[("take", "full")][key] for key in (
+            "max_abs_err", "mismatches", "ms", "kernel_device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "shapes": "table (131072,), idx (131072, 70); launches over tools/gather_probe.py",
+    }, {
+        "name": "take_along_axis", "route": "cuda", "source": "modest_tpu_torch/csrc/gather.cu",
+        "replaces": "scripts_dev/gather_probe.py:148",
+        "launches": gather_launches["take_along_axis"],
+        **{key: gather_rows[("take_along_axis", "rows_256")][key] for key in (
+            "max_abs_err", "mismatches", "ms", "kernel_device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "shapes": "tab (256, 4096), idx (256, 70); launches over tools/gather_probe.py",
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

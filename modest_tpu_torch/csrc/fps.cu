@@ -177,13 +177,16 @@ extern "C" {
 int fps_max_points() { return static_cast<int>((kMaxSmem - 1024) / (4 * sizeof(float))); }
 
 // xyz: (batch, n, 3) float32, contiguous, on the device; out: (batch, npoint)
-// int32. Launches on `stream` and returns cudaGetLastError() (0 on success).
-int fps_launch(const float* xyz, int* out, int batch, int n, int npoint, void* stream) {
+// int32. Launches on `stream` and returns cudaGetLastError() (0 on success);
+// *kernel (host memory) gets the name of the kernel it launched.
+int fps_launch(const float* xyz, int* out, int batch, int n, int npoint, const char** kernel,
+               void* stream) {
   if (batch <= 0 || n <= 0 || npoint <= 0 || n > fps_max_points()) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n >= kLargeCloud) {
+    *kernel = "fps_block_kernel";
     const size_t smem = 4 * sizeof(float) * static_cast<size_t>(n);
     cudaError_t e = cudaFuncSetAttribute(fps_block_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -191,6 +194,7 @@ int fps_launch(const float* xyz, int* out, int batch, int n, int npoint, void* s
     if (e != cudaSuccess) return static_cast<int>(e);
     fps_block_kernel<<<batch, kBlockThreads, smem, st>>>(xyz, out, n, npoint);
   } else {
+    *kernel = "fps_warp_kernel";
     const size_t smem = kSmallWarps * 4 * sizeof(float) * static_cast<size_t>(n);
     cudaError_t e = cudaFuncSetAttribute(fps_warp_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -29,7 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ._build import load_library
+from ._build import check_cuda, load_library
 
 SENT = 0x3FFFFFFF  # label of non-core points in the propagation table
 MAX_SWEEPS = 4096
@@ -146,14 +146,7 @@ def dbscan_edge_cuda(idx, d2, pp, valid, radius2: float, eps: float,
     contiguous CUDA tensors on one device; raises on any other input. A
     neighbour index outside its frame is reported by ``dbscan_prop_cuda``
     (the first host read of the kernels' flags)."""
-    tensors = {"idx": idx, "d2": d2, "pp": pp, "valid": valid}
-    for name, x in tensors.items():
-        if not x.is_cuda:
-            raise ValueError(f"dbscan_edge_cuda needs CUDA tensors, {name} is on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"dbscan_edge_cuda needs contiguous {name}")
-    if len({x.device for x in tensors.values()}) != 1:
-        raise ValueError("dbscan_edge_cuda needs all tensors on one device")
+    check_cuda("dbscan_edge_cuda", {"idx": idx, "d2": d2, "pp": pp, "valid": valid})
     _check(idx, d2, pp, valid, "dbscan_edge_cuda")
     b, n, k = idx.shape
     total = b * n

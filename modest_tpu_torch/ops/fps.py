@@ -19,8 +19,8 @@ from ._build import load_library
 @functools.cache
 def _lib():
     lib = load_library("fps")
-    lib.fps_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.fps_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p]
     lib.fps_launch.restype = ctypes.c_int
     lib.fps_max_points.argtypes = []
     lib.fps_max_points.restype = ctypes.c_int
@@ -66,13 +66,17 @@ def furthest_point_sample_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         raise ValueError(f"furthest_point_sample_cuda: unsupported B={b}, N={n}, "
                          f"npoint={npoint} (N <= {lib.fps_max_points()})")
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    kernel = ctypes.c_char_p()
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fps_launch(xyz.data_ptr(), out.data_ptr(), b, n, npoint, stream)
+        err = lib.fps_launch(xyz.data_ptr(), out.data_ptr(), b, n, npoint, ctypes.byref(kernel),
+                             stream)
     if err != 0:
         raise RuntimeError(f"fps kernel launch failed: {lib.fps_error_string(err).decode()}")
-    furthest_point_sample_cuda.launches += 1
+    furthest_point_sample_cuda.launches[kernel.value.decode()] += 1
     return out
 
 
-furthest_point_sample_cuda.launches = 0  # kernel launches since the last reset
+# kernel launches since the last reset, per kernel of csrc/fps.cu (the one
+# fps_launch reports it started)
+furthest_point_sample_cuda.launches = {"fps_block_kernel": 0, "fps_warp_kernel": 0}

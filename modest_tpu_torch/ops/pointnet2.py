@@ -31,6 +31,18 @@ def pairwise_dist2(a, b):
     return torch.clamp_min(_sq_norm(a)[..., :, None] + _sq_norm(b)[..., None, :] - 2.0 * cross, 0.0)
 
 
+def nearest_topk(d2, k: int):
+    """(…, N) non-negative squared distances → (top_d2, top_idx int64) of
+    the k nearest, ascending, ties to the lower index: JAX's exact form,
+    ``lax.top_k(-d2, k)``. ``torch.topk`` leaves the order of ties open, so
+    it ranks one int64 key per entry, the float bits (which order like the
+    values) then the column."""
+    n = d2.shape[-1]
+    key = (d2.view(torch.int32).long() << 32) | torch.arange(n, device=d2.device)
+    top = torch.topk(key, min(k, n), dim=-1, largest=False, sorted=True).values
+    return (top >> 32).to(torch.int32).view(torch.float32), top & 0xFFFFFFFF
+
+
 def furthest_point_sample(xyz, npoint: int):
     """(B, N, 3) → (B, npoint) int32 indices.
 

@@ -21,7 +21,7 @@ import threading
 
 import torch
 
-from ._build import load_library
+from ._build import check_cuda, load_library
 
 BN = 256   # queries per tile
 BM = 2048  # pool points per window tile
@@ -118,13 +118,8 @@ def radius_count_sorted_cuda(q_sorted: torch.Tensor, t_sorted: torch.Tensor,
     """The same as ``radius_count_sorted_plain``, by the kernel in
     ``csrc/radius_count.cu``. Needs contiguous CUDA tensors on one device;
     raises on any other input."""
-    for name, x in (("queries", q_sorted), ("pool", t_sorted), ("windows", lohi)):
-        if not x.is_cuda:
-            raise ValueError(f"radius_count_sorted_cuda needs CUDA tensors, {name} is on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"radius_count_sorted_cuda needs contiguous {name}")
-    if len({q_sorted.device, t_sorted.device, lohi.device}) != 1:
-        raise ValueError("radius_count_sorted_cuda needs all tensors on one device")
+    check_cuda("radius_count_sorted_cuda", {"queries": q_sorted, "pool": t_sorted,
+                                            "windows": lohi})
     _check(q_sorted, t_sorted, lohi, "radius_count_sorted_cuda")
     t_count, _, m = t_sorted.shape
     nq_total = q_sorted.shape[1]

@@ -22,6 +22,8 @@ import subprocess
 
 import torch
 
+from ..utils.device import device_ms
+
 # (name, a shape, b shape, terms, calls per path unit, unit)
 SHAPES = (
     # kNN cross term: (B, 256 queries, 1) x (B, 1, 8192 candidates), 192 chunks
@@ -48,30 +50,20 @@ def dot_f32(a, b):
     return s
 
 
-def device_ms(fn, reps: int) -> float:
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("dot_rounding_cost needs a CUDA device")
+    dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
     rows = []
     for name, a_shape, b_shape, terms, calls, unit in SHAPES:
         a = [((torch.rand(a_shape, generator=gen) - 0.5) * 140).cuda() for _ in range(terms)]
         b = [((torch.rand(b_shape, generator=gen) - 0.5) * 140).cuda() for _ in range(terms)]
-        f64_ms = device_ms(lambda: dot_f64_fma(a, b), args.reps)
-        f32_ms = device_ms(lambda: dot_f32(a, b), args.reps)
+        f64_ms = device_ms(lambda: dot_f64_fma(a, b), dev, args.reps)
+        f32_ms = device_ms(lambda: dot_f32(a, b), dev, args.reps)
         differ = float((dot_f64_fma(a, b) != dot_f32(a, b)).float().mean())
         rows.append({"name": name, "shape": list(torch.broadcast_shapes(a_shape, b_shape)),
                      "terms": terms, "f64_fma_ms": f64_ms, "f32_ms": f32_ms,

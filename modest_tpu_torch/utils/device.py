@@ -18,6 +18,22 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def device_ms(fn, dev: torch.device, iters: int):
+    """Mean time per call of ``fn`` on the card by CUDA events, over
+    ``iters`` calls after one warm-up; None off the card (times come from
+    the card only)."""
+    if dev.type != "cuda":
+        return None
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / iters
+
+
 class StageTimer:
     """Host wall time per named stage, summed over calls. On a CUDA device
     each stage starts and ends with ``torch.cuda.synchronize()``, so a

@@ -1,0 +1,94 @@
+"""Override values in the PyTorch port vs PyYAML.
+
+The JAX CLIs read a ``key=value`` override's value with ``yaml.safe_load``;
+the port reads it without PyYAML (the card's machine has none) and must give
+the same value and type, or raise ``ValueError`` where YAML would read the
+text as something other than a plain scalar or a flow collection.
+"""
+import math
+
+import pytest
+
+from modest_tpu.utils.config import Config as JConfig
+from modest_tpu.utils.config import cfg_from_kv_overrides as j_cfg_from_kv_overrides
+from modest_tpu_torch.utils.config import Config, cfg_from_kv_overrides, parse_value
+
+yaml = pytest.importorskip("yaml")
+
+
+def _same(a, b):
+    """Equal values of equal types, NaN equal to NaN, recursively."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, float):
+        return a == b or (math.isnan(a) and math.isnan(b))
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(_same(a[key], b[key]) for key in a)
+    return a == b
+
+
+@pytest.mark.parametrize("text", [
+    # the values on which the JSON-first reading disagreed with PyYAML
+    "[Car,Pedestrian]", "[Car, Pedestrian, Cyclist]", "1e-3", "1.5e3", "0x1F", "017", "1_000",
+    "1:30", ".inf", "NaN", "Infinity", "2.", "{a: 1}",
+    # forms that agreed before and must still agree
+    "30", "-1", "0.3", "1.5e-3", "true", "False", "YES", "off", "null", "~", "",
+    "[[-10, 10], [-5, 5]]", "/data/x", "PCA", '"quoted"',
+    # more of YAML 1.1's scalars
+    "-.inf", "+.INF", ".NaN", ".5", "-.5", "1.0e+3", "0b1_01", "-0x1f", "+12", "0", "00", "09",
+    "1:30.5", "190:20:30", "1:60", "0o17", "1__0", "1._5",
+    # quoting, nesting and the characters a plain scalar may hold
+    "'it''s'", '"tab\\there \\x41\\u00e9"', "[a b, 'c, d', \"e\"]", "[]", "{}", "[1,]",
+    "{a: , b: [1, {c: ~}], 'd': \"e\"}", "{a}", "{a:1}", "{\"a\":1}", "[a:b, http://x]",
+    "http://x:80/a", "a:b", "-a", "?a", ":a", "a#b", "a, b", "a]", "  padded  ", "a  b",
+])
+def test_parse_value_reads_as_pyyaml_does(text):
+    got, want = parse_value(text), yaml.safe_load(text)
+    assert _same(got, want), (got, want)
+
+
+@pytest.mark.parametrize("text", [
+    "2001-12-14",           # a timestamp
+    "2001-12-14 1:00:00",
+    "&a 1", "*a", "!!str 1",  # anchors, aliases, tags
+    "a: b", "key:",          # a block mapping
+    "- a", "-", "? a",      # a block sequence, a complex key
+    "x #c", "#c",           # comments
+    "|", ">",               # block scalars
+    "---", "...",           # document markers
+    "[a: 1]", "[?a]", "[a", "{a: b: c}", "[1]x", "'open", '"\\q"', "a\tb", "<<", "=",
+])
+def test_parse_value_refuses_what_yaml_reads_otherwise(text):
+    with pytest.raises(ValueError, match="override value"):
+        parse_value(text)
+
+
+@pytest.mark.parametrize("old,text", [
+    (["Car"], "[Car,Pedestrian]"),
+    (True, "0"),
+    (False, "yes"),
+    (0.3, "1e-3"),
+    (16, "0x10"),
+    ({"a": 1}, "{a: 2, b: [x]}"),
+])
+def test_overrides_match_the_jax_cli(old, text):
+    got = cfg_from_kv_overrides([f"model.value={text}"], Config({"model": {"value": old}}))
+    want = j_cfg_from_kv_overrides([f"model.value={text}"], JConfig({"model": {"value": old}}))
+    assert _same(got.to_dict(), want.to_dict())
+
+
+def test_class_names_override_reads_a_flow_list():
+    """``class_names=[Car,Pedestrian]``: a list in both CLIs (the port used
+    to keep the string and raise "expected list")."""
+    base = {"class_names": ["Car"]}
+    got = cfg_from_kv_overrides(["class_names=[Car,Pedestrian]"], Config(base))
+    want = j_cfg_from_kv_overrides(["class_names=[Car,Pedestrian]"], JConfig(base))
+    assert got.class_names == want.class_names == ["Car", "Pedestrian"]
+
+
+def test_a_list_override_must_stay_a_list():
+    for cfg_fn, config in ((cfg_from_kv_overrides, Config), (j_cfg_from_kv_overrides, JConfig)):
+        with pytest.raises(ValueError, match="expected list"):
+            cfg_fn(["class_names=Car"], config({"class_names": ["Car", "Pedestrian"]}))

@@ -55,7 +55,7 @@ def test_fps_dispatch_on_cpu_is_plain():
 def test_fps_cuda_wrapper_refuses_cpu_tensors():
     """The kernel wrapper never falls back: a CPU tensor is an error, and
     the launch count does not move."""
-    before = furthest_point_sample_cuda.launches
+    before = dict(furthest_point_sample_cuda.launches)
     with pytest.raises(ValueError, match="CUDA tensor"):
         furthest_point_sample_cuda(torch.zeros(1, 8, 3), 4)
     assert furthest_point_sample_cuda.launches == before
