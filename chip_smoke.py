@@ -23,7 +23,8 @@ Phases, each printing one JSON line:
 1. build the hand-written CUDA kernels from modest_tpu_torch/csrc, one nvcc
    per source, all at once;
 2. hold FPS against its plain PyTorch version at every shape the forward
-   gives it (indices must be equal), with both times;
+   gives it and on tie-heavy and ragged clouds at SA1 size (indices must be
+   equal), with both times, the cluster size and the time per step;
 3. run the forward + post_process on 4 synthetic scans (the bench.py scene
    recipe) and check the output, the FPS launch count and the stage times;
 4. compare the card's final boxes on one scan with the port's own CPU
@@ -34,8 +35,9 @@ Phases, each printing one JSON line:
 6. run the seed-mask CLI on the card: frames/s, DBSCAN launches, stage
    split, seed boxes (must be > 0);
 7. hold the radius count against its plain version at the PP path's shape
-   (0 mismatches), and the DBSCAN edge and propagation kernels against
-   theirs on a group of 4 full-size frames (equal rows, core flags, labels);
+   (0 mismatches) with its work-item size and count; the DBSCAN edge and
+   propagation kernels against theirs on a group of 4 full-size frames
+   (equal rows, core flags, labels);
 8. card vs CPU on the seed path: the transformed, sorted PP inputs equal,
    PP counts equal on every 4th query tile, and one frame's seed labels
    (>= 99.9% up to the cluster-id permutation) and boxes (1:1, centre
@@ -46,8 +48,9 @@ Phases, each printing one JSON line:
    against its plain version on the same windows (packed keys equal);
 10. run tools/gather_probe.py (every probe's result checked); then hold both
    gather kernels against their plain versions at the probe's shapes
-   (equal), with the one PyTorch call for each timed beside them, and check
-   that an index outside the table is refused;
+   (equal), with the one PyTorch call for each timed beside them (CUDA
+   events and torch.profiler device time), and check that an index outside
+   the table is refused;
 11. list the kernels with their launches on the main paths, errors and
    times. Each path's launch counts are set to 0 just before it and read
    just after.
@@ -86,7 +89,11 @@ FPS_PATH_SHAPES = [
     ("roi_sa1", BATCH * 100, 512, 128),
     ("roi_sa2", BATCH * 100, 128, 32),
 ]
-FPS_EXTRA_SHAPES = [("ragged_n", BATCH, 1000, 100), ("npoint_1", BATCH, 12288, 1)]
+FPS_EXTRA_SHAPES = [("ragged_n", BATCH, 1000, 100), ("npoint_1", BATCH, 12288, 1),
+                    # ties and boundaries of the cluster kernel at SA1 size: duplicates
+                    # in different cluster ranks, a 1 m grid, sizes no cluster splits evenly
+                    ("dup_ranks", BATCH, 12288, 4096), ("grid_quantised", BATCH, 12288, 4096),
+                    ("ragged_12000", BATCH, 12000, 4096), ("ragged_4000", BATCH, 4000, 1024)]
 KERNEL_SOURCES = ("fps", "radius_count", "dbscan", "knn", "gather")
 # seed path: the PP dataset (bench_pipeline.py sizes) and the seed-mask groups
 PP_TRAVERSALS, PP_FRAMES_PER_TRAVERSAL, PP_ORIGINS = 5, 8, 16
@@ -121,7 +128,8 @@ def card_line() -> str:
 
 def kernel_device_ms(fn, reps: int, kernel: str):
     """Device time per call of the CUDA kernels whose name holds ``kernel``
-    over ``reps`` calls of ``fn``, by torch.profiler: the kernel alone,
+    ("" for every kernel ``fn`` starts) over ``reps`` calls of ``fn``, by
+    torch.profiler: the kernel alone,
     without the host time between launches that ``device_ms`` sees when a
     call is shorter than its launch. None when the profiler records no
     device time for it (``device_ms`` stays the kernel's time then)."""
@@ -158,12 +166,19 @@ def fps_inputs(torch, dev, scenes):
     xyz = torch.from_numpy(scenes[..., :3]).to(dev).contiguous()
     inputs = {}
     for stage, b, n, npoint in FPS_PATH_SHAPES + FPS_EXTRA_SHAPES:
+        sa1 = inputs.get("backbone_sa1")
         if stage.startswith("backbone"):
             inputs[stage] = xyz
             idx = furthest_point_sample_plain(xyz, npoint).long()
             xyz = torch.gather(xyz, 1, idx[..., None].expand(-1, -1, 3)).contiguous()
         elif stage == "npoint_1":
-            inputs[stage] = inputs["backbone_sa1"]
+            inputs[stage] = sa1
+        elif stage == "dup_ranks":  # point j + N/2 repeats point j
+            inputs[stage] = torch.cat([sa1[:, :n // 2], sa1[:, :n // 2]], dim=1).contiguous()
+        elif stage == "grid_quantised":
+            inputs[stage] = torch.round(sa1)
+        elif stage in ("ragged_12000", "ragged_4000"):
+            inputs[stage] = sa1[:, :n].contiguous()
         else:
             cloud = (torch.rand(b, n, 3, generator=gen) - 0.5) * torch.tensor([4.0, 2.0, 1.6])
             inputs[stage] = cloud.to(dev).contiguous()
@@ -171,7 +186,9 @@ def fps_inputs(torch, dev, scenes):
 
 
 def phase_fps(torch, inputs, card):
-    from modest_tpu_torch.ops.fps import furthest_point_sample_cuda, furthest_point_sample_plain
+    """Returns the rows by stage."""
+    from modest_tpu_torch.ops.fps import (cluster_size, furthest_point_sample_cuda,
+                                          furthest_point_sample_plain)
     from modest_tpu_torch.utils.device import device_ms
 
     rows = {}
@@ -187,7 +204,8 @@ def phase_fps(torch, inputs, card):
         plain_ms = device_ms(lambda: furthest_point_sample_plain(x, npoint), dev, 1)
         bound_ms, bound_by = fps_bound(b, n, npoint)
         row = {"phase": "fps_vs_plain", "stage": stage, "B": b, "N": n, "npoint": npoint,
-               "mismatches": mismatches, "max_abs_err": max_abs_err, "ms": ms,
+               "cluster": cluster_size(n) or None, "mismatches": mismatches,
+               "max_abs_err": max_abs_err, "ms": ms, "us_per_step": ms * 1e3 / max(npoint - 1, 1),
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "card": card}
         emit(row)
@@ -237,8 +255,8 @@ def phase_forward(torch, dev, api, model, cfg, scenes, card):
     torch.cuda.synchronize()
     kernel_launches = dict(counts)
     launches = sum(kernel_launches.values())
-    # SA1-3 (N >= 1024) take the block kernel; SA4 and the RoI tower the warp kernel
-    if kernel_launches != {"fps_block_kernel": 3, "fps_warp_kernel": 3}:
+    # SA1-3 (N >= 1024) take the cluster kernel; SA4 and the RoI tower the warp kernel
+    if kernel_launches != {"fps_cluster_kernel": 3, "fps_warp_kernel": 3}:
         fail(f"one forward launched the fps kernels {kernel_launches} times, not 3 and 3")
     detections = check_final(torch, final, BATCH, "forward on the card")
 
@@ -494,8 +512,9 @@ def pp_kernel_inputs(torch, dev, data_root, root):
 
 
 def phase_radius_count(torch, np, dev, data_root, root, card):
-    from modest_tpu_torch.ops.radius_count import (BM, BN, PAD, radius_count_sorted_cuda,
-                                                   radius_count_sorted_plain)
+    from modest_tpu_torch.ops.radius_count import (BM, BN, CHUNK_TILES, PAD,
+                                                   radius_count_sorted_cuda,
+                                                   radius_count_sorted_plain, split_windows)
     from modest_tpu_torch.pipeline.pp_score import radius2
     from modest_tpu_torch.utils.device import device_ms
 
@@ -507,6 +526,8 @@ def phase_radius_count(torch, np, dev, data_root, root, card):
     mismatches = int((got != want).sum())
     max_abs_err = int((got.long() - want.long()).abs().max())
     ms = device_ms(lambda: radius_count_sorted_cuda(q_s, t_sorted, lohi, r2), dev, 10)
+    kernel_ms = kernel_device_ms(lambda: radius_count_sorted_cuda(q_s, t_sorted, lohi, r2), 10,
+                                 "radius_count_kernel")
     plain_ms = device_ms(lambda: radius_count_sorted_plain(q_s, t_sorted, lohi, r2), dev, 1)
     t_count, _, m = t_sorted.shape
     nq_total = q_s.shape[1]
@@ -524,7 +545,9 @@ def phase_radius_count(torch, np, dev, data_root, root, card):
     nbytes = 3 * nq_total * 4 + t_count * 3 * m * 4 + lohi.numel() * 4 + t_count * nq_total * 4
     bound_ms, bound_by = bound(needed * RC_OPS_PER_PAIR, nbytes)
     row = {"phase": "radius_count_vs_plain", "queries": n, "Nq": nq_total, "T": t_count, "M": m,
-           "mismatches": mismatches, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+           "chunk_tiles": CHUNK_TILES, "work_items": int(split_windows(lohi)[-1]),
+           "mismatches": mismatches, "max_abs_err": max_abs_err, "ms": ms,
+           "kernel_device_ms": kernel_ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
            "pair_tests": pairs, "pair_tests_needed": needed,
            "pad_pair_share": 1 - needed / max(pairs, 1), "mixed_tile_pair_tests": mixed_pairs,
@@ -806,10 +829,16 @@ def phase_gather_vs_plain(torch, np, dev, card):
         gather.raise_on_errors(errors, name)
         plain_ms = device_ms(lambda: plain_fn(tab, ix), dev, 5)
         if name == "take":  # the library call: one index, int32 indices as they are
-            library_ms = device_ms(lambda: tab[ix], dev, 20)
+            def library():
+                return tab[ix]
         else:  # torch.gather takes only int64 indices: widened beforehand
             ix64 = ix.long()
-            library_ms = device_ms(lambda: torch.gather(tab, 1, ix64), dev, 20)
+
+            def library():
+                return torch.gather(tab, 1, ix64)
+        library_ms = device_ms(library, dev, 20)
+        # every kernel the call starts, by torch.profiler: device time beside device time
+        library_device_ms = kernel_device_ms(library, 20, "")
         # idx read and out written once; of the table, the 32-byte sectors
         # this run's indices touch, each read once
         flat = ix.long() if name == "take" else ix.long() + torch.arange(
@@ -822,7 +851,7 @@ def phase_gather_vs_plain(torch, np, dev, card):
                "table_sectors_touched": table_sectors, "mismatches": mismatches,
                "max_abs_err": max_abs_err, "ms": ms, "kernel_device_ms": kernel_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": library_ms, "card": card}
+               "library_ms": library_ms, "library_device_ms": library_device_ms, "card": card}
         emit(row)
         if mismatches:
             fail(f"{name} kernel disagrees with its plain version at {probe}: {mismatches}")
@@ -870,7 +899,8 @@ def main() -> int:
     build_kernels(card)
 
     scenes = bench_scans(BATCH, N_POINTS, seed=0)
-    fps_rows = phase_fps(torch, fps_inputs(torch, dev, scenes), card)
+    fps_in = fps_inputs(torch, dev, scenes)
+    fps_rows = phase_fps(torch, fps_in, card)
 
     cfg = Config(POINTRCNN_DYNAMIC_OBJ)
     model = build_network(cfg, len(POINTRCNN_DYNAMIC_OBJ_CLASS_NAMES), device="cuda", seed=0)
@@ -901,7 +931,7 @@ def main() -> int:
 
     fps_kernels = []
     for kernel, replaces, stages in (
-            ("fps_block_kernel", "modest_tpu/ops/pallas_fps.py:146",
+            ("fps_cluster_kernel", "modest_tpu/ops/pallas_fps.py:146",
              ("backbone_sa1", "backbone_sa2", "backbone_sa3")),
             ("fps_warp_kernel", "modest_tpu/ops/pallas_fps.py:157",
              ("backbone_sa4", "roi_sa1", "roi_sa2"))):
@@ -913,7 +943,8 @@ def main() -> int:
             "mismatches": sum(r["mismatches"] for r in path),
             "ms": sum(r["ms"] for r in path), "plain_ms": sum(r["plain_ms"] for r in path),
             "bound_ms": sum(r["bound_ms"] for r in path), "bound_by": "operations",
-            "library_ms": None,
+            "library_ms": None, "cluster": {r["stage"]: r["cluster"] for r in path},
+            "us_per_step": {r["stage"]: r["us_per_step"] for r in path},
             "shapes": f"sum over the FPS calls {', '.join(stages)} of one B=4 forward"})
     emit({"kernels": [*fps_kernels, {
         "name": "radius_count", "route": "cuda", "source": "modest_tpu_torch/csrc/radius_count.cu",
@@ -921,6 +952,8 @@ def main() -> int:
         "launches": pp_row["radius_count_launches"], "max_abs_err": rc_row["max_abs_err"],
         "mismatches": rc_row["mismatches"], "ms": rc_row["ms"], "plain_ms": rc_row["plain_ms"],
         "bound_ms": rc_row["bound_ms"], "bound_by": rc_row["bound_by"], "library_ms": None,
+        "kernel_device_ms": rc_row["kernel_device_ms"], "chunk_tiles": rc_row["chunk_tiles"],
+        "work_items": rc_row["work_items"],
         "shapes": f"one PP origin: {rc_row['queries']} queries, T={rc_row['T']}, "
                   f"M={rc_row['M']}; launches over {pp_row['origins_timed']} origins",
     }, {
@@ -965,7 +998,7 @@ def main() -> int:
         "replaces": "scripts_dev/gather_probe.py:119", "launches": gather_launches["take"],
         **{key: gather_rows[("take", "full")][key] for key in (
             "max_abs_err", "mismatches", "ms", "kernel_device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")},
+            "bound_by", "library_ms", "library_device_ms")},
         "shapes": "table (131072,), idx (131072, 70); launches over tools/gather_probe.py",
     }, {
         "name": "take_along_axis", "route": "cuda", "source": "modest_tpu_torch/csrc/gather.cu",
@@ -973,7 +1006,7 @@ def main() -> int:
         "launches": gather_launches["take_along_axis"],
         **{key: gather_rows[("take_along_axis", "rows_256")][key] for key in (
             "max_abs_err", "mismatches", "ms", "kernel_device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")},
+            "bound_by", "library_ms", "library_device_ms")},
         "shapes": "tab (256, 4096), idx (256, 70); launches over tools/gather_probe.py",
     }]})
     print(card, flush=True)

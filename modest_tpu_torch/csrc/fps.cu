@@ -10,35 +10,46 @@
 //
 // What bounds it: a chain of npoint dependent argmax reductions over the
 // cloud. Every step needs the previous step's winner, so the kernel is bound
-// by the latency of one block-wide (or warp-wide) reduction per step, not by
-// bandwidth (the inputs are read from device memory once) nor by the ~10 flops
-// per point and step.
+// by the latency of one reduction over the cloud per step, not by bandwidth
+// (the inputs are read from device memory once) nor by the ~10 flops per
+// point and step.
 //
-// What the design does about it: one launch runs every step. The cloud's
-// coordinates and running distances live in shared memory for the whole
-// launch, so a step touches no device memory except one 4-byte index store.
-//   * Large clouds (N >= 1024, the backbone): one 1024-thread block per cloud.
-//     A step is a thread-local scan over N/1024 points, a warp shuffle argmax,
-//     one __syncthreads through a double-buffered table of the 32 warp
-//     winners, and a second shuffle argmax that every warp does redundantly,
-//     so the winner needs no second barrier to be broadcast.
-//   * Small clouds (N < 1024, the RoI tower's 512- and 128-point sub-clouds):
-//     one warp per cloud and several clouds per block, so a step needs only
-//     warp shuffles and no barrier at all.
-// Spreading one cloud over several SMs (thread block clusters) is left to a
-// later change.
+// What the design does about it: one launch runs every step.
+//   * Large clouds (N >= 1024, the backbone): fps_cluster_kernel, one thread
+//     block cluster of C CTAs per cloud (C from table_cluster_size(), by
+//     measurement). Each CTA owns a contiguous range of ceil(N / C) points,
+//     and each thread keeps x, y, z and the running distance of its P <= 8
+//     points in registers, so a step touches no memory per point. A step is
+//     a branch-free register scan, a warp argmax by redux.sync (max of the
+//     distance's bits, then min of the indices that hold it), each warp's
+//     winner (distance, index, x, y, z) stored into its slot of every CTA's
+//     table in distributed shared memory (st.async, each store counted on
+//     the target CTA's mbarrier), a wait on the CTA's own mbarrier, and an
+//     argmax over the table's C * warps slots in every warp, which also
+//     hands every thread the winner's coordinates for the next step. No
+//     block or cluster barrier runs per step.
+//   * Small clouds (N < 1024, the RoI tower's 512- and 128-point sub-clouds
+//     and SA4's 256): fps_warp_kernel, one warp per cloud and several clouds
+//     per block, the cloud in shared memory, so a step needs only warp
+//     shuffles and no barrier at all.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kBlockThreads = 1024;   // large clouds: one block per cloud
 constexpr int kSmallWarps = 4;        // small clouds: clouds (warps) per block
-constexpr int kLargeCloud = 1024;     // N at and above which a cloud gets a block
-constexpr size_t kMaxSmem = 232448;   // per-block dynamic shared memory on sm_90
+constexpr int kLargeCloud = 1024;     // N at and above which a cloud gets a cluster
+constexpr int kTargetThreads = 128;   // cluster kernel: threads per CTA it aims at
+constexpr int kMaxThreads = 512;      // per CTA: at most 4096 points with P = 8
+constexpr int kMaxPerThread = 8;      // P: points a thread keeps in registers
+constexpr int kMaxCluster = 8;        // the largest portable cluster size
+constexpr int kMaxSlots = kMaxCluster * kMaxThreads / 32;  // one per warp of a cluster
 
 __device__ __forceinline__ float dist2(float x, float y, float z,
                                        float lx, float ly, float lz) {
@@ -48,13 +59,15 @@ __device__ __forceinline__ float dist2(float x, float y, float z,
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
+// ---- small clouds -------------------------------------------------------
+
 // argmax order: the larger value wins, equal values go to the lower index.
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
 // Butterfly reduction: every lane ends with the warp's (max, lowest index).
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+__device__ __forceinline__ void warp_argmax_shfl(float& v, int& i) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const float ov = __shfl_xor_sync(0xffffffffu, v, off);
@@ -63,78 +76,6 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
       v = ov;
       i = oi;
     }
-  }
-}
-
-// One step over the points j = first, first + stride, ... < n: update the
-// running min distance and return this thread's (max, lowest index). j rises
-// within a thread, so a strict > keeps the lowest index among equal values.
-__device__ __forceinline__ void scan_points(float* sx, float* sy, float* sz, float* sd,
-                                            int n, int first, int stride,
-                                            float lx, float ly, float lz,
-                                            float& bv, int& bi) {
-  bv = -1.0f;  // every distance is >= 0, so an empty thread never wins
-  bi = INT_MAX;
-  for (int j = first; j < n; j += stride) {
-    const float d = fminf(sd[j], dist2(sx[j], sy[j], sz[j], lx, ly, lz));
-    sd[j] = d;
-    if (d > bv) {
-      bv = d;
-      bi = j;
-    }
-  }
-}
-
-__device__ __forceinline__ void load_cloud(const float* __restrict__ p, float* sx, float* sy,
-                                           float* sz, float* sd, int n, int first, int stride) {
-  for (int j = first; j < n; j += stride) {
-    sx[j] = p[3 * j];
-    sy[j] = p[3 * j + 1];
-    sz[j] = p[3 * j + 2];
-    sd[j] = 1e10f;
-  }
-}
-
-__global__ void __launch_bounds__(kBlockThreads)
-fps_block_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoint) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + n;
-  float* sz = sy + n;
-  float* sd = sz + n;
-  __shared__ float red_v[2][32];
-  __shared__ int red_i[2][32];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int* o = out + static_cast<size_t>(blockIdx.x) * npoint;
-
-  load_cloud(xyz + static_cast<size_t>(blockIdx.x) * n * 3, sx, sy, sz, sd, n,
-             threadIdx.x, blockDim.x);
-  if (threadIdx.x == 0) o[0] = 0;
-  __syncthreads();
-
-  int last = 0;
-  for (int s = 1; s < npoint; ++s) {
-    float bv;
-    int bi;
-    scan_points(sx, sy, sz, sd, n, threadIdx.x, blockDim.x, sx[last], sy[last], sz[last], bv, bi);
-    warp_argmax(bv, bi);
-    // Double buffer: the table written at step s is next written at step
-    // s + 2, after the barrier of step s + 1, by which point every warp has
-    // read it.
-    const int buf = s & 1;
-    if (lane == 0) {
-      red_v[buf][warp] = bv;
-      red_i[buf][warp] = bi;
-    }
-    __syncthreads();
-    bv = lane < nwarps ? red_v[buf][lane] : -1.0f;
-    bi = lane < nwarps ? red_i[buf][lane] : INT_MAX;
-    warp_argmax(bv, bi);
-    last = bi;
-    if (threadIdx.x == 0) o[s] = bi;
   }
 }
 
@@ -152,32 +93,289 @@ fps_warp_kernel(const float* __restrict__ xyz, int* __restrict__ out, int batch,
   float* sz = sy + n;
   float* sd = sz + n;
   int* o = out + static_cast<size_t>(b) * npoint;
-
-  load_cloud(xyz + static_cast<size_t>(b) * n * 3, sx, sy, sz, sd, n, lane, 32);
+  const float* p = xyz + static_cast<size_t>(b) * n * 3;
+  for (int j = lane; j < n; j += 32) {
+    sx[j] = p[3 * j];
+    sy[j] = p[3 * j + 1];
+    sz[j] = p[3 * j + 2];
+    sd[j] = 1e10f;
+  }
   if (lane == 0) o[0] = 0;
   __syncwarp();
 
   int last = 0;
   for (int s = 1; s < npoint; ++s) {
-    float bv;
-    int bi;
-    scan_points(sx, sy, sz, sd, n, lane, 32, sx[last], sy[last], sz[last], bv, bi);
-    warp_argmax(bv, bi);
+    const float lx = sx[last], ly = sy[last], lz = sz[last];
+    float bv = -1.0f;  // every distance is >= 0, so an empty lane never wins
+    int bi = INT_MAX;
+    // j rises within a lane, so a strict > keeps the lowest index among equals
+    for (int j = lane; j < n; j += 32) {
+      const float d = fminf(sd[j], dist2(sx[j], sy[j], sz[j], lx, ly, lz));
+      sd[j] = d;
+      if (d > bv) {
+        bv = d;
+        bi = j;
+      }
+    }
+    warp_argmax_shfl(bv, bi);
     last = bi;
     if (lane == 0) o[s] = bi;
   }
+}
+
+// ---- large clouds -------------------------------------------------------
+
+// A candidate: the distance's bits as an int (d >= 0, so the float order is
+// the int order; a masked point holds d = -1, whose bits are negative), its
+// point index and coordinates. 32 bytes, moved as two 16-byte words. The
+// empty candidate (INT_MIN, INT_MAX) loses to every point.
+struct __align__(16) Candidate {
+  int key;
+  int idx;
+  float x, y, z;
+  float pad[3];
+};
+
+__device__ __forceinline__ uint4 word0(int key, int idx, float x, float y) {
+  return make_uint4(static_cast<unsigned>(key), static_cast<unsigned>(idx), __float_as_uint(x),
+                    __float_as_uint(y));
+}
+
+__device__ __forceinline__ uint4 word1(float z) {
+  return make_uint4(__float_as_uint(z), 0u, 0u, 0u);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// This CTA's shared-memory address `addr` in CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned cluster_addr(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Store 16 bytes into another CTA's shared memory; the store completes 16
+// bytes of the transaction count of that CTA's mbarrier `bar`.
+__device__ __forceinline__ void store_async(unsigned addr, uint4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// One arrival that also expects `bytes` more of transactions in this phase.
+__device__ __forceinline__ void mbarrier_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` of `bar` has completed; what the
+// cluster stored before completing it is then visible.
+__device__ __forceinline__ void mbarrier_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Warp argmax without a butterfly: the max of the keys, then the min of the
+// indices of the lanes that hold it. Every lane gets the winner's (key, idx);
+// returns the lowest lane that holds it.
+__device__ __forceinline__ int warp_argmax_redux(int& key, int& idx) {
+  const int kmax = __reduce_max_sync(0xffffffffu, key);
+  const int imin = __reduce_min_sync(0xffffffffu, key == kmax ? idx : INT_MAX);
+  const unsigned holders = __ballot_sync(0xffffffffu, key == kmax && idx == imin);
+  key = kmax;
+  idx = imin;
+  return __ffs(holders) - 1;
+}
+
+// Grid: batch * C CTAs of `threads` threads in clusters of C along x; CTA
+// rank r of cloud b owns points [r * chunk, min(N, (r + 1) * chunk)), and
+// thread i of it the points r * chunk + i + k * threads, k < P.
+//
+// The exchange of step s: every warp of every CTA stores its winner into
+// slot rank * warps + warp of buffer s & 1 of every CTA's table (st.async
+// into distributed shared memory, lane r to CTA r), and each store completes
+// bytes on the target CTA's mbarrier of that buffer, which thread 0 of the
+// target armed for all C * warps slots. A CTA waits on its own mbarrier
+// only: no block or cluster barrier runs per step. Reuse is safe by
+// causality: a warp stores into buffer s & 1 again at step s + 2, which
+// needs the winner of step s + 1, which needs every warp's candidate of step
+// s + 1, which a warp sends only after it has read step s's table.
+// (One CTA per SM is enough: the 1 lets a thread take up to 128 registers,
+// which P = 8 needs to hold its points without spilling.)
+template <int P>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fps_cluster_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoint,
+                   int chunk) {
+  __shared__ Candidate table[2][kMaxSlots];
+  __shared__ unsigned long long full[2];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int b = blockIdx.x / csize;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int slots = csize * nwarps;
+  const float* p = xyz + static_cast<size_t>(b) * n * 3;
+  int* o = out + static_cast<size_t>(b) * npoint;
+
+  const int first = rank * chunk + threadIdx.x;  // this thread's point k is first + k * stride
+  const int stride = blockDim.x;
+  const int end = min(n, (rank + 1) * chunk);
+  // Points past the range are masked: distance -1 (fminf keeps it there), so
+  // they never win, and the scan below needs no branch.
+  float px[P], py[P], pz[P], pd[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const bool mine = first + k * stride < end;
+    const int j = mine ? first + k * stride : 0;
+    px[k] = p[3 * j];
+    py[k] = p[3 * j + 1];
+    pz[k] = p[3 * j + 2];
+    pd[k] = mine ? 1e10f : -1.0f;
+  }
+  float lx = p[0], ly = p[1], lz = p[2];
+  if (rank == 0 && threadIdx.x == 0) o[0] = 0;
+  if (threadIdx.x == 0) {
+    mbarrier_init(&full[0], 1);
+    mbarrier_init(&full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // Every CTA of the cluster runs, with its mbarriers set up, before another
+  // stores into its shared memory.
+  cluster.sync();
+
+  const unsigned table_bytes = slots * sizeof(Candidate);
+  const int my_slot = rank * nwarps + warp;
+  for (int s = 1; s < npoint; ++s) {
+    const int buf = s & 1;
+    // buffer buf's phases: steps 1, 3, 5, ... and 2, 4, 6, ...
+    const unsigned parity = ((s - 1) >> 1) & 1;
+    if (threadIdx.x == 0) mbarrier_expect(&full[buf], table_bytes);
+
+    int key = INT_MIN, best = 0;
+    float bx = 0.0f, by = 0.0f, bz = 0.0f;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float d = fminf(pd[k], dist2(px[k], py[k], pz[k], lx, ly, lz));
+      pd[k] = d;
+      const int kd = __float_as_int(d);
+      if (kd > key) {  // indices rise with k: strict > keeps the lowest among equals
+        key = kd;
+        best = k;
+        bx = px[k];
+        by = py[k];
+        bz = pz[k];
+      }
+    }
+    int idx = key >= 0 ? first + best * stride : INT_MAX;  // a masked point never wins
+    const int wl = warp_argmax_redux(key, idx);
+    bx = __shfl_sync(0xffffffffu, bx, wl);
+    by = __shfl_sync(0xffffffffu, by, wl);
+    bz = __shfl_sync(0xffffffffu, bz, wl);
+    if (lane < csize) {  // lane r sends this warp's winner to CTA r
+      const unsigned slot = cluster_addr(smem_addr(&table[buf][my_slot]), lane);
+      const unsigned bar = cluster_addr(smem_addr(&full[buf]), lane);
+      store_async(slot, word0(key, idx, bx, by), bar);
+      store_async(slot + 16, word1(bz), bar);
+    }
+    mbarrier_wait(&full[buf], parity);  // every warp's slot has landed
+
+    key = INT_MIN;
+    idx = INT_MAX;
+    for (int j = lane; j < slots; j += 32) {
+      const Candidate c = table[buf][j];
+      if (c.key > key || (c.key == key && c.idx < idx)) {
+        key = c.key;
+        idx = c.idx;
+        lx = c.x;
+        ly = c.y;
+        lz = c.z;
+      }
+    }
+    const int gl = warp_argmax_redux(key, idx);
+    lx = __shfl_sync(0xffffffffu, lx, gl);
+    ly = __shfl_sync(0xffffffffu, ly, gl);
+    lz = __shfl_sync(0xffffffffu, lz, gl);
+    if (rank == 0 && threadIdx.x == 0) o[s] = idx;
+  }
+  // Every store into this CTA's shared memory landed before its last wait;
+  // the barrier keeps each CTA's shared memory alive until all have finished.
+  cluster.sync();
+}
+
+// The table of cluster sizes per N, by measurement: a sweep of C = 1 to 16
+// at the backbone's 12288, 4096 and 1024 points on an H100 (PERF.md). At
+// 4096 points C = 8 is as fast as 4 on the median but spreads by 12% across
+// runs; C = 4 by 6%. C = 16 (a non-portable size) was slower at every N.
+int table_cluster_size(int n) {
+  if (n >= 8192) return 8;
+  if (n >= 2048) return 4;
+  return 2;
+}
+
+// Points per thread and threads per CTA for a range of `chunk` points: the
+// fewest points per thread (1, 2, 4, 8) that keep a CTA at or under
+// kTargetThreads, else 8 points and more threads. The table keeps chunk at
+// or under kMaxThreads * kMaxPerThread for every N up to fps_max_points().
+void cta_shape(int chunk, int* per_thread, int* threads) {
+  for (int p = 1; p <= kMaxPerThread; p *= 2) {
+    *per_thread = p;
+    *threads = ((chunk + p - 1) / p + 31) / 32 * 32;
+    if (*threads <= kTargetThreads) return;
+  }
+}
+
+template <int P>
+cudaError_t launch_cluster(const float* xyz, int* out, int batch, int n, int npoint, int csize,
+                           int threads, int chunk, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * csize);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, fps_cluster_kernel<P>, xyz, out, n, npoint, chunk);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest N one launch takes: coordinates and distances of a cloud must fit
-// one block's shared memory, beside the 512-byte reduction table.
-int fps_max_points() { return static_cast<int>((kMaxSmem - 1024) / (4 * sizeof(float))); }
+// Largest N one launch takes: the table's cluster of 8 CTAs of 512 threads
+// with 8 points each.
+int fps_max_points() { return kMaxCluster * kMaxThreads * kMaxPerThread; }
+
+// The cluster size fps_launch takes for N; 0 below kLargeCloud (the warp
+// kernel).
+int fps_cluster_size(int n) {
+  return n < kLargeCloud ? 0 : table_cluster_size(n);
+}
 
 // xyz: (batch, n, 3) float32, contiguous, on the device; out: (batch, npoint)
-// int32. Launches on `stream` and returns cudaGetLastError() (0 on success);
+// int32. Launches on `stream` and returns a CUDA error code (0 on success);
 // *kernel (host memory) gets the name of the kernel it launched.
 int fps_launch(const float* xyz, int* out, int batch, int n, int npoint, const char** kernel,
                void* stream) {
@@ -185,25 +383,33 @@ int fps_launch(const float* xyz, int* out, int batch, int n, int npoint, const c
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (n >= kLargeCloud) {
-    *kernel = "fps_block_kernel";
-    const size_t smem = 4 * sizeof(float) * static_cast<size_t>(n);
-    cudaError_t e = cudaFuncSetAttribute(fps_block_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    fps_block_kernel<<<batch, kBlockThreads, smem, st>>>(xyz, out, n, npoint);
+    *kernel = "fps_cluster_kernel";
+    const int csize = table_cluster_size(n);
+    const int chunk = (n + csize - 1) / csize;
+    int per_thread = 0, threads = 0;
+    cta_shape(chunk, &per_thread, &threads);
+    switch (per_thread) {
+      case 1: e = launch_cluster<1>(xyz, out, batch, n, npoint, csize, threads, chunk, st); break;
+      case 2: e = launch_cluster<2>(xyz, out, batch, n, npoint, csize, threads, chunk, st); break;
+      case 4: e = launch_cluster<4>(xyz, out, batch, n, npoint, csize, threads, chunk, st); break;
+      default: e = launch_cluster<8>(xyz, out, batch, n, npoint, csize, threads, chunk, st);
+    }
   } else {
     *kernel = "fps_warp_kernel";
     const size_t smem = kSmallWarps * 4 * sizeof(float) * static_cast<size_t>(n);
-    cudaError_t e = cudaFuncSetAttribute(fps_warp_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int blocks = (batch + kSmallWarps - 1) / kSmallWarps;
-    fps_warp_kernel<<<blocks, kSmallWarps * 32, smem, st>>>(xyz, out, batch, n, npoint);
+    e = cudaFuncSetAttribute(fps_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e == cudaSuccess) {
+      const int blocks = (batch + kSmallWarps - 1) / kSmallWarps;
+      fps_warp_kernel<<<blocks, kSmallWarps * 32, smem, st>>>(xyz, out, batch, n, npoint);
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  // cudaGetLastError also clears the error a refused call left behind, so a
+  // refused launch does not fail the next one.
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 const char* fps_error_string(int err) {

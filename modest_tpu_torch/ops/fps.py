@@ -24,6 +24,8 @@ def _lib():
     lib.fps_launch.restype = ctypes.c_int
     lib.fps_max_points.argtypes = []
     lib.fps_max_points.restype = ctypes.c_int
+    lib.fps_cluster_size.argtypes = [ctypes.c_int]
+    lib.fps_cluster_size.restype = ctypes.c_int
     lib.fps_error_string.argtypes = [ctypes.c_int]
     lib.fps_error_string.restype = ctypes.c_char_p
     return lib
@@ -47,6 +49,12 @@ def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         last = torch.argmax(dists, dim=1)
         idx[:, i] = last.to(torch.int32)
     return idx
+
+
+def cluster_size(n: int) -> int:
+    """The thread-block cluster size ``csrc/fps.cu`` takes for an N-point
+    cloud (0: N < 1024, the warp kernel). Builds the library."""
+    return _lib().fps_cluster_size(n)
 
 
 def furthest_point_sample_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -79,4 +87,4 @@ def furthest_point_sample_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 # kernel launches since the last reset, per kernel of csrc/fps.cu (the one
 # fps_launch reports it started)
-furthest_point_sample_cuda.launches = {"fps_block_kernel": 0, "fps_warp_kernel": 0}
+furthest_point_sample_cuda.launches = {"fps_cluster_kernel": 0, "fps_warp_kernel": 0}

@@ -8,6 +8,11 @@ within ``radius`` in x; the count then tests ``d² ≤ r²`` (inclusive) with
 direct differences, ``((dx*dx + dy*dy) + dz*dz)``, on every point of the
 window. Exact: the window is a superset of the true neighbour set.
 
+The kernel cuts every window into chunks of at most ``CHUNK_TILES`` pool
+tiles (``split_windows``) and counts each chunk as one work item, so one
+long window (the last real query tile, which also holds pad queries, runs
+through every pad point of each pool) is spread over the card.
+
 ``radius_count_sorted_cuda`` launches ``csrc/radius_count.cu`` on CUDA
 tensors; ``radius_count_sorted_plain`` is the same arithmetic in PyTorch;
 ``radius_count_sorted`` takes the plain twin for CPU tensors and the kernel
@@ -27,6 +32,7 @@ BN = 256   # queries per tile
 BM = 2048  # pool points per window tile
 PAD = 1e9  # x (and y, z) of pad queries and pad pool points
 _PLAIN_CHUNK = 16 * BM  # pool points per step of the plain twin
+CHUNK_TILES = 1  # pool tiles per kernel work item (csrc/radius_count.cu's kChunkTiles)
 
 _COUNT_LOCK = threading.Lock()
 
@@ -34,15 +40,17 @@ _COUNT_LOCK = threading.Lock()
 @functools.cache
 def _lib():
     lib = load_library("radius_count")
-    lib.radius_count_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    lib.radius_count_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.radius_count_launch.restype = ctypes.c_int
     lib.radius_count_error_string.argtypes = [ctypes.c_int]
     lib.radius_count_error_string.restype = ctypes.c_char_p
-    for fn in (lib.radius_count_tile_queries, lib.radius_count_tile_points):
+    sizes = (lib.radius_count_tile_queries, lib.radius_count_tile_points,
+             lib.radius_count_chunk_tiles)
+    for fn in sizes:
         fn.argtypes = []
         fn.restype = ctypes.c_int
-    if (lib.radius_count_tile_queries(), lib.radius_count_tile_points()) != (BN, BM):
+    if tuple(fn() for fn in sizes) != (BN, BM, CHUNK_TILES):
         raise RuntimeError("csrc/radius_count.cu tiles differ from ops/radius_count.py")
     return lib
 
@@ -67,6 +75,19 @@ def compute_tile_windows(q_sorted_x: torch.Tensor, t_sorted_x: torch.Tensor,
     lo = torch.where(empty, 0, lo)
     hi = torch.where(empty, 0, hi)
     return torch.stack([lo, hi], dim=2).to(torch.int32)
+
+
+def split_windows(lohi: torch.Tensor, chunk_tiles: int = CHUNK_TILES) -> torch.Tensor:
+    """The kernel's work list. Window ``w = t * (Nq / BN) + tile`` of
+    ``lohi`` (T, Nq / BN, 2) is cut into ``ceil((hi - lo) / chunk_tiles)``
+    chunks of at most ``chunk_tiles`` pool tiles (none for an empty window).
+    Returns ``starts`` (T * Nq / BN + 1,) int32, the exclusive prefix sum of
+    those chunk counts: window w's chunks are the work items ``starts[w]``
+    … ``starts[w + 1] - 1``, and ``starts[-1]`` is their number. Made on
+    ``lohi``'s device, with no host read."""
+    span = (lohi[..., 1] - lohi[..., 0]).clamp_min(0).reshape(-1)
+    chunks = torch.div(span + chunk_tiles - 1, chunk_tiles, rounding_mode="floor")
+    return torch.cat([chunks.new_zeros(1), torch.cumsum(chunks, 0)]).to(torch.int32)
 
 
 def _check(q_sorted, t_sorted, lohi, where: str):
@@ -116,8 +137,9 @@ def radius_count_sorted_plain(q_sorted: torch.Tensor, t_sorted: torch.Tensor,
 def radius_count_sorted_cuda(q_sorted: torch.Tensor, t_sorted: torch.Tensor,
                              lohi: torch.Tensor, r2: float) -> torch.Tensor:
     """The same as ``radius_count_sorted_plain``, by the kernel in
-    ``csrc/radius_count.cu``. Needs contiguous CUDA tensors on one device;
-    raises on any other input."""
+    ``csrc/radius_count.cu`` over ``split_windows(lohi)``.
+    Needs contiguous CUDA tensors on one device; raises on any other
+    input."""
     check_cuda("radius_count_sorted_cuda", {"queries": q_sorted, "pool": t_sorted,
                                             "windows": lohi})
     _check(q_sorted, t_sorted, lohi, "radius_count_sorted_cuda")
@@ -125,12 +147,16 @@ def radius_count_sorted_cuda(q_sorted: torch.Tensor, t_sorted: torch.Tensor,
     nq_total = q_sorted.shape[1]
     if max(t_count * 3 * m, 3 * nq_total, t_count * nq_total) >= 2**31:
         raise ValueError("radius_count_sorted_cuda: tensors above 2^31 elements")
+    if t_sorted.data_ptr() % 16:
+        raise ValueError("radius_count_sorted_cuda needs a 16-byte aligned pool")
     lib = _lib()
-    counts = torch.empty((t_count, nq_total), dtype=torch.int32, device=q_sorted.device)
+    starts = split_windows(lohi)
+    counts = torch.zeros((t_count, nq_total), dtype=torch.int32, device=q_sorted.device)
     with torch.cuda.device(q_sorted.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.radius_count_launch(q_sorted.data_ptr(), t_sorted.data_ptr(), lohi.data_ptr(),
-                                      counts.data_ptr(), t_count, nq_total, m, float(r2), stream)
+                                      starts.data_ptr(), counts.data_ptr(), t_count, nq_total, m,
+                                      float(r2), stream)
     if err != 0:
         raise RuntimeError(f"radius_count kernel launch failed: "
                            f"{lib.radius_count_error_string(err).decode()}")

@@ -28,7 +28,7 @@ from .scenes import bench_scans
 
 # kernel-name pattern → group, first match wins
 GROUPS = (
-    ("fps (hand kernel)", r"fps_(block|warp)_kernel"),
+    ("fps (hand kernel)", r"fps_(cluster|warp)_kernel"),
     ("matmul", r"gemm|sgemm|cutlass|ampere|sm90|xmma"),
     ("sort / top-k", r"sort|topk|radix|Sort|TopK|bitonic|gatherTopK"),
     ("gather / scatter / index", r"gather|scatter|index|Index"),

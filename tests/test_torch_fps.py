@@ -37,6 +37,39 @@ def test_fps_plain_matches_xla_and_pallas(b, n, npoint):
     np.testing.assert_array_equal(got.numpy(), want_pallas)
 
 
+def _tie_cloud(kind, b, n, seed):
+    """Clouds where the tie rule decides: ``dup_halves`` repeats the first
+    half of a cloud as its second half (duplicates fall into different
+    thread-block cluster ranks on the card), ``grid`` quantises to a 0.5 m
+    grid (many equal distances), ``ragged`` is a size no cluster splits
+    evenly."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(b, n, 3) * 10).astype(np.float32)
+    if kind == "dup_halves":
+        x[:, n // 2:] = x[:, :n - n // 2]
+    elif kind == "grid":
+        x = np.round(x * 2) / 2
+    return x
+
+
+@pytest.mark.parametrize(
+    "kind,b,n,npoint",
+    [
+        ("dup_halves", 2, 1024, 600),  # more steps than distinct points
+        ("dup_halves", 2, 600, 200),
+        ("grid", 2, 1024, 256),
+        ("ragged", 2, 1000, 100),
+    ],
+)
+def test_fps_plain_on_tie_heavy_clouds_matches_xla_and_pallas(kind, b, n, npoint):
+    x = _tie_cloud(kind, b, n, seed=n + npoint)
+    want_xla = np.asarray(_furthest_point_sample_xla(jnp.asarray(x), npoint))
+    want_pallas = np.asarray(furthest_point_sample_pallas(jnp.asarray(x), npoint, interpret=True))
+    got = furthest_point_sample_plain(torch.from_numpy(x), npoint).numpy()
+    np.testing.assert_array_equal(got, want_xla)
+    np.testing.assert_array_equal(got, want_pallas)
+
+
 def test_fps_ties_go_to_lowest_index():
     """Integer coordinates on a small grid: many equal distances, so the
     tie rule decides most steps."""

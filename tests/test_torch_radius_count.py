@@ -127,3 +127,78 @@ def test_windows_outside_the_pool_are_refused(lo, hi):
     lohi = torch.tensor([[[lo, hi]]], dtype=torch.int32)
     with pytest.raises(ValueError, match="windows inside"):
         trc.radius_count_sorted_plain(torch.from_numpy(q), torch.from_numpy(pool), lohi, 0.09)
+
+
+def _work_items(lohi, chunk_tiles):
+    """The work items as csrc/radius_count.cu decodes them from
+    ``split_windows``: item i belongs to the last window w with
+    ``starts[w] <= i`` and covers its pool tiles ``[lo + c * chunk_tiles,
+    min(hi, lo + (c + 1) * chunk_tiles))`` with ``c = i - starts[w]``. (K, 4)
+    int64 rows (traversal, query tile, first pool tile, end pool tile)."""
+    starts = trc.split_windows(lohi, chunk_tiles).long()
+    n_tiles = lohi.shape[1]
+    items = torch.arange(int(starts[-1]))
+    w = torch.searchsorted(starts, items, right=True) - 1
+    flat = lohi.reshape(-1, 2).long()
+    lo = flat[w, 0] + (items - starts[w]) * chunk_tiles
+    hi = torch.minimum(flat[w, 1], lo + chunk_tiles)
+    return torch.stack([w // n_tiles, w % n_tiles, lo, hi], dim=1)
+
+
+def _tiles_by_window(items):
+    """{(t, tile): sorted pool tiles} over the work items' chunks."""
+    got = {}
+    for t, tile, lo, hi in items.tolist():
+        assert lo < hi  # a work item is never empty
+        got.setdefault((t, tile), []).extend(range(lo, hi))
+    return {k: sorted(v) for k, v in got.items()}
+
+
+@pytest.mark.parametrize("chunk_tiles", [1, 2, 3, 4, 8])
+def test_split_windows_covers_every_tile_once(chunk_tiles):
+    """Every pool tile of every window lands in exactly one chunk of at most
+    chunk_tiles tiles; (0, 0) windows give no work; windows of exactly C and
+    C + 1 tiles give one and two chunks."""
+    c = chunk_tiles
+    lohi = torch.tensor([[[0, 0], [3, 3 + c], [0, c + 1], [5, 6]],
+                         [[0, 0], [0, 0], [2, 2 + 3 * c + 1], [1, 1 + 2 * c]]], dtype=torch.int32)
+    starts = trc.split_windows(lohi, c)
+    assert starts.dtype == torch.int32 and starts.shape == (lohi.shape[0] * lohi.shape[1] + 1,)
+    span = (lohi[..., 1] - lohi[..., 0]).reshape(-1)
+    np.testing.assert_array_equal(np.diff(starts.numpy()), -(-span.numpy() // c))
+    items = _work_items(lohi, c)
+    assert len(items) == int(starts[-1])
+    assert bool(((items[:, 3] - items[:, 2]) <= c).all())
+    want = {(t, i): list(range(lo, hi)) for t in range(2) for i, (lo, hi) in
+            enumerate(lohi[t].tolist()) if hi > lo}
+    assert _tiles_by_window(items) == want
+    per_window = {k: int(((items[:, 0] == k[0]) & (items[:, 1] == k[1])).sum()) for k in want}
+    assert per_window[(0, 1)] == 1 and per_window[(0, 2)] == 2  # exactly C, C + 1 tiles
+    keys = {tuple(k) for k in items[:, :2].tolist()}
+    assert not keys & {(0, 0), (1, 0), (1, 1)}  # empty windows: no work
+
+
+@pytest.mark.parametrize("chunk_tiles", [1, 2])
+def test_plain_count_summed_over_chunks_equals_whole_and_pallas(chunk_tiles):
+    """The plain twin run chunk by chunk and summed (what the kernel's
+    atomic adds make) equals the plain twin run whole and the Pallas kernel
+    in interpret mode, on a case whose mixed tile's window runs through the
+    pool's pad points."""
+    rng = np.random.RandomState(11)
+    nq_real, nq, m_real, m = 600, 768, [5000, 3500], 5 * trc.BM
+    q, pool = _sorted_inputs(rng, nq_real, nq, 2, m_real, m)
+    _, j_counts = _jax_counts(q, pool, R)
+    qt, pt = torch.from_numpy(q), torch.from_numpy(pool)
+    lohi = trc.compute_tile_windows(qt[0], pt[:, 0], torch.tensor(R, dtype=torch.float32))
+    mixed = nq_real // trc.BN  # real and pad queries: its window reaches the pool's end
+    assert (lohi[:, mixed, 1] == m // trc.BM).all()
+    assert ((lohi[:, mixed, 1] - lohi[:, mixed, 0]) > chunk_tiles).all()
+    r2 = float(np.float32(R) * np.float32(R))
+    whole = trc.radius_count_sorted_plain(qt, pt, lohi, r2)
+    summed = torch.zeros_like(whole)
+    for t, tile, lo, hi in _work_items(lohi, chunk_tiles).tolist():
+        one = torch.zeros_like(lohi)
+        one[t, tile] = torch.tensor([lo, hi], dtype=torch.int32)
+        summed += trc.radius_count_sorted_plain(qt, pt, one, r2)
+    np.testing.assert_array_equal(summed.numpy(), whole.numpy())
+    np.testing.assert_array_equal(whole.numpy(), j_counts)
