@@ -36,16 +36,20 @@ Phases, each printing one JSON line:
    split, seed boxes (must be > 0);
 7. hold the radius count against its plain version at the PP path's shape
    (0 mismatches) with its work-item size and count; the DBSCAN edge and
-   propagation kernels against theirs on a group of 4 full-size frames
-   (equal rows, core flags, labels);
+   propagation kernels against theirs on every group of 4 full-size frames
+   of the seed phase and on a tie-chain graph of that size whose one-way
+   tie edges matter (equal rows, tie bits, core flags, and labels on every
+   timed call), with the propagation's kernels, host reads and fix-up
+   rounds;
 8. card vs CPU on the seed path: the transformed, sorted PP inputs equal,
    PP counts equal on every 4th query tile, and one frame's seed labels
    (>= 99.9% up to the cluster-id permutation) and boxes (1:1, centre
    < 1 cm) equal;
 9. run tools/knn_bench.py: per shape the certificate, the slot match
    against the dense exact path (>= 99.9% where certified), the dense
-   fallbacks and the windowed and dense times; then hold the kNN kernel
-   against its plain version on the same windows (packed keys equal);
+   fallbacks and the windowed and dense times; then hold the kNN kernels
+   against their plain version on the same windows, at k = w/4 and on
+   eightfold duplicate points (packed keys equal);
 10. run tools/gather_probe.py (every probe's result checked); then hold both
    gather kernels against their plain versions at the probe's shapes
    (equal), with the one PyTorch call for each timed beside them (CUDA
@@ -108,6 +112,9 @@ KNN_OPS_PER_PAIR = 10
 KNN_ITERS = 10     # timed calls per shape in tools/knn_bench.py
 GATHER_ITERS = 10  # timed calls per probe in tools/gather_probe.py
 SECTOR_BYTES = 32  # the smallest piece of device memory a read moves
+# the DBSCAN propagation's kernels, each launched once per call
+PROP_KERNELS = ("init_kernel", "compress_kernel", "union_kernel", "flatten_kernel",
+                "fixup_kernel", "border_kernel")
 MIN_SLOT_MATCH_PCT = 99.9
 
 
@@ -126,9 +133,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_device_ms(fn, reps: int, kernel: str):
+def kernel_device_ms(fn, reps: int, kernel):
     """Device time per call of the CUDA kernels whose name holds ``kernel``
-    ("" for every kernel ``fn`` starts) over ``reps`` calls of ``fn``, by
+    (a string, or a tuple of strings any of which may match; "" for every
+    kernel ``fn`` starts) over ``reps`` calls of ``fn``, by
     torch.profiler: the kernel alone,
     without the host time between launches that ``device_ms`` sees when a
     call is shorter than its launch. None when the profiler records no
@@ -142,9 +150,10 @@ def kernel_device_ms(fn, reps: int, kernel: str):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     total_us = 0.0
     for evt in prof.key_averages():
-        if kernel in evt.key and evt.device_type.name == "CUDA":
+        if any(name in evt.key for name in names) and evt.device_type.name == "CUDA":
             dev_us = getattr(evt, "self_device_time_total", None)
             total_us += float(dev_us if dev_us is not None else evt.self_cuda_time_total)
     return total_us / 1e3 / reps if total_us > 0 else None
@@ -443,7 +452,7 @@ def phase_seed_labels(torch, np, dev, root, data_root, card):
     torch.cuda.synchronize()
     for fn in (D.dbscan_edge_cuda, D.dbscan_prop_cuda):
         fn.launches = fn.calls = 0
-    D.dbscan_prop_cuda.sweeps = D.dbscan_prop_cuda.host_reads = 0
+    D.dbscan_prop_cuda.rounds = D.dbscan_prop_cuda.ties = D.dbscan_prop_cuda.host_reads = 0
     t0 = time.perf_counter()
     generate_mask.main(ov)
     torch.cuda.synchronize()
@@ -451,14 +460,16 @@ def phase_seed_labels(torch, np, dev, root, data_root, card):
     launches = {"dbscan_edge": D.dbscan_edge_cuda.launches,
                 "dbscan_prop": D.dbscan_prop_cuda.launches}
     calls = {"dbscan_edge": D.dbscan_edge_cuda.calls, "dbscan_prop": D.dbscan_prop_cuda.calls}
-    sweeps, host_reads = D.dbscan_prop_cuda.sweeps, D.dbscan_prop_cuda.host_reads
+    rounds, ties = D.dbscan_prop_cuda.rounds, D.dbscan_prop_cuda.ties
+    host_reads = D.dbscan_prop_cuda.host_reads
     timed = PP_ORIGINS - SEED_GROUP
     groups = timed // SEED_GROUP
-    # per group: kth + edge kernels; 2 kernels per sweep and a border kernel
+    # per group: kth + edge kernels; the propagation's kernels and one host read
     if calls != {"dbscan_edge": groups, "dbscan_prop": groups} or launches != {
-            "dbscan_edge": 2 * groups, "dbscan_prop": 2 * sweeps + groups}:
-        fail(f"{groups} seed groups called the DBSCAN wrappers {calls} times and launched "
-             f"{launches} kernels in {sweeps} sweeps")
+            "dbscan_edge": 2 * groups, "dbscan_prop": len(PROP_KERNELS) * groups} \
+            or host_reads != groups:
+        fail(f"{groups} seed groups called the DBSCAN wrappers {calls} times, launched "
+             f"{launches} kernels and read the host {host_reads} times")
 
     timer = StageTimer(dev)
     t1 = time.perf_counter()
@@ -486,8 +497,8 @@ def phase_seed_labels(torch, np, dev, root, data_root, card):
         fail("the seed path made no seed boxes")
     row = {"phase": "seed_labels", "frames_timed": timed, "group": SEED_GROUP,
            "frames_per_s": timed / wall, "wall_s": wall, "dbscan_launches": launches,
-           "dbscan_calls": calls, "dbscan_sweeps": sweeps, "dbscan_host_reads": host_reads,
-           "dbscan_sweeps_per_group": sweeps / max(groups, 1),
+           "dbscan_calls": calls, "dbscan_fixup_rounds": rounds, "dbscan_tie_edges": ties,
+           "dbscan_host_reads": host_reads, "dbscan_fixup_rounds_per_group": rounds / max(groups, 1),
            "stage_ms_per_frame": {k: v / PP_ORIGINS for k, v in timer.ms().items()},
            "staged_frames_per_s": PP_ORIGINS / staged_wall, "seed_boxes": boxes,
            "seed_boxes_per_frame": boxes / PP_ORIGINS, "card": card}
@@ -559,8 +570,8 @@ def phase_radius_count(torch, np, dev, data_root, root, card):
     return row, (q_s, t_sorted, lohi, got, n)
 
 
-def seed_group_graph(torch, np, dev, data_root, root):
-    """The kNN graph the seed path builds for its first group of frames."""
+def seed_group_graph(torch, np, dev, data_root, root, index: int = 0):
+    """The kNN graph the seed path builds for its group ``index`` of frames."""
     from modest_tpu_torch.cli.common import load_pipeline_config
     from modest_tpu_torch.pipeline.clustering import _knn_graph, _prepare_group
     from modest_tpu_torch.pipeline.seed_labels import _frame_final_mask
@@ -569,7 +580,7 @@ def seed_group_graph(torch, np, dev, data_root, root):
     cfg = load_pipeline_config("generate_mask", pipeline_overrides(root, data_root))
     pp_dir = Path(root) / "intermediate_results/lyft_pp_score_fw70_2m_r0.3"
     group = []
-    for gid in origin_ids(root)[:SEED_GROUP]:
+    for gid in origin_ids(root)[index * SEED_GROUP:(index + 1) * SEED_GROUP]:
         ptc = load_velo_scan(Path(data_root) / "velodyne" / f"{gid:06d}.bin")
         pp = np.load(pp_dir / f"{gid:06d}.npy")
         m = _frame_final_mask(ptc, cfg)
@@ -580,53 +591,114 @@ def seed_group_graph(torch, np, dev, data_root, root):
     return cfg, (idx, d2, pb, vb), ns, n_pad, k, w
 
 
-def phase_dbscan(torch, np, dev, data_root, root, card):
-    from modest_tpu_torch.ops import dbscan as D
-    from modest_tpu_torch.pipeline.clustering import dbscan_params
+def dbscan_case(torch, np, dev, D, name, args, card, time_edge: bool):
+    """One graph through the DBSCAN kernels and their plain twins: edge rows,
+    tie bits and core flags equal; labels equal on the first call and on
+    every timed call (the atomics' order varies from run to run)."""
     from modest_tpu_torch.utils.device import device_ms
 
-    cfg, (idx, d2, pb, vb), ns, n_pad, k, w = seed_group_graph(torch, np, dev, data_root, root)
-    args = (idx, d2, pb, vb, *dbscan_params(cfg.graph.radius, cfg.clustering.DBSCAN.eps),
-            cfg.clustering.DBSCAN.min_samples)
     graph, graph_p = D.dbscan_edge_cuda(*args), D.dbscan_edge_plain(*args)
-    sweeps0, reads0 = D.dbscan_prop_cuda.sweeps, D.dbscan_prop_cuda.host_reads
+    before = (D.dbscan_prop_cuda.launches, D.dbscan_prop_cuda.rounds, D.dbscan_prop_cuda.ties,
+              D.dbscan_prop_cuda.host_reads)
     raw, raw_p = D.dbscan_prop_cuda(graph), D.dbscan_prop_plain(graph_p)
-    sweeps = D.dbscan_prop_cuda.sweeps - sweeps0
-    host_reads = D.dbscan_prop_cuda.host_reads - reads0
+    launches, rounds, ties, host_reads = (after - b for after, b in zip(
+        (D.dbscan_prop_cuda.launches, D.dbscan_prop_cuda.rounds, D.dbscan_prop_cuda.ties,
+         D.dbscan_prop_cuda.host_reads), before))
+    model, pairs, _ = D.dbscan_prop_components_plain(graph_p)
     torch.cuda.synchronize()
     nbr_mm = int((graph.nbr != graph_p.nbr).sum())
+    tie_mm = int((graph.tie != graph_p.tie).sum())
     core_mm = int((graph.core != graph_p.core).sum())
-    lab_mm = int((raw != raw_p).sum())
-    edge_ms = device_ms(lambda: D.dbscan_edge_cuda(*args), dev, 10)
-    edge_plain_ms = device_ms(lambda: D.dbscan_edge_plain(*args), dev, 3)
-    prop_ms = device_ms(lambda: D.dbscan_prop_cuda(graph), dev, 10)
+    lab_mm = int((raw != raw_p).sum()) + int((model != raw_p).sum())
+    outs = []
+
+    def prop():
+        outs.append(D.dbscan_prop_cuda(graph))
+
+    prop_ms = device_ms(prop, dev, 10)
+    prop_kernel_ms = kernel_device_ms(prop, 10, PROP_KERNELS)
+    timed_mm = sum(int((o != raw_p).sum()) for o in outs)
     prop_plain_ms = device_ms(lambda: D.dbscan_prop_plain(graph_p), dev, 1)
     b, n = graph.core.shape
-    total = b * n
-    rows = total * k * 4
+    total, k = graph.nbr.shape
     edges = int((graph.nbr >= 0).sum())
-    # edge: idx and d2 rows and pp, valid read once; nbr rows, core, labels written once
-    edge_bound = bound(0, 2 * rows + total * (4 + 1) + rows + total * (1 + 4))
-    # prop, what the function needs (not the sweeps this algorithm makes): the
+    # prop, what the function needs (not what this algorithm reads): the
     # nbr rows of valid points once (core rows to propagate, the others for
     # their border labels), one 4-byte label gather per edge, the initial
     # label table and core and valid flags read once, the labels written once
     valid_rows = int(graph.valid.sum()) * k * 4
     prop_bound = bound(0, valid_rows + 4 * edges + total * (4 + 1 + 1) + 4 * total)
-    row = {"phase": "dbscan_vs_plain", "frames": b, "in_range_points": ns, "N": n, "k": k,
-           "window": w, "edges": edges, "core": int(graph.core.sum()),
+    row = {"phase": "dbscan_vs_plain", "graph": name, "frames": b, "N": n, "k": k,
+           "edges": edges, "core": int(graph.core.sum()),
+           "tie_edges": int(D.unpack_bits(graph.tie, k).sum()), "core_tie_edges": ties,
+           "core_tie_edges_plain": len(pairs),
            "clusters": int(sum(len(np.unique(r[r >= 0])) for r in raw.cpu().numpy())),
-           "nbr_mismatches": nbr_mm, "core_mismatches": core_mm, "label_mismatches": lab_mm,
-           "sweeps": sweeps, "host_reads": host_reads, "edge_ms": edge_ms,
-           "edge_plain_ms": edge_plain_ms,
-           "edge_bound_ms": edge_bound[0], "prop_ms": prop_ms, "prop_plain_ms": prop_plain_ms,
+           "nbr_mismatches": nbr_mm, "tie_mismatches": tie_mm, "core_mismatches": core_mm,
+           "label_mismatches": lab_mm, "timed_calls": len(outs),
+           "timed_label_mismatches": timed_mm, "launches_per_call": launches,
+           "fixup_rounds": rounds, "host_reads": host_reads, "prop_ms": prop_ms,
+           "prop_kernel_device_ms": prop_kernel_ms, "prop_plain_ms": prop_plain_ms,
            "prop_bound_ms": prop_bound[0], "bound_by": "bytes", "library_ms": None,
            "card": card}
+    if time_edge:
+        rows_b = total * k * 4
+        # edge: idx and d2 rows and pp, valid read once; nbr rows, tie
+        # words, core, labels written once
+        row.update(edge_ms=device_ms(lambda: D.dbscan_edge_cuda(*args), dev, 10),
+                   edge_plain_ms=device_ms(lambda: D.dbscan_edge_plain(*args), dev, 3),
+                   edge_bound_ms=bound(0, 2 * rows_b + total * (4 + 1) + rows_b
+                                       + graph.tie.numel() * 4 + total * (1 + 4))[0])
+    if name == "tie_chain":  # the one-way tie edges must matter on this graph
+        row["core_labels_unlike_undirected"] = undirected_mismatches(torch, D, graph_p, raw_p)
     emit(row)
-    if nbr_mm or core_mm or lab_mm:
-        fail(f"DBSCAN kernels disagree with their plain versions: {nbr_mm} edge slots, "
-             f"{core_mm} core flags, {lab_mm} labels")
+    if nbr_mm or tie_mm or core_mm or lab_mm or timed_mm:
+        fail(f"DBSCAN kernels disagree with their plain versions on {name}: {nbr_mm} edge slots, "
+             f"{tie_mm} tie words, {core_mm} core flags, {lab_mm} labels, {timed_mm} labels "
+             f"over {len(outs)} timed calls")
+    if (launches, host_reads, ties) != (len(PROP_KERNELS), 1, len(pairs)):
+        fail(f"DBSCAN propagation on {name}: {launches} kernels, {host_reads} host reads, "
+             f"{ties} core tie edges (plain {len(pairs)})")
     return row
+
+
+def undirected_mismatches(torch, D, graph, raw) -> int:
+    """Core points whose label differs from their undirected component's
+    minimum: what a union-find over every edge would have got wrong."""
+    b, n = graph.core.shape
+    total, k = graph.nbr.shape
+    nbr, core = graph.nbr.long(), graph.core.reshape(-1)
+    i = torch.arange(total, device=nbr.device)[:, None].expand(total, k)
+    cc = (nbr >= 0) & core[:, None] & core[nbr.clamp_min(0)]
+    comp = D._component_min(i[cc], nbr[cc], torch.arange(total, device=nbr.device)).reshape(b, n)
+    comp = comp - (torch.arange(b, device=nbr.device) * n)[:, None]
+    return int(((comp != raw) & graph.core).sum())
+
+
+def phase_dbscan(torch, np, dev, data_root, root, card):
+    """The DBSCAN kernels against their plain twins on the kNN graph of
+    every group of the seed phase, and on a tie-chain graph of the first
+    group's size (tools/tie_graph.py), whose one-way tie edges make the
+    directed labels differ from the undirected components."""
+    from modest_tpu_torch.ops import dbscan as D
+    from modest_tpu_torch.pipeline.clustering import dbscan_params
+    from modest_tpu_torch.tools.tie_graph import tie_chain_graph
+
+    rows = []
+    for g in range(PP_ORIGINS // SEED_GROUP):
+        cfg, (idx, d2, pb, vb), ns, n_pad, k, w = seed_group_graph(torch, np, dev, data_root,
+                                                                   root, g)
+        if g == 0:
+            n0, k0 = n_pad, k
+        params = (*dbscan_params(cfg.graph.radius, cfg.clustering.DBSCAN.eps),
+                  cfg.clustering.DBSCAN.min_samples)
+        row = dbscan_case(torch, np, dev, D, f"seed_group_{g}", (idx, d2, pb, vb, *params), card,
+                          time_edge=g == 0)
+        rows.append({**row, "in_range_points": ns, "window": w})
+    tie = [torch.from_numpy(a).to(dev) for a in tie_chain_graph(SEED_GROUP, n0, k0, seed=0)]
+    tie_row = dbscan_case(torch, np, dev, D, "tie_chain", (*tie, *params), card, time_edge=False)
+    if not tie_row["core_labels_unlike_undirected"]:
+        fail("the tie-chain graph's directed labels equal its undirected components")
+    return rows, tie_row
 
 
 def match_centres(np, boxes, ref, tol=1e-2):
@@ -705,14 +777,16 @@ def phase_knn(torch, dev, card):
     from modest_tpu_torch.ops import knn
     from modest_tpu_torch.tools import knn_bench
 
-    knn.knn_windows_cuda.launches = 0
+    counts = knn.knn_windows_cuda.launches  # per kernel
+    counts.update(dict.fromkeys(counts, 0))
     knn.nearest_k.dense_fallbacks = 0
     rows = knn_bench.run(dev, batch=BATCH, iters=KNN_ITERS)
     torch.cuda.synchronize()
-    launches, fallbacks = knn.knn_windows_cuda.launches, knn.nearest_k.dense_fallbacks
-    # per shape: nearest_k, the checked run, a warm-up and the timed runs
-    if launches != len(rows) * (3 + KNN_ITERS):
-        fail(f"tools/knn_bench.py launched the knn kernel {launches} times over {len(rows)} "
+    launches, fallbacks = dict(counts), knn.nearest_k.dense_fallbacks
+    # per shape: nearest_k, the checked run, a warm-up and the timed runs;
+    # every shape has k <= 32, the select kernel's
+    if launches != {"knn_select_kernel": len(rows) * (3 + KNN_ITERS), "knn_rounds_kernel": 0}:
+        fail(f"tools/knn_bench.py launched the knn kernels {launches} times over {len(rows)} "
              f"shapes")
     for row in rows:
         emit({"phase": "knn", **row, "card": card})
@@ -724,15 +798,49 @@ def phase_knn(torch, dev, card):
     return rows, launches, fallbacks
 
 
+def knn_pairs_needed(torch, args, keys, w: int) -> int:
+    """Window pairs an x-sorted scan must reach for these results: those
+    whose dx*dx key, masked as the kernel masks it, lies at or below the
+    query's k-th key."""
+    qx, _, _, xs, _, _, lo = args
+    kth = keys[:, -1:] & -w
+    cx = xs.reshape(-1)
+    lane = torch.arange(w, device=qx.device)
+    step = max(1, (1 << 24) // w)  # queries per slice
+    needed = 0
+    for q0 in range(0, qx.shape[0], step):
+        q = torch.arange(q0, min(qx.shape[0], q0 + step), device=qx.device)
+        dx = qx[q] - cx[lo[q // 32].long()[:, None] * 128 + lane]
+        needed += int((((dx * dx).view(torch.int32) & -w) <= kth[q]).sum())
+    return needed
+
+
+def knn_extra_cases(np):
+    """The selection's edge cases at path sizes: k = w / 4 at SA2's shape
+    (the k-round kernel) and, at SA1's, a cloud of eightfold duplicates."""
+    from modest_tpu_torch.tools import knn_bench
+
+    rng = np.random.RandomState(1)
+    xyz = knn_bench.make_cloud(rng, BATCH, 4096)
+    q = np.take_along_axis(xyz, rng.choice(4096, (BATCH, 1024, 1)).astype(np.int64), 1)
+    dup = np.repeat(knn_bench.make_cloud(rng, BATCH, 12288 // 8), 8, axis=1)
+    qd = np.take_along_axis(dup, rng.choice(12288, (BATCH, 4096, 1)).astype(np.int64), 1)
+    return [{"tag": "k=w/4 at SA2 1024<-4096 k=256", "m": 1024, "n": 4096, "k": 256,
+             "radius": 1.0, "xyz": xyz, "new_xyz": q},
+            {"tag": "duplicates x8 at SA1 4096<-12288 k=32", "m": 4096, "n": 12288, "k": 32,
+             "radius": 0.5, "xyz": dup, "new_xyz": qd}]
+
+
 def phase_knn_vs_plain(torch, np, dev, card):
-    """The kNN kernel against its plain twin on the window inputs nearest_k
-    builds at the four shapes: packed keys equal."""
+    """The kNN kernels against their plain twin on the window inputs
+    nearest_k builds at the four shapes and the two edge cases: packed keys
+    equal."""
     from modest_tpu_torch.ops import knn
     from modest_tpu_torch.tools import knn_bench
     from modest_tpu_torch.utils.device import device_ms
 
     rows = []
-    for case in knn_bench.shape_cases(BATCH):
+    for case in knn_bench.shape_cases(BATCH) + knn_extra_cases(np):
         new_xyz = torch.from_numpy(case["new_xyz"]).to(dev)
         xyz = torch.from_numpy(case["xyz"]).to(dev)
         k, w = case["k"], knn._pick_window(case["n"])
@@ -748,16 +856,18 @@ def phase_knn_vs_plain(torch, np, dev, card):
             return knn.knn_windows_cuda(*args, w=w, k=k, frames=BATCH, errors=errors)
 
         ms = device_ms(launch, dev, 10)
-        kernel_ms = kernel_device_ms(launch, 10, "knn_window_kernel")
+        kernel_ms = kernel_device_ms(launch, 10, "knn_")
         if int(errors.item()):
             fail(f"knn kernel at {case['tag']}: a window outside its frame")
         plain_ms = device_ms(lambda: knn.knn_windows_plain(*args, w=w, k=k, frames=BATCH), dev, 3)
         bm, bn = BATCH * case["m"], BATCH * case["n"]
-        pairs = bm * w
+        needed = knn_pairs_needed(torch, args, want, w)
         nbytes = 3 * bm * 4 + 3 * bn * 4 + (bm // knn.QC) * 4 + bm * k * 4
-        bound_ms, bound_by = bound(pairs * KNN_OPS_PER_PAIR, nbytes)
+        bound_ms, bound_by = bound(needed * KNN_OPS_PER_PAIR, nbytes)
         row = {"phase": "knn_vs_plain", "tag": case["tag"], "B": BATCH, "M": case["m"],
-               "N": case["n"], "k": k, "window": w, "pairs": pairs, "mismatches": mismatches,
+               "N": case["n"], "k": k, "window": w,
+               "kernel": "knn_select_kernel" if k <= knn.SELECT_MAX_K else "knn_rounds_kernel",
+               "pairs": bm * w, "pairs_needed": needed, "mismatches": mismatches,
                "max_abs_err": max_abs_err, "ms": ms, "kernel_device_ms": kernel_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "card": card}
@@ -766,15 +876,16 @@ def phase_knn_vs_plain(torch, np, dev, card):
             fail(f"knn kernel disagrees with its plain version at {case['tag']}: "
                  f"{mismatches} keys")
         rows.append(row)
-    # a window that leaves its frame is refused, not read
-    bad = args[-1].clone()
-    bad[-1] = 0  # the last chunk belongs to the last frame
-    try:
-        knn.knn_windows_cuda(*args[:-1], bad, w=w, k=k, frames=BATCH)
-    except ValueError:
-        pass
-    else:
-        fail("knn_windows_cuda accepted a window outside its frame")
+    # a window that leaves its frame is refused, not read, by either kernel
+    for k in (32, 256):
+        bad = args[-1].clone()
+        bad[-1] = 0  # the last chunk belongs to the last frame
+        try:
+            knn.knn_windows_cuda(*args[:-1], bad, w=w, k=min(k, w), frames=BATCH)
+        except ValueError:
+            pass
+        else:
+            fail(f"knn_windows_cuda at k = {k} accepted a window outside its frame")
     return rows
 
 
@@ -919,13 +1030,14 @@ def main() -> int:
         pp_row = phase_pp_score(torch, np, dev, root, data_root, card)
         seed_row = phase_seed_labels(torch, np, dev, root, data_root, card)
         rc_row, rc_state = phase_radius_count(torch, np, dev, data_root, root, card)
-        db_row = phase_dbscan(torch, np, dev, data_root, root, card)
+        db_rows, tie_row = phase_dbscan(torch, np, dev, data_root, root, card)
         phase_pipeline_card_vs_cpu(torch, np, dev, data_root, root, rc_state, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     knn_rows, knn_launches, knn_fallbacks = phase_knn(torch, dev, card)
     knn_kernel_rows = phase_knn_vs_plain(torch, np, dev, card)
+    knn_path_rows = knn_kernel_rows[:len(knn_rows)]
     gather_launches = phase_gather(torch, dev, card)
     gather_rows = phase_gather_vs_plain(torch, np, dev, card)
 
@@ -960,39 +1072,54 @@ def main() -> int:
         "name": "dbscan_edge", "route": "cuda", "source": "modest_tpu_torch/csrc/dbscan.cu",
         "replaces": "modest_tpu/ops/pallas_dbscan.py:75",
         "launches": seed_row["dbscan_launches"]["dbscan_edge"],
-        "calls": seed_row["dbscan_calls"]["dbscan_edge"], "max_abs_err": 0 if not (
-            db_row["nbr_mismatches"] or db_row["core_mismatches"]) else None,
-        "mismatches": db_row["nbr_mismatches"] + db_row["core_mismatches"],
-        "ms": db_row["edge_ms"], "plain_ms": db_row["edge_plain_ms"],
-        "bound_ms": db_row["edge_bound_ms"], "bound_by": "bytes", "library_ms": None,
-        "shapes": f"one group of {db_row['frames']} frames, N={db_row['N']}, k={db_row['k']}; "
-                  f"launches over {seed_row['frames_timed']} frames",
+        "calls": seed_row["dbscan_calls"]["dbscan_edge"], "max_abs_err": 0 if not any(
+            r["nbr_mismatches"] or r["tie_mismatches"] or r["core_mismatches"]
+            for r in db_rows) else None,
+        "mismatches": sum(r["nbr_mismatches"] + r["tie_mismatches"] + r["core_mismatches"]
+                          for r in db_rows),
+        "ms": db_rows[0]["edge_ms"], "plain_ms": db_rows[0]["edge_plain_ms"],
+        "bound_ms": db_rows[0]["edge_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "shapes": f"one group of {db_rows[0]['frames']} frames, N={db_rows[0]['N']}, "
+                  f"k={db_rows[0]['k']}; launches over {seed_row['frames_timed']} frames",
     }, {
         "name": "dbscan_prop", "route": "cuda", "source": "modest_tpu_torch/csrc/dbscan.cu",
         "replaces": "modest_tpu/ops/pallas_dbscan.py:117",
         "launches": seed_row["dbscan_launches"]["dbscan_prop"],
         "calls": seed_row["dbscan_calls"]["dbscan_prop"],
-        "host_reads": seed_row["dbscan_host_reads"], "sweeps": seed_row["dbscan_sweeps"],
-        "max_abs_err": 0 if not db_row["label_mismatches"] else None,
-        "mismatches": db_row["label_mismatches"],
-        "ms": db_row["prop_ms"], "plain_ms": db_row["prop_plain_ms"],
-        "bound_ms": db_row["prop_bound_ms"], "bound_by": "bytes", "library_ms": None,
-        "shapes": f"the same group, {db_row['sweeps']} sweeps to the fixpoint; launches, "
-                  f"calls, host reads and sweeps over {seed_row['frames_timed']} frames",
+        "host_reads": seed_row["dbscan_host_reads"],
+        "fixup_rounds": seed_row["dbscan_fixup_rounds"],
+        "max_abs_err": 0 if not any(r["label_mismatches"] or r["timed_label_mismatches"]
+                                    for r in (*db_rows, tie_row)) else None,
+        "mismatches": sum(r["label_mismatches"] + r["timed_label_mismatches"]
+                          for r in (*db_rows, tie_row)),
+        "ms": sum(r["prop_ms"] for r in db_rows) / len(db_rows),
+        "kernel_device_ms": None if any(r["prop_kernel_device_ms"] is None for r in db_rows)
+        else sum(r["prop_kernel_device_ms"] for r in db_rows) / len(db_rows),
+        "plain_ms": sum(r["prop_plain_ms"] for r in db_rows) / len(db_rows),
+        "bound_ms": sum(r["prop_bound_ms"] for r in db_rows) / len(db_rows),
+        "bound_by": "bytes", "library_ms": None,
+        "ms_by_group": [r["prop_ms"] for r in db_rows],
+        "tie_chain_ms": tie_row["prop_ms"],
+        "shapes": f"mean over the {len(db_rows)} seed groups of {db_rows[0]['frames']} frames "
+                  f"(N={db_rows[0]['N']}, k={db_rows[0]['k']}); launches, calls, host reads "
+                  f"and fix-up rounds over {seed_row['frames_timed']} frames",
     }, {
         "name": "knn", "route": "cuda", "source": "modest_tpu_torch/csrc/knn.cu",
-        "replaces": "modest_tpu/ops/pallas_knn.py:99", "launches": knn_launches,
+        "replaces": "modest_tpu/ops/pallas_knn.py:99",
+        "launches": sum(knn_launches.values()), "launches_by_kernel": knn_launches,
         "dense_fallbacks": knn_fallbacks,
         "max_abs_err": max(r["max_abs_err"] for r in knn_kernel_rows),
         "mismatches": sum(r["mismatches"] for r in knn_kernel_rows),
-        "ms": sum(r["ms"] for r in knn_kernel_rows),
-        "kernel_device_ms": None if any(r["kernel_device_ms"] is None for r in knn_kernel_rows)
-        else sum(r["kernel_device_ms"] for r in knn_kernel_rows),
-        "plain_ms": sum(r["plain_ms"] for r in knn_kernel_rows),
-        "bound_ms": sum(r["bound_ms"] for r in knn_kernel_rows), "bound_by": "operations",
+        "ms": sum(r["ms"] for r in knn_path_rows),
+        "kernel_device_ms": None if any(r["kernel_device_ms"] is None for r in knn_path_rows)
+        else sum(r["kernel_device_ms"] for r in knn_path_rows),
+        "plain_ms": sum(r["plain_ms"] for r in knn_path_rows),
+        "bound_ms": sum(r["bound_ms"] for r in knn_path_rows), "bound_by": "operations",
         "library_ms": None, "dense_ms": sum(r["dense_ms"] for r in knn_rows),
-        "shapes": "sum over the 4 shapes of tools/knn_bench.py at B=4 (SA1, SA2, FP0, FP1); "
-                  "launches over its run",
+        "rounds_kernel_ms": knn_kernel_rows[len(knn_path_rows)]["ms"],
+        "shapes": "sum over the 4 shapes of tools/knn_bench.py at B=4 (SA1, SA2, FP0, FP1), "
+                  "all knn_select_kernel (k <= 32); launches over its run; knn_rounds_kernel "
+                  "(k > 32) held at k = w/4 in phase knn_vs_plain only",
     }, {
         "name": "take", "route": "cuda", "source": "modest_tpu_torch/csrc/gather.cu",
         "replaces": "scripts_dev/gather_probe.py:119", "launches": gather_launches["take"],

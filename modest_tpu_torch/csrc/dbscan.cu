@@ -17,49 +17,86 @@
 // j = idx[i, s] when d2 is finite, d2 <= r2, d2 <= kth[j] (i lies within
 // j's k-th neighbour distance) and |pp[i] - pp[j]| <= eps, all in float32.
 // Writes nbr (total, k) int32 global neighbour rows (-1 where no edge),
-// core = valid & (degree + 1 >= min_samples), and the initial labels:
-// own global index for core points, SENT otherwise.
+// core = valid & (degree + 1 >= min_samples), the initial labels (own
+// global index for core points, SENT otherwise) and the edge classes: bit s
+// of tie[i] (total, ceil(k / 32)) uint32 is set when the edge i -> j has
+// d2 == kth[j], a tie edge. An edge with d2 < kth[j] is two-way: i lies
+// strictly inside j's k-th neighbour distance, so when the rows are an
+// exact top-k under one symmetric d2 (the kNN of pipeline/clustering.py:
+// ties to the lower index, q^2 + c^2 - 2q.c in one order for both
+// directions), i is in j's row, and the reverse edge passes the same gate
+// (d2 <= r2, d2 <= kth[i] as j is in i's row, the same |dpp|). A tie edge
+// may be one-way: i sat on j's k-th distance and lost the tie.
 //
-// Propagation (dbscan_prop_launch): a sweep kernel gives each core point
-// the smallest label among its edge neighbours (non-core neighbours carry
-// SENT) and raises a per-sweep `changed` flag; a pointer-jump kernel sets
-// lab = min(lab, lab[lab]). Sweeps repeat until one changes nothing: then
-// every core label equals the smallest core index reachable from it over
-// edges, the fixpoint of modest_tpu/pipeline/clustering.py::
-// _cluster_from_knn_impl, whatever order the updates ran in. The host reads
-// the flags once per ROUNDS_PER_SYNC sweeps. A border kernel then writes
-// the frame-local labels of every point into a separate output: core points
-// their label, non-core valid points the smallest label of a core edge
-// neighbour (from the converged table), else -1.
+// Propagation (dbscan_prop_launch) computes the fixpoint of
+// modest_tpu/pipeline/clustering.py::_cluster_from_knn_impl: every core
+// point's label is the smallest core index reachable from it over directed
+// core-core row edges; a non-core valid point takes the smallest label of a
+// core edge neighbour, else -1. Six kernels, no host loop:
+//   1. init: a core point's parent is its smallest two-way core neighbour
+//      when that is smaller than itself (ECL-CC's initialisation);
+//   2. compress: parent[i] = root(i) in that forest. Without these two the
+//      seed path's graphs (one large ground component per frame, indices
+//      x-sorted) grow deep trees during the union, and its ~10^7 finds walk
+//      them;
+//   3. union: one warp per core row hooks every two-way core-core edge into
+//      the parent table (ECL-CC: atomicCAS hooks the larger root under the
+//      smaller, path halving on the way), and appends the core-core tie
+//      edges (i, j) to a pair list with one atomicAdd per warp;
+//   4. flatten: parent[i] = root(i), the smallest index of i's two-way
+//      component, val[i] = parent[i], and each tie pair (i, j) becomes the
+//      component pair (root(i), root(j));
+//   5. fix-up: one persistent block repeats val[ri] = min(val[ri], val[rj])
+//      over the component pairs (ri != rj) until a round changes nothing
+//      (__syncthreads_or), then stores the rounds;
+//   6. border: core points take val[root(i)], non-core valid points the
+//      smallest val[root(j)] over their core edge neighbours.
+// Why this is the directed fixpoint: members of a two-way component reach
+// each other, so they reach the same set and share one label; the
+// components with the tie edges between them form a directed graph whose
+// min-reachable fixpoint is what step 3 converges to (labels only fall, and
+// each value is a reachable core index), and a two-way edge never crosses
+// components. One-way edges are therefore handled exactly, whichever way
+// they point.
 //
-// Edge, sweep and border kernels run one warp per point: its lanes read the
-// point's k slots as one coalesced row and reduce with shuffles. Every
-// kernel is bound by bytes: the (total, k) rows are read once per sweep,
-// and the label gathers hit a table of 4 * total bytes that stays in L2.
+// Bound: bytes. What the function needs: the nbr rows of valid points once
+// (core rows to propagate, the others for their border labels), one 4-byte
+// label gather per edge, the initial label table and the core and valid
+// flags read once, the labels written once (chip_smoke.py's prop_bound).
+// The union kernel reads each core row once plus its tie words; the parent
+// table (4 * total bytes, 0.8 MB at 4 x 49152 points) stays in L2, as do
+// the pair list (~1% of the edges) and val that the fix-up loops over. The
+// old sweep loop re-read all rows once per sweep, ~28 times per group.
+//
+// Edge, union and border kernels run one warp per point: its lanes read the
+// point's k slots as one coalesced row.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr int SENT = 0x3FFFFFFF;     // label of non-core points (above any index)
-constexpr int ROUNDS_PER_SYNC = 4;   // sweeps launched between two host reads of the flags
 constexpr int WARPS_PER_BLOCK = 8;
 constexpr int THREADS = 32 * WARPS_PER_BLOCK;
+constexpr int FIXUP_THREADS = 1024;  // the fix-up's one block
+constexpr int FIXUP_BATCH = 4;       // pairs a fix-up thread loads at once
 constexpr int ERR_BAD_INDEX = -1;    // a neighbour index outside [0, N)
-constexpr int ERR_NO_FIXPOINT = -2;  // max_sweeps sweeps and still changing
+// flags: [bad neighbour index seen, tie pairs appended, fix-up rounds]
+constexpr int F_BAD = 0, F_TIES = 1, F_ROUNDS = 2, N_FLAGS = 3;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int warp_min(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
 __device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
@@ -80,31 +117,42 @@ __global__ void kth_kernel(const float* __restrict__ d2, const unsigned char* __
 
 __global__ void edge_kernel(const int* __restrict__ idx, const float* __restrict__ d2,
                             const float* __restrict__ pp, const float* __restrict__ kth,
-                            int* __restrict__ nbr, unsigned char* __restrict__ core,
-                            int* __restrict__ lab, int* __restrict__ flags, int total, int n,
-                            int k, float r2, float eps, int min_samples,
-                            const unsigned char* __restrict__ valid) {
+                            int* __restrict__ nbr, unsigned* __restrict__ tie,
+                            unsigned char* __restrict__ core, int* __restrict__ lab,
+                            int* __restrict__ flags, int total, int n, int k, float r2, float eps,
+                            int min_samples, const unsigned char* __restrict__ valid) {
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (i >= total) return;
+  if (i >= total) return;  // uniform per warp
   const int off = (i / n) * n;
+  const int words = (k + 31) >> 5;
   const float pp_i = pp[i];
   int deg = 0;
-  for (int s = lane; s < k; s += 32) {
-    const size_t e = (size_t)i * k + s;
-    const float d = d2[e];
-    int out = -1;
-    if (isfinite(d) && d <= r2) {
-      const int jl = idx[e];
-      if (jl < 0 || jl >= n) {
-        atomicExch(flags, 1);
-      } else {
-        const int j = off + jl;
-        if (d <= kth[j] && fabsf(__fsub_rn(pp_i, pp[j])) <= eps) out = j;
+  for (int base = 0; base < k; base += 32) {
+    const int s = base + lane;
+    bool is_tie = false;
+    if (s < k) {
+      const size_t e = (size_t)i * k + s;
+      const float d = d2[e];
+      int out = -1;
+      if (isfinite(d) && d <= r2) {
+        const int jl = idx[e];
+        if (jl < 0 || jl >= n) {
+          atomicExch(flags + F_BAD, 1);
+        } else {
+          const int j = off + jl;
+          const float kj = kth[j];
+          if (d <= kj && fabsf(__fsub_rn(pp_i, pp[j])) <= eps) {
+            out = j;
+            is_tie = !(d < kj);
+          }
+        }
       }
+      nbr[e] = out;
+      deg += out >= 0;
     }
-    nbr[e] = out;
-    deg += out >= 0;
+    const unsigned word = __ballot_sync(FULL, is_tie);
+    if (lane == 0) tie[(size_t)i * words + (base >> 5)] = word;
   }
   deg = warp_sum(deg);
   if (lane == 0) {
@@ -114,36 +162,158 @@ __global__ void edge_kernel(const int* __restrict__ idx, const float* __restrict
   }
 }
 
-__global__ void sweep_kernel(const int* __restrict__ nbr, int* lab, int* changed, int total,
-                             int k) {
+// Root of x in the parent table (parent[x] <= x always), halving the path.
+// Loads go through L1 and may be stale: a parent only ever moves up to an
+// ancestor, so a stale value is still an ancestor, and hook()'s atomicCAS
+// sees the true value. Cached loads keep the many finds that end at one
+// large component's root off a single L2 line.
+__device__ __forceinline__ int find_root(int* parent, int x) {
+  int cur = __ldca(parent + x);
+  if (cur != x) {
+    int next, prev = x;
+    while (cur > (next = __ldca(parent + cur))) {
+      parent[prev] = next;  // an ancestor of prev: other threads may race, any ancestor is right
+      prev = cur;
+      cur = next;
+    }
+  }
+  return cur;
+}
+
+// ECL-CC's hook: the larger root goes under the smaller one. After the
+// compress pass most points hang right under their root, so one load of
+// each parent settles most edges: a common parent means one tree.
+__device__ __forceinline__ void hook(int* parent, int a, int b) {
+  int ra = __ldca(parent + a), rb = __ldca(parent + b);
+  if (ra == rb) return;
+  ra = find_root(parent, ra);
+  rb = find_root(parent, rb);
+  while (ra != rb) {
+    if (ra < rb) {
+      const int old = atomicCAS(parent + rb, rb, ra);
+      if (old == rb) break;
+      rb = old;  // rb was hooked meanwhile: climb from its new parent
+    } else {
+      const int old = atomicCAS(parent + ra, ra, rb);
+      if (old == ra) break;
+      ra = old;
+    }
+  }
+}
+
+// ECL-CC's initialisation: each core point's parent is its smallest
+// two-way core neighbour, if smaller than itself.
+__global__ void init_kernel(const int* __restrict__ nbr, const unsigned* __restrict__ tie,
+                            const unsigned char* __restrict__ core, int* __restrict__ parent,
+                            int total, int k) {
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (i >= total) return;
-  const int own = lab[i];
-  if (own >= SENT) return;  // non-core: never relabelled here (uniform per warp)
-  int m = own;
-  for (int s = lane; s < k; s += 32) {
-    const int j = nbr[(size_t)i * k + s];
-    if (j >= 0) m = min(m, lab[j]);
+  if (i >= total || !core[i]) return;  // uniform per warp
+  const int words = (k + 31) >> 5;
+  int m = i;
+  for (int base = 0; base < k; base += 32) {
+    const int s = base + lane;
+    if (s < k) {
+      const int j = nbr[(size_t)i * k + s];
+      if (j >= 0 && j < m && core[j] && !((tie[(size_t)i * words + (base >> 5)] >> lane) & 1u))
+        m = j;
+    }
   }
   m = warp_min(m);
-  if (lane == 0 && m < own) {
-    lab[i] = m;
-    *changed = 1;
+  if (lane == 0) parent[i] = m;
+}
+
+// parent[i] = root(i) over the forest built so far.
+__global__ void compress_kernel(int* parent, int total) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < total && parent[i] < SENT) parent[i] = find_root(parent, i);
+}
+
+__global__ void union_kernel(const int* __restrict__ nbr, const unsigned* __restrict__ tie,
+                             const unsigned char* __restrict__ core, int* parent,
+                             int2* __restrict__ pairs, int* __restrict__ flags, int total, int k) {
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (i >= total || !core[i]) return;  // uniform per warp
+  const int words = (k + 31) >> 5;
+  for (int base = 0; base < k; base += 32) {
+    const int s = base + lane;
+    int j = -1;
+    bool tie_pair = false;
+    if (s < k) {
+      j = nbr[(size_t)i * k + s];
+      if (j >= 0 && core[j]) {
+        if ((tie[(size_t)i * words + (base >> 5)] >> lane) & 1u) {
+          tie_pair = true;
+        } else {
+          hook(parent, i, j);
+        }
+      }
+    }
+    const unsigned m = __ballot_sync(FULL, tie_pair);
+    if (m) {
+      int first = 0;
+      if (lane == 0) first = atomicAdd(flags + F_TIES, __popc(m));
+      first = __shfl_sync(FULL, first, 0);
+      if (tie_pair) pairs[first + __popc(m & ((1u << lane) - 1u))] = make_int2(i, j);
+    }
   }
 }
 
-__global__ void jump_kernel(int* lab, int total) {
+// parent[i] = root(i) and val[i] = parent[i]; the tie pairs become
+// component pairs (roots are final here: only paths are written).
+__global__ void flatten_kernel(int* parent, int* __restrict__ val, int2* __restrict__ pairs,
+                               const int* __restrict__ flags, int total) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int count = flags[F_TIES];
+  for (int p = i; p < count; p += stride) {
+    const int2 e = pairs[p];
+    pairs[p] = make_int2(find_root(parent, e.x), find_root(parent, e.y));
+  }
   if (i >= total) return;
-  const int l = lab[i];
-  if (l >= SENT) return;
-  const int ll = lab[l];
-  if (ll < l) lab[i] = ll;
+  int r = parent[i];
+  if (r < SENT) {
+    r = find_root(parent, i);
+    parent[i] = r;
+  }
+  val[i] = r;
 }
 
-__global__ void border_kernel(const int* __restrict__ nbr, const int* __restrict__ lab,
-                              const unsigned char* __restrict__ core,
+// Directed fix-up over the component pairs, one block, FIXUP_BATCH pairs
+// in flight per thread. Pairs inside one component are skipped.
+__global__ void __launch_bounds__(FIXUP_THREADS)
+fixup_kernel(const int2* __restrict__ pairs, int* val, int* flags) {
+  const int count = flags[F_TIES];
+  volatile int* vv = val;
+  int rounds = 0;
+  for (;;) {
+    int changed = 0;
+    for (int p0 = threadIdx.x; p0 < count; p0 += FIXUP_THREADS * FIXUP_BATCH) {
+      int2 c[FIXUP_BATCH];
+#pragma unroll
+      for (int t = 0; t < FIXUP_BATCH; ++t) {
+        const int p = p0 + t * FIXUP_THREADS;
+        c[t] = p < count ? pairs[p] : make_int2(0, 0);
+      }
+#pragma unroll
+      for (int t = 0; t < FIXUP_BATCH; ++t) {
+        if (c[t].x == c[t].y) continue;
+        const int vj = vv[c[t].y];
+        if (vj < vv[c[t].x]) {
+          atomicMin(val + c[t].x, vj);
+          changed = 1;
+        }
+      }
+    }
+    ++rounds;
+    if (!__syncthreads_or(changed)) break;
+  }
+  if (threadIdx.x == 0) flags[F_ROUNDS] = rounds;
+}
+
+__global__ void border_kernel(const int* __restrict__ nbr, const int* __restrict__ comp,
+                              const int* __restrict__ val, const unsigned char* __restrict__ core,
                               const unsigned char* __restrict__ valid, int* __restrict__ out,
                               int total, int n, int k) {
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -151,11 +321,14 @@ __global__ void border_kernel(const int* __restrict__ nbr, const int* __restrict
   if (i >= total) return;
   int m = SENT;
   if (core[i]) {
-    m = lab[i];
+    m = val[comp[i]];
   } else if (valid[i]) {
     for (int s = lane; s < k; s += 32) {
       const int j = nbr[(size_t)i * k + s];
-      if (j >= 0) m = min(m, lab[j]);  // lab[j] < SENT exactly when j is core
+      if (j >= 0) {
+        const int c = comp[j];  // SENT exactly when j is not core
+        if (c < SENT) m = min(m, val[c]);
+      }
     }
     m = warp_min(m);
   }
@@ -169,76 +342,75 @@ inline int warp_blocks(int total) { return (total + WARPS_PER_BLOCK - 1) / WARPS
 extern "C" {
 
 int dbscan_sentinel() { return SENT; }
-int dbscan_rounds_per_sync() { return ROUNDS_PER_SYNC; }
+int dbscan_flag_count() { return N_FLAGS; }
 
-// flags: 1 + ROUNDS_PER_SYNC int32 of scratch shared with dbscan_prop_launch
-// (flags[0] = a bad neighbour index was seen). kth: total float32 of scratch.
-// *kernels gets the kernels launched (2).
+// flags: N_FLAGS int32 of scratch shared with dbscan_prop_launch
+// (flags[0] = a bad neighbour index was seen). kth: total float32 of
+// scratch. tie: (total, ceil(k / 32)) uint32. *kernels gets the kernels
+// launched (2).
 int dbscan_edge_launch(const void* idx, const void* d2, const void* pp, const void* valid,
-                       void* kth, void* nbr, void* core, void* lab, void* flags, int total,
-                       int n, int k, float r2, float eps, int min_samples, void* stream,
-                       int* kernels) {
+                       void* kth, void* nbr, void* tie, void* core, void* lab, void* flags,
+                       int total, int n, int k, float r2, float eps, int min_samples,
+                       void* stream, int* kernels) {
   cudaStream_t s = (cudaStream_t)stream;
   *kernels = 0;
   if (total <= 0) return 0;
-  cudaMemsetAsync(flags, 0, sizeof(int) * (1 + ROUNDS_PER_SYNC), s);
+  cudaMemsetAsync(flags, 0, sizeof(int) * N_FLAGS, s);
   kth_kernel<<<warp_blocks(total), THREADS, 0, s>>>((const float*)d2,
                                                     (const unsigned char*)valid, (float*)kth,
                                                     total, k);
   edge_kernel<<<warp_blocks(total), THREADS, 0, s>>>(
       (const int*)idx, (const float*)d2, (const float*)pp, (const float*)kth, (int*)nbr,
-      (unsigned char*)core, (int*)lab, (int*)flags, total, n, k, r2, eps, min_samples,
-      (const unsigned char*)valid);
+      (unsigned*)tie, (unsigned char*)core, (int*)lab, (int*)flags, total, n, k, r2, eps,
+      min_samples, (const unsigned char*)valid);
   *kernels = 2;
   return (int)cudaGetLastError();
 }
 
-// Runs sweeps + pointer jumps to the fixpoint, then the border kernel into
-// out (total,) int32 frame-local labels (-1 noise). Synchronises the stream
-// once per ROUNDS_PER_SYNC sweeps. *sweeps gets the sweeps launched,
-// *kernels the kernels launched (2 per sweep + the border kernel) and
-// *host_reads the host reads of the flags.
-int dbscan_prop_launch(const void* nbr, void* lab, const void* core, const void* valid,
-                       void* out, void* flags, int total, int n, int k, int max_sweeps,
-                       int* sweeps, int* kernels, int* host_reads, void* stream) {
+// Init, compress, union, flatten, fix-up and border kernels, then one host
+// read of the flags. parent: the edge stage's labels, relabelled in place; val: total
+// int32 of scratch; pairs: room for every slot, (total * k) int2; out:
+// (total,) int32 frame-local labels (-1 noise). *kernels gets the kernels
+// launched (6), *rounds the fix-up's rounds, *ties the core-core tie edges,
+// *host_reads the host reads (1).
+int dbscan_prop_launch(const void* nbr, const void* tie, const void* core, const void* valid,
+                       void* parent, void* val, void* pairs, void* out, void* flags, int total,
+                       int n, int k, int* rounds, int* ties, int* kernels, int* host_reads,
+                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  *sweeps = *kernels = *host_reads = 0;
+  *rounds = *ties = *kernels = *host_reads = 0;
   if (total <= 0) return 0;
   int* f = (int*)flags;
-  int host[1 + ROUNDS_PER_SYNC];
-  const int point_blocks = (total + THREADS - 1) / THREADS;
-  for (;;) {
-    cudaMemsetAsync(f + 1, 0, sizeof(int) * ROUNDS_PER_SYNC, s);
-    for (int r = 0; r < ROUNDS_PER_SYNC; ++r) {
-      sweep_kernel<<<warp_blocks(total), THREADS, 0, s>>>((const int*)nbr, (int*)lab, f + 1 + r,
-                                                          total, k);
-      jump_kernel<<<point_blocks, THREADS, 0, s>>>((int*)lab, total);
-      *kernels += 2;
-    }
-    int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    err = (int)cudaMemcpyAsync(host, f, sizeof(host), cudaMemcpyDeviceToHost, s);
-    if (err != 0) return err;
-    err = (int)cudaStreamSynchronize(s);
-    if (err != 0) return err;
-    ++*host_reads;
-    if (host[0]) return ERR_BAD_INDEX;
-    *sweeps += ROUNDS_PER_SYNC;
-    bool fixpoint = false;
-    for (int r = 0; r < ROUNDS_PER_SYNC; ++r) fixpoint |= host[1 + r] == 0;
-    if (fixpoint) break;
-    if (*sweeps >= max_sweeps) return ERR_NO_FIXPOINT;
-  }
+  cudaMemsetAsync(f + F_TIES, 0, sizeof(int) * (N_FLAGS - F_TIES), s);
+  init_kernel<<<warp_blocks(total), THREADS, 0, s>>>(
+      (const int*)nbr, (const unsigned*)tie, (const unsigned char*)core, (int*)parent, total, k);
+  compress_kernel<<<(total + THREADS - 1) / THREADS, THREADS, 0, s>>>((int*)parent, total);
+  union_kernel<<<warp_blocks(total), THREADS, 0, s>>>(
+      (const int*)nbr, (const unsigned*)tie, (const unsigned char*)core, (int*)parent,
+      (int2*)pairs, f, total, k);
+  flatten_kernel<<<(total + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      (int*)parent, (int*)val, (int2*)pairs, f, total);
+  fixup_kernel<<<1, FIXUP_THREADS, 0, s>>>((const int2*)pairs, (int*)val, f);
   border_kernel<<<warp_blocks(total), THREADS, 0, s>>>(
-      (const int*)nbr, (const int*)lab, (const unsigned char*)core, (const unsigned char*)valid,
-      (int*)out, total, n, k);
-  ++*kernels;
-  return (int)cudaGetLastError();
+      (const int*)nbr, (const int*)parent, (const int*)val, (const unsigned char*)core,
+      (const unsigned char*)valid, (int*)out, total, n, k);
+  *kernels = 6;
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  int host[N_FLAGS];
+  err = (int)cudaMemcpyAsync(host, f, sizeof(host), cudaMemcpyDeviceToHost, s);
+  if (err != 0) return err;
+  err = (int)cudaStreamSynchronize(s);
+  if (err != 0) return err;
+  *host_reads = 1;
+  if (host[F_BAD]) return ERR_BAD_INDEX;
+  *rounds = host[F_ROUNDS];
+  *ties = host[F_TIES];
+  return 0;
 }
 
 const char* dbscan_error_string(int err) {
   if (err == ERR_BAD_INDEX) return "a neighbour index lies outside its frame";
-  if (err == ERR_NO_FIXPOINT) return "label propagation reached max_sweeps without a fixpoint";
   return cudaGetErrorString((cudaError_t)err);
 }
 

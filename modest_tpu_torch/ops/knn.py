@@ -17,7 +17,9 @@ with a certificate (radius mode: the window holds ``[min x − r, max x + r]``
 of its chunk; three-NN mode: no candidate outside the window can beat the
 k-th winner). When the certificate fails, ``dense_fn`` answers instead.
 
-``knn_windows_cuda`` launches ``csrc/knn.cu`` on CUDA tensors;
+``knn_windows_cuda`` launches ``csrc/knn.cu`` on CUDA tensors (a warp
+selection over tiles scanned outward from each query for k ≤ 32, the
+earlier k-round kernel above);
 ``knn_windows_plain`` is the same arithmetic in PyTorch; ``knn_windows``
 takes the plain twin for CPU tensors and the kernel for CUDA tensors.
 Indices are int64, the port's convention (``torch.gather`` takes them).
@@ -35,6 +37,7 @@ from ._build import check_cuda, launch_with_flag, load_library
 QC = 32          # queries per chunk: one window each
 ROW = 128        # windows start on rows of 128 sorted candidates
 WINDOWS = (512, 1024, 2048)
+SELECT_MAX_K = 32  # k up to this takes knn_select_kernel, above it knn_rounds_kernel
 _PLAIN_ELEMS = 1 << 24  # keys per step of the plain twin (64 MB of int32)
 
 _COUNT_LOCK = threading.Lock()
@@ -43,14 +46,17 @@ _COUNT_LOCK = threading.Lock()
 @functools.cache
 def _lib():
     lib = load_library("knn")
-    lib.knn_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    lib.knn_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                               + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p),
+                                  ctypes.c_void_p])
     lib.knn_launch.restype = ctypes.c_int
     lib.knn_error_string.argtypes = [ctypes.c_int]
     lib.knn_error_string.restype = ctypes.c_char_p
-    lib.knn_queries_per_chunk.argtypes = []
-    lib.knn_queries_per_chunk.restype = ctypes.c_int
-    if lib.knn_queries_per_chunk() != QC:
-        raise RuntimeError("csrc/knn.cu's chunk differs from ops/knn.py")
+    for fn in (lib.knn_queries_per_chunk, lib.knn_select_max_k):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    if lib.knn_queries_per_chunk() != QC or lib.knn_select_max_k() != SELECT_MAX_K:
+        raise RuntimeError("csrc/knn.cu's chunk or select limit differs from ops/knn.py")
     return lib
 
 
@@ -141,18 +147,23 @@ def knn_windows_cuda(qx, qy, qz, xs, ys, zs, lo, *, w: int, k: int, frames: int 
     lib = _lib()
     out = torch.empty((bm, k), dtype=torch.int32, device=qx.device)
     rows_pf = xs.shape[0] // frames
+    kernel = ctypes.c_char_p()
     own = launch_with_flag("knn_windows_cuda", qx.device, errors, lambda e, s: lib.knn_launch(
         qx.data_ptr(), qy.data_ptr(), qz.data_ptr(), xs.data_ptr(), ys.data_ptr(), zs.data_ptr(),
-        lo.data_ptr(), out.data_ptr(), bm, w, k, rows_pf, (bm // QC) // frames, e, s),
-        lib.knn_error_string)
-    with _COUNT_LOCK:
-        knn_windows_cuda.launches += 1
+        lo.data_ptr(), out.data_ptr(), bm, w, k, rows_pf, (bm // QC) // frames, e,
+        ctypes.byref(kernel), s), lib.knn_error_string)
+    if kernel.value:
+        with _COUNT_LOCK:
+            knn_windows_cuda.launches[kernel.value.decode()] += 1
     if own is not None and int(own.item()):
         raise ValueError(_outside_message("knn_windows_cuda", w, rows_pf))
     return out
 
 
-knn_windows_cuda.launches = 0  # kernel launches since the last reset
+# kernel launches since the last reset, per kernel of csrc/knn.cu (the one
+# knn_launch reports it started: knn_select_kernel for k <= 32, else
+# knn_rounds_kernel)
+knn_windows_cuda.launches = {"knn_select_kernel": 0, "knn_rounds_kernel": 0}
 
 
 def knn_windows(qx, qy, qz, xs, ys, zs, lo, *, w: int, k: int, frames: int = 1,

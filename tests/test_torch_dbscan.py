@@ -5,7 +5,10 @@ propagation twins (what a CPU tensor runs, and what the CUDA kernels in
 modest_tpu_torch/csrc/dbscan.cu are held to on the card) must give the same
 raw labels and core flags as the XLA formulation
 (``clustering._cluster_from_knn_batch``) and the Pallas kernels in interpret
-mode, bit for bit.
+mode, bit for bit; and the plain model of the kernels' propagation
+(union-find over two-way edges, a directed fix-up over tie edges) must equal
+the sweep twin, on graphs whose one-way tie edges make the directed
+fixpoint differ from the undirected components.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 from modest_tpu.ops import pallas_dbscan as PD
 from modest_tpu.pipeline import clustering as C
 from modest_tpu_torch.ops import dbscan as TD
+from modest_tpu_torch.tools.tie_graph import tie_chain_graph
 
 RADIUS, EPS, MIN_SAMPLES = 2.0, 0.1, 10
 R2, EPS32 = np.float32(RADIUS * RADIUS), np.float32(EPS)
@@ -143,3 +147,110 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="int32 idx"):
         TD.dbscan_from_knn(idx.long(), d2, pp, valid, 4.0, 0.1, 10)
     assert (TD.dbscan_edge_cuda.launches, TD.dbscan_prop_cuda.launches) == before
+
+
+def _graph(idx, d2, pp, valid, min_samples=MIN_SAMPLES):
+    return TD.dbscan_edge_plain(torch.from_numpy(np.asarray(idx, np.int32)),
+                                torch.from_numpy(np.asarray(d2, np.float32)),
+                                torch.from_numpy(np.asarray(pp, np.float32)),
+                                torch.from_numpy(np.asarray(valid, bool)),
+                                float(R2), float(EPS32), min_samples)
+
+
+def _undirected_labels(graph):
+    """Core labels as the minimum of each undirected core–core component,
+    the answer a union-find over every edge would give."""
+    b, n = graph.core.shape
+    total, k = graph.nbr.shape
+    nbr, core = graph.nbr.long(), graph.core.reshape(-1)
+    i = torch.arange(total)[:, None].expand(total, k)
+    cc = (nbr >= 0) & core[:, None] & core[nbr.clamp_min(0)]
+    comp = TD._component_min(i[cc], nbr[cc], torch.arange(total)).reshape(b, n)
+    return (comp - (torch.arange(b) * n)[:, None]).numpy()
+
+
+@pytest.mark.parametrize("b,n,k,min_samples", [(2, 1024, 8, 4), (1, 1024, 16, 6)])
+def test_one_way_tie_edges_follow_the_directed_fixpoint(b, n, k, min_samples):
+    """Blocks chained by one-way tie edges (tools/tie_graph.py): the labels
+    are the smallest index reachable over directed row edges, which differs
+    from the undirected component minimum; the plain twin, the XLA
+    formulation, the Pallas kernels in interpret mode (one window over the
+    whole frame) and the union-find + fix-up model agree bit for bit."""
+    idx, d2, pp, valid = tie_chain_graph(b, n, k, seed=k)
+    graph = _graph(idx, d2, pp, valid, min_samples)
+    raw = TD.dbscan_prop_plain(graph).numpy()
+    core = graph.core.numpy()
+    assert core.sum() > 0.9 * valid.sum()
+    und = _undirected_labels(graph)
+    assert (raw[core] != und[core]).sum() > 0.1 * core.sum()
+
+    x_raw, x_core = C._cluster_from_knn_batch(jnp.asarray(idx), jnp.asarray(d2), jnp.asarray(pp),
+                                              jnp.asarray(valid), R2, EPS32, min_samples)
+    np.testing.assert_array_equal(raw, np.asarray(x_raw))
+    np.testing.assert_array_equal(core, np.asarray(x_core))
+
+    packed = np.asarray(PD._dbscan_device(
+        jnp.asarray(pp), jnp.asarray(valid), jnp.zeros((b, n // 1024), jnp.int32),
+        jnp.asarray(idx), jnp.asarray(d2), n_pad=n, w=n, min_samples=min_samples, eps=EPS32,
+        radius2=R2, rounds=24, interpret=True))
+    assert not (packed.flat[0] & 1), "the Pallas round budget was too small for this graph"
+    labels = packed >> 2
+    np.testing.assert_array_equal(raw, np.where(labels >= n, -1, labels))
+
+    comp_raw, pairs, rounds = TD.dbscan_prop_components_plain(graph)
+    np.testing.assert_array_equal(comp_raw.numpy(), raw)
+    assert len(pairs) > 0 and rounds > 2
+
+
+@pytest.mark.parametrize("seed,n,k", [(11, 1500, 30), (12, 2900, 70)])
+def test_edge_classes_on_knn_frames(seed, n, k):
+    """On kNN graphs of Gaussian-blob frames: the tie bits mark exactly the
+    edges with d² = kth²(j), and every other edge i → j is two-way (i's
+    edge lies in j's row)."""
+    rng = np.random.RandomState(seed)
+    x, p, v = _make_frame(rng, n, 3072)
+    idx, d2 = C._knn(jnp.asarray(x), jnp.asarray(v), k, row_chunk=1024)
+    idx, d2 = np.asarray(idx), np.asarray(d2)
+    graph = _graph(idx[None], d2[None], p[None], v[None])
+    tie = TD.unpack_bits(graph.tie, k).numpy()
+    nbr = graph.nbr.numpy()
+    kth = np.where(v, np.max(np.where(np.isfinite(d2), d2, -1.0), axis=1), -1.0)
+    edge = nbr >= 0
+    np.testing.assert_array_equal(tie, edge & (d2 == kth[idx]))
+    np.testing.assert_array_equal(TD.pack_bits(torch.from_numpy(tie)).numpy(), graph.tie.numpy())
+    rows, slots = np.nonzero(edge & ~tie)
+    reverse = (nbr[nbr[rows, slots]] == rows[:, None]).any(axis=1)
+    assert reverse.all(), f"{(~reverse).sum()} of {len(rows)} two-way edges lack their reverse"
+    assert tie.sum() > 0 and len(rows) > 100 * tie.sum() / 10
+
+
+@pytest.mark.parametrize("case", ["blobs", "tie_chain", "long_chain"])
+def test_union_find_model_equals_the_sweeps(case):
+    """The kernels' design in plain PyTorch (components of the two-way
+    edges, directed fix-up over the tie edges) against the sweep twin, and
+    its tie pairs against the core–core tie edges of the graph."""
+    rng = np.random.RandomState(5)
+    if case == "blobs":
+        frames = [_make_frame(rng, 2000 - 37 * i, 2048) for i in range(2)]
+        idx, d2 = C._knn_batch(jnp.asarray(np.stack([f[0] for f in frames])),
+                               jnp.asarray(np.stack([f[2] for f in frames])), 48, row_chunk=1024)
+        args, ms = (np.asarray(idx), np.asarray(d2), np.stack([f[1] for f in frames]),
+                    np.stack([f[2] for f in frames])), MIN_SAMPLES
+    elif case == "tie_chain":
+        args, ms = tie_chain_graph(2, 2048, 24, seed=1), 8
+    else:  # every edge a tie: the fix-up does all the work
+        n = 600
+        perm = rng.permutation(n)
+        pos = np.argsort(perm)
+        idx = np.stack([perm[np.clip(pos - 1, 0, n - 1)], perm[np.clip(pos + 1, 0, n - 1)]], 1)
+        d2 = np.where(np.stack([pos == 0, pos == n - 1], 1), np.inf, 1.0)
+        args, ms = (idx[None], d2[None], np.zeros((1, n)), np.ones((1, n), bool)), 2
+    graph = _graph(*args, min_samples=ms)
+    want = TD.dbscan_prop_plain(graph)
+    got, pairs, rounds = TD.dbscan_prop_components_plain(graph)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    k = graph.nbr.shape[1]
+    core = graph.core.reshape(-1)
+    nbr = graph.nbr.long()
+    cc_tie = TD.unpack_bits(graph.tie, k) & (nbr >= 0) & core[:, None] & core[nbr.clamp_min(0)]
+    assert len(pairs) == int(cc_tie.sum()) and rounds >= 1

@@ -29,22 +29,16 @@ def _exact_d2(q, c):
     return ((q.astype(np.float64) - c.astype(np.float64)) ** 2).sum(-1)
 
 
-@pytest.mark.parametrize("n,w", [(1024, 512), (2048, 1024)])
-def test_plain_window_function_matches_pallas_interpret(n, w):
+def _assert_keys_match_pallas(args, w, k, b):
     """The packed keys of the plain twin and of the Pallas kernel (interpret
     mode) on the same inputs. XLA's CPU may fuse the d² sum into FMAs, so a
     key may differ by a quantum: at most 0.1% of the slots may differ, and
     each such slot's exact d² must lie within 2^-11 relative of the other."""
-    rng = np.random.RandomState(n)
-    b, m, k = 2, 96, 16
-    assert tk._pick_window(n) == w == pk._pick_window(n)
-    xyz = torch.from_numpy(_cloud(rng, b, n))
-    new_xyz = torch.from_numpy(_cloud(rng, b, m))
-    args = tk.sorted_windows(new_xyz, xyz, w, radius=1.0)["args"]
+    bm = args[0].shape[0]
     got = tk.knn_windows(*args, w=w, k=k, frames=b).numpy()
     want = np.asarray(pk._knn_windows(*(jnp.asarray(a.numpy()) for a in args), w=w, k=k,
                                       interpret=True))
-    assert got.shape == want.shape == (b * m, k) and got.dtype == np.int32
+    assert got.shape == want.shape == (bm, k) and got.dtype == np.int32
     assert np.all(np.diff(got, axis=1) > 0)  # ascending, unique
     diff = got != want
     assert diff.mean() <= 1e-3, f"{diff.sum()} of {diff.size} slots differ"
@@ -56,6 +50,48 @@ def test_plain_window_function_matches_pallas_interpret(n, w):
         d_got = _exact_d2(q[r], cand[base + (got[r, s] & (w - 1))])
         d_want = _exact_d2(q[r], cand[base + (want[r, s] & (w - 1))])
         assert abs(d_got - d_want) <= QUANTUM * max(d_got, d_want)
+    return got
+
+
+@pytest.mark.parametrize("n,w", [(1024, 512), (2048, 1024)])
+def test_plain_window_function_matches_pallas_interpret(n, w):
+    rng = np.random.RandomState(n)
+    b, m, k = 2, 96, 16
+    assert tk._pick_window(n) == w == pk._pick_window(n)
+    xyz = torch.from_numpy(_cloud(rng, b, n))
+    new_xyz = torch.from_numpy(_cloud(rng, b, m))
+    args = tk.sorted_windows(new_xyz, xyz, w, radius=1.0)["args"]
+    _assert_keys_match_pallas(args, w, k, b)
+
+
+@pytest.mark.parametrize("k", [1, 3, 256])
+def test_plain_window_function_matches_pallas_interpret_at_k(k):
+    """The selection's edge cases: one key, the three-NN k, and k = w / 4
+    (the largest ``nearest_k`` takes, which the card serves with its
+    k-round kernel)."""
+    rng = np.random.RandomState(k)
+    b, m, n, w = 2, 64, 2048, 1024
+    xyz = torch.from_numpy(_cloud(rng, b, n))
+    new_xyz = torch.from_numpy(_cloud(rng, b, m))
+    args = tk.sorted_windows(new_xyz, xyz, w, radius=1.0)["args"]
+    got = _assert_keys_match_pallas(args, w, k, b)
+    assert k != w // 4 or k > tk.SELECT_MAX_K
+
+
+def test_plain_window_function_matches_pallas_interpret_on_duplicates():
+    """A window of many duplicate points (each point eight times): keys of
+    one point's copies differ only in their index bits, where a warp
+    selection that compares or drops equal distances goes wrong."""
+    rng = np.random.RandomState(8)
+    b, m, n, w, k = 2, 64, 1024, 512, 32
+    xyz = np.repeat(_cloud(rng, b, n // 8), 8, axis=1)
+    new_xyz = xyz[:, rng.choice(n, m, replace=False), :].copy()
+    args = tk.sorted_windows(torch.from_numpy(new_xyz), torch.from_numpy(xyz), w, 1.0)["args"]
+    got = _assert_keys_match_pallas(args, w, k, b)
+    d2_bits = got & ~(w - 1)
+    # where the window holds the query's point, its eight copies come first
+    assert ((d2_bits[:, :8] == 0).all(axis=1)).mean() > 0.5
+    assert (np.diff(d2_bits, axis=1) == 0).mean() > 0.5  # mostly index-bit ties
 
 
 def _jax_nearest(new_xyz, xyz, k, radius):
@@ -188,7 +224,7 @@ def test_dispatch_on_cpu_is_plain_and_cuda_wrapper_refuses_cpu():
     rng = np.random.RandomState(5)
     xyz = torch.from_numpy(_cloud(rng, 1, 1024))
     args = tk.sorted_windows(xyz[:, :64].contiguous(), xyz, 512, 1.0)["args"]
-    before = tk.knn_windows_cuda.launches
+    before = dict(tk.knn_windows_cuda.launches)
     np.testing.assert_array_equal(tk.knn_windows(*args, w=512, k=8).numpy(),
                                   tk.knn_windows_plain(*args, w=512, k=8).numpy())
     with pytest.raises(ValueError, match="CUDA tensors"):
