@@ -23,8 +23,10 @@ Phases, each printing one JSON line:
 1. build the hand-written CUDA kernels from modest_tpu_torch/csrc, one nvcc
    per source, all at once;
 2. hold FPS against its plain PyTorch version at every shape the forward
-   gives it and on tie-heavy and ragged clouds at SA1 size (indices must be
-   equal), with both times, the cluster size and the time per step;
+   gives it, on tie-heavy and ragged clouds at SA1 size and at the
+   small-cloud kernel's register edges (N = 1, 33, 513, 1023; indices must
+   be equal), with event and profiler times, the cluster size and the time
+   per step;
 3. run the forward + post_process on 4 synthetic scans (the bench.py scene
    recipe) and check the output, the FPS launch count and the stage times;
 4. compare the card's final boxes on one scan with the port's own CPU
@@ -37,10 +39,12 @@ Phases, each printing one JSON line:
 7. hold the radius count against its plain version at the PP path's shape
    (0 mismatches) with its work-item size and count; the DBSCAN edge and
    propagation kernels against theirs on every group of 4 full-size frames
-   of the seed phase and on a tie-chain graph of that size whose one-way
-   tie edges matter (equal rows, tie bits, core flags, and labels on every
-   timed call), with the propagation's kernels, host reads and fix-up
-   rounds;
+   of the seed phase, on a tie-chain graph of that size whose one-way tie
+   edges matter, and on one with k = 33 and an odd row count (equal rows,
+   tie bits, core flags, and labels on every timed call), with both stages'
+   kernels (2 and 6 per call), host reads, fix-up rounds and times by CUDA
+   events and, kernel by kernel, by torch.profiler; an index outside its
+   frame must be reported;
 8. card vs CPU on the seed path: the transformed, sorted PP inputs equal,
    PP counts equal on every 4th query tile, and one frame's seed labels
    (>= 99.9% up to the cluster-id permutation) and boxes (1:1, centre
@@ -97,7 +101,13 @@ FPS_EXTRA_SHAPES = [("ragged_n", BATCH, 1000, 100), ("npoint_1", BATCH, 12288, 1
                     # ties and boundaries of the cluster kernel at SA1 size: duplicates
                     # in different cluster ranks, a 1 m grid, sizes no cluster splits evenly
                     ("dup_ranks", BATCH, 12288, 4096), ("grid_quantised", BATCH, 12288, 4096),
-                    ("ragged_12000", BATCH, 12000, 4096), ("ragged_4000", BATCH, 4000, 1024)]
+                    ("ragged_12000", BATCH, 12000, 4096), ("ragged_4000", BATCH, 4000, 1024),
+                    # the small-cloud kernel's register templates: P = 1, 2, 32, 32 points
+                    # a lane
+                    ("small_1", BATCH, 1, 1), ("small_33", BATCH * 100, 33, 33),
+                    ("small_513", BATCH * 100, 513, 128), ("small_1023", BATCH, 1023, 1023)]
+# the small-cloud kernel's stages of the path
+FPS_SMALL_STAGES = ("backbone_sa4", "roi_sa1", "roi_sa2")
 KERNEL_SOURCES = ("fps", "radius_count", "dbscan", "knn", "gather")
 # seed path: the PP dataset (bench_pipeline.py sizes) and the seed-mask groups
 PP_TRAVERSALS, PP_FRAMES_PER_TRAVERSAL, PP_ORIGINS = 5, 8, 16
@@ -112,9 +122,12 @@ KNN_OPS_PER_PAIR = 10
 KNN_ITERS = 10     # timed calls per shape in tools/knn_bench.py
 GATHER_ITERS = 10  # timed calls per probe in tools/gather_probe.py
 SECTOR_BYTES = 32  # the smallest piece of device memory a read moves
-# the DBSCAN propagation's kernels, each launched once per call
+# the DBSCAN edge stage's and propagation's kernels, each launched once per call
+EDGE_KERNELS = ("kth_kernel", "edge_kernel")
 PROP_KERNELS = ("init_kernel", "compress_kernel", "union_kernel", "flatten_kernel",
                 "fixup_kernel", "border_kernel")
+# the edge kernel's tile edges at path size: k past one tie word, rows not a multiple of 4
+ODD_GRAPH = {"frames": 3, "n": 49151, "k": 33}
 MIN_SLOT_MATCH_PCT = 99.9
 
 
@@ -210,11 +223,12 @@ def phase_fps(torch, inputs, card):
         mismatches = int((got != want).sum())
         max_abs_err = int((got.long() - want.long()).abs().max())
         ms = device_ms(lambda: furthest_point_sample_cuda(x, npoint), dev, 10)
+        kernel_ms = kernel_device_ms(lambda: furthest_point_sample_cuda(x, npoint), 10, "fps_")
         plain_ms = device_ms(lambda: furthest_point_sample_plain(x, npoint), dev, 1)
         bound_ms, bound_by = fps_bound(b, n, npoint)
         row = {"phase": "fps_vs_plain", "stage": stage, "B": b, "N": n, "npoint": npoint,
-               "cluster": cluster_size(n) or None, "mismatches": mismatches,
-               "max_abs_err": max_abs_err, "ms": ms, "us_per_step": ms * 1e3 / max(npoint - 1, 1),
+               "cluster": cluster_size(n) or None, "mismatches": mismatches, "max_abs_err": max_abs_err, "ms": ms,
+               "kernel_device_ms": kernel_ms, "us_per_step": ms * 1e3 / max(npoint - 1, 1),
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "card": card}
         emit(row)
@@ -591,13 +605,16 @@ def seed_group_graph(torch, np, dev, data_root, root, index: int = 0):
     return cfg, (idx, d2, pb, vb), ns, n_pad, k, w
 
 
-def dbscan_case(torch, np, dev, D, name, args, card, time_edge: bool):
+def dbscan_case(torch, np, dev, D, name, args, card):
     """One graph through the DBSCAN kernels and their plain twins: edge rows,
     tie bits and core flags equal; labels equal on the first call and on
-    every timed call (the atomics' order varies from run to run)."""
+    every timed call (the atomics' order varies from run to run). Both
+    stages timed by CUDA events and, kernel by kernel, by torch.profiler."""
     from modest_tpu_torch.utils.device import device_ms
 
+    edge_before = D.dbscan_edge_cuda.launches
     graph, graph_p = D.dbscan_edge_cuda(*args), D.dbscan_edge_plain(*args)
+    edge_launches = D.dbscan_edge_cuda.launches - edge_before
     before = (D.dbscan_prop_cuda.launches, D.dbscan_prop_cuda.rounds, D.dbscan_prop_cuda.ties,
               D.dbscan_prop_cuda.host_reads)
     raw, raw_p = D.dbscan_prop_cuda(graph), D.dbscan_prop_plain(graph_p)
@@ -619,6 +636,10 @@ def dbscan_case(torch, np, dev, D, name, args, card, time_edge: bool):
     prop_kernel_ms = kernel_device_ms(prop, 10, PROP_KERNELS)
     timed_mm = sum(int((o != raw_p).sum()) for o in outs)
     prop_plain_ms = device_ms(lambda: D.dbscan_prop_plain(graph_p), dev, 1)
+    edge_ms = device_ms(lambda: D.dbscan_edge_cuda(*args), dev, 10)
+    edge_kernel_ms = {kern: kernel_device_ms(lambda: D.dbscan_edge_cuda(*args), 10, kern)
+                      for kern in EDGE_KERNELS}
+    edge_plain_ms = device_ms(lambda: D.dbscan_edge_plain(*args), dev, 3)
     b, n = graph.core.shape
     total, k = graph.nbr.shape
     edges = int((graph.nbr >= 0).sum())
@@ -628,6 +649,11 @@ def dbscan_case(torch, np, dev, D, name, args, card, time_edge: bool):
     # label table and core and valid flags read once, the labels written once
     valid_rows = int(graph.valid.sum()) * k * 4
     prop_bound = bound(0, valid_rows + 4 * edges + total * (4 + 1 + 1) + 4 * total)
+    # edge: idx and d2 rows and pp, valid read once; nbr rows, tie words,
+    # core, labels written once
+    rows_b = total * k * 4
+    edge_bound = bound(0, 2 * rows_b + total * (4 + 1) + rows_b + graph.tie.numel() * 4
+                       + total * (1 + 4))
     row = {"phase": "dbscan_vs_plain", "graph": name, "frames": b, "N": n, "k": k,
            "edges": edges, "core": int(graph.core.sum()),
            "tie_edges": int(D.unpack_bits(graph.tie, k).sum()), "core_tie_edges": ties,
@@ -639,15 +665,9 @@ def dbscan_case(torch, np, dev, D, name, args, card, time_edge: bool):
            "fixup_rounds": rounds, "host_reads": host_reads, "prop_ms": prop_ms,
            "prop_kernel_device_ms": prop_kernel_ms, "prop_plain_ms": prop_plain_ms,
            "prop_bound_ms": prop_bound[0], "bound_by": "bytes", "library_ms": None,
-           "card": card}
-    if time_edge:
-        rows_b = total * k * 4
-        # edge: idx and d2 rows and pp, valid read once; nbr rows, tie
-        # words, core, labels written once
-        row.update(edge_ms=device_ms(lambda: D.dbscan_edge_cuda(*args), dev, 10),
-                   edge_plain_ms=device_ms(lambda: D.dbscan_edge_plain(*args), dev, 3),
-                   edge_bound_ms=bound(0, 2 * rows_b + total * (4 + 1) + rows_b
-                                       + graph.tie.numel() * 4 + total * (1 + 4))[0])
+           "edge_ms": edge_ms, "edge_kernel_device_ms": edge_kernel_ms,
+           "edge_plain_ms": edge_plain_ms, "edge_bound_ms": edge_bound[0],
+           "edge_launches_per_call": edge_launches, "card": card}
     if name == "tie_chain":  # the one-way tie edges must matter on this graph
         row["core_labels_unlike_undirected"] = undirected_mismatches(torch, D, graph_p, raw_p)
     emit(row)
@@ -655,9 +675,10 @@ def dbscan_case(torch, np, dev, D, name, args, card, time_edge: bool):
         fail(f"DBSCAN kernels disagree with their plain versions on {name}: {nbr_mm} edge slots, "
              f"{tie_mm} tie words, {core_mm} core flags, {lab_mm} labels, {timed_mm} labels "
              f"over {len(outs)} timed calls")
-    if (launches, host_reads, ties) != (len(PROP_KERNELS), 1, len(pairs)):
-        fail(f"DBSCAN propagation on {name}: {launches} kernels, {host_reads} host reads, "
-             f"{ties} core tie edges (plain {len(pairs)})")
+    if (edge_launches, launches, host_reads, ties) != (len(EDGE_KERNELS), len(PROP_KERNELS), 1,
+                                                       len(pairs)):
+        fail(f"DBSCAN on {name}: {edge_launches} edge kernels, {launches} propagation kernels, "
+             f"{host_reads} host reads, {ties} core tie edges (plain {len(pairs)})")
     return row
 
 
@@ -674,11 +695,32 @@ def undirected_mismatches(torch, D, graph, raw) -> int:
     return int(((comp != raw) & graph.core).sum())
 
 
+def bad_index_case(torch, D, args):
+    """A neighbour index outside its frame, on a slot that passes the
+    radius gate, is reported by the propagation's host read; the next call
+    on the same buffers' shapes starts from clear flags."""
+    idx, d2 = args[0].clone(), args[1]
+    rows, slots = torch.nonzero(torch.isfinite(d2[0]) & (d2[0] <= args[4]), as_tuple=True)
+    idx[0, rows[0], slots[0]] = idx.shape[1]
+    try:
+        D.dbscan_prop_cuda(D.dbscan_edge_cuda(idx, *args[1:]))
+    except RuntimeError as e:
+        if "outside its frame" not in str(e):
+            raise
+    else:
+        fail("the DBSCAN kernels accepted a neighbour index outside its frame")
+    got = D.dbscan_prop_cuda(D.dbscan_edge_cuda(*args))
+    if not torch.equal(got, D.dbscan_prop_plain(D.dbscan_edge_plain(*args))):
+        fail("the DBSCAN kernels disagree with their plain versions after a bad index")
+
+
 def phase_dbscan(torch, np, dev, data_root, root, card):
     """The DBSCAN kernels against their plain twins on the kNN graph of
-    every group of the seed phase, and on a tie-chain graph of the first
+    every group of the seed phase, on a tie-chain graph of the first
     group's size (tools/tie_graph.py), whose one-way tie edges make the
-    directed labels differ from the undirected components."""
+    directed labels differ from the undirected components, and on a
+    tie-chain graph with k = 33 and an odd row count; then an index
+    outside its frame must be reported."""
     from modest_tpu_torch.ops import dbscan as D
     from modest_tpu_torch.pipeline.clustering import dbscan_params
     from modest_tpu_torch.tools.tie_graph import tie_chain_graph
@@ -691,14 +733,17 @@ def phase_dbscan(torch, np, dev, data_root, root, card):
             n0, k0 = n_pad, k
         params = (*dbscan_params(cfg.graph.radius, cfg.clustering.DBSCAN.eps),
                   cfg.clustering.DBSCAN.min_samples)
-        row = dbscan_case(torch, np, dev, D, f"seed_group_{g}", (idx, d2, pb, vb, *params), card,
-                          time_edge=g == 0)
+        row = dbscan_case(torch, np, dev, D, f"seed_group_{g}", (idx, d2, pb, vb, *params), card)
         rows.append({**row, "in_range_points": ns, "window": w})
     tie = [torch.from_numpy(a).to(dev) for a in tie_chain_graph(SEED_GROUP, n0, k0, seed=0)]
-    tie_row = dbscan_case(torch, np, dev, D, "tie_chain", (*tie, *params), card, time_edge=False)
+    tie_row = dbscan_case(torch, np, dev, D, "tie_chain", (*tie, *params), card)
     if not tie_row["core_labels_unlike_undirected"]:
         fail("the tie-chain graph's directed labels equal its undirected components")
-    return rows, tie_row
+    odd = [torch.from_numpy(a).to(dev) for a in tie_chain_graph(
+        ODD_GRAPH["frames"], ODD_GRAPH["n"], ODD_GRAPH["k"], seed=1)]
+    odd_row = dbscan_case(torch, np, dev, D, "k33_odd_rows", (*odd, *params), card)
+    bad_index_case(torch, D, (*odd, *params))
+    return rows, tie_row, odd_row
 
 
 def match_centres(np, boxes, ref, tol=1e-2):
@@ -1030,7 +1075,7 @@ def main() -> int:
         pp_row = phase_pp_score(torch, np, dev, root, data_root, card)
         seed_row = phase_seed_labels(torch, np, dev, root, data_root, card)
         rc_row, rc_state = phase_radius_count(torch, np, dev, data_root, root, card)
-        db_rows, tie_row = phase_dbscan(torch, np, dev, data_root, root, card)
+        db_rows, tie_row, odd_row = phase_dbscan(torch, np, dev, data_root, root, card)
         phase_pipeline_card_vs_cpu(torch, np, dev, data_root, root, rc_state, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1045,15 +1090,17 @@ def main() -> int:
     for kernel, replaces, stages in (
             ("fps_cluster_kernel", "modest_tpu/ops/pallas_fps.py:146",
              ("backbone_sa1", "backbone_sa2", "backbone_sa3")),
-            ("fps_warp_kernel", "modest_tpu/ops/pallas_fps.py:157",
-             ("backbone_sa4", "roi_sa1", "roi_sa2"))):
+            ("fps_warp_kernel", "modest_tpu/ops/pallas_fps.py:157", FPS_SMALL_STAGES)):
         path = [fps_rows[stage] for stage in stages]
         fps_kernels.append({
             "name": kernel, "route": "cuda", "source": "modest_tpu_torch/csrc/fps.cu",
             "replaces": replaces, "launches": fps_launches[kernel],
             "max_abs_err": max(r["max_abs_err"] for r in path),
             "mismatches": sum(r["mismatches"] for r in path),
-            "ms": sum(r["ms"] for r in path), "plain_ms": sum(r["plain_ms"] for r in path),
+            "ms": sum(r["ms"] for r in path),
+            "kernel_device_ms": None if any(r["kernel_device_ms"] is None for r in path)
+            else sum(r["kernel_device_ms"] for r in path),
+            "plain_ms": sum(r["plain_ms"] for r in path),
             "bound_ms": sum(r["bound_ms"] for r in path), "bound_by": "operations",
             "library_ms": None, "cluster": {r["stage"]: r["cluster"] for r in path},
             "us_per_step": {r["stage"]: r["us_per_step"] for r in path},
@@ -1074,13 +1121,21 @@ def main() -> int:
         "launches": seed_row["dbscan_launches"]["dbscan_edge"],
         "calls": seed_row["dbscan_calls"]["dbscan_edge"], "max_abs_err": 0 if not any(
             r["nbr_mismatches"] or r["tie_mismatches"] or r["core_mismatches"]
-            for r in db_rows) else None,
+            for r in (*db_rows, tie_row, odd_row)) else None,
         "mismatches": sum(r["nbr_mismatches"] + r["tie_mismatches"] + r["core_mismatches"]
-                          for r in db_rows),
-        "ms": db_rows[0]["edge_ms"], "plain_ms": db_rows[0]["edge_plain_ms"],
-        "bound_ms": db_rows[0]["edge_bound_ms"], "bound_by": "bytes", "library_ms": None,
-        "shapes": f"one group of {db_rows[0]['frames']} frames, N={db_rows[0]['N']}, "
-                  f"k={db_rows[0]['k']}; launches over {seed_row['frames_timed']} frames",
+                          for r in (*db_rows, tie_row, odd_row)),
+        "ms": sum(r["edge_ms"] for r in db_rows) / len(db_rows),
+        "kernel_device_ms": None if any(v is None for r in db_rows
+                                        for v in r["edge_kernel_device_ms"].values())
+        else sum(sum(r["edge_kernel_device_ms"].values()) for r in db_rows) / len(db_rows),
+        "kernel_device_ms_by_kernel": {kern: [r["edge_kernel_device_ms"][kern] for r in db_rows]
+                                       for kern in EDGE_KERNELS},
+        "plain_ms": sum(r["edge_plain_ms"] for r in db_rows) / len(db_rows),
+        "bound_ms": sum(r["edge_bound_ms"] for r in db_rows) / len(db_rows), "bound_by": "bytes",
+        "library_ms": None, "ms_by_group": [r["edge_ms"] for r in db_rows],
+        "shapes": f"mean over the {len(db_rows)} seed groups of {db_rows[0]['frames']} frames "
+                  f"(N={db_rows[0]['N']}, k={db_rows[0]['k']}); launches and calls over "
+                  f"{seed_row['frames_timed']} frames",
     }, {
         "name": "dbscan_prop", "route": "cuda", "source": "modest_tpu_torch/csrc/dbscan.cu",
         "replaces": "modest_tpu/ops/pallas_dbscan.py:117",
@@ -1089,9 +1144,9 @@ def main() -> int:
         "host_reads": seed_row["dbscan_host_reads"],
         "fixup_rounds": seed_row["dbscan_fixup_rounds"],
         "max_abs_err": 0 if not any(r["label_mismatches"] or r["timed_label_mismatches"]
-                                    for r in (*db_rows, tie_row)) else None,
+                                    for r in (*db_rows, tie_row, odd_row)) else None,
         "mismatches": sum(r["label_mismatches"] + r["timed_label_mismatches"]
-                          for r in (*db_rows, tie_row)),
+                          for r in (*db_rows, tie_row, odd_row)),
         "ms": sum(r["prop_ms"] for r in db_rows) / len(db_rows),
         "kernel_device_ms": None if any(r["prop_kernel_device_ms"] is None for r in db_rows)
         else sum(r["prop_kernel_device_ms"] for r in db_rows) / len(db_rows),

@@ -68,7 +68,27 @@
 // the pair list (~1% of the edges) and val that the fix-up loops over. The
 // old sweep loop re-read all rows once per sweep, ~28 times per group.
 //
-// Edge, union and border kernels run one warp per point: its lanes read the
+// Edge stage, two kernels over tiles of R rows (R a multiple of 4 with
+// R * k near TILE_SLOTS, so a tile starts on a 16-byte boundary for any k):
+//   1. kth_kernel: the block reads the tile's d2 as 16-byte vectors with
+//      every lane busy into shared memory (non-finite as -1), then a warp
+//      per row takes the row's max; it writes kp[i] = (kth[i], pp[i]), one
+//      8-byte table, so the edge kernel gathers both with one load. Block 0
+//      zeroes the flags.
+//   2. edge_kernel: the block reads the tile's idx and d2 as 16-byte vectors,
+//      gates each slot (one kp gather for the slots within the radius) and
+//      writes nbr as vectors, the slot's edge and tie bits as a byte into
+//      shared memory; then a warp per row turns the bytes into the degree
+//      (popc of a ballot) and the ceil(k / 32) tie words, and core and the
+//      labels follow from the degree. Tiles run in reverse order, so the
+//      first tiles it reads are the kth kernel's last, whose d2 is still in
+//      L2.
+// Bound: bytes. idx and d2 rows, pp and valid read once; nbr rows, tie
+// words, core and labels written once (chip_smoke.py's edge_bound_ms). The
+// stage reads d2 twice (55 MB at 4 x 49152 points, k = 70, against 50 MB
+// of L2) and gathers kp (1.6 MB, in L2) once per slot within the radius.
+//
+// Union and border kernels run one warp per point: its lanes read the
 // point's k slots as one coalesced row.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,6 +98,9 @@ namespace {
 constexpr int SENT = 0x3FFFFFFF;     // label of non-core points (above any index)
 constexpr int WARPS_PER_BLOCK = 8;
 constexpr int THREADS = 32 * WARPS_PER_BLOCK;
+constexpr int TILE_SLOTS = 2048;     // edge stage: slots a tile aims at
+constexpr int MAX_TILE_ROWS = 256;   // edge stage: rows a tile holds at most (k = 1..8)
+constexpr int MAX_K = 3072;          // edge stage: a 4-row tile of d2 fills 48 KB
 constexpr int FIXUP_THREADS = 1024;  // the fix-up's one block
 constexpr int FIXUP_BATCH = 4;       // pairs a fix-up thread loads at once
 constexpr int ERR_BAD_INDEX = -1;    // a neighbour index outside [0, N)
@@ -95,70 +118,146 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
+// Rows of an edge-stage tile for k slots per row: TILE_SLOTS / k rounded
+// down to a multiple of 4, at least 4, at most MAX_TILE_ROWS.
+__host__ __device__ inline int tile_rows(int k) {
+  const int r = (TILE_SLOTS / k) & ~3;
+  return r < 4 ? 4 : r > MAX_TILE_ROWS ? MAX_TILE_ROWS : r;
 }
 
-__global__ void kth_kernel(const float* __restrict__ d2, const unsigned char* __restrict__ valid,
-                           float* __restrict__ kth, int total, int k) {
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (i >= total) return;
-  const float* row = d2 + (size_t)i * k;
-  float m = -1.0f;
-  for (int s = lane; s < k; s += 32) {
-    const float v = row[s];
-    if (isfinite(v)) m = fmaxf(m, v);
+__device__ __forceinline__ float finite_or(float v, float other) {
+  return isfinite(v) ? v : other;
+}
+
+// vec: d2 is 16-byte aligned (then every tile is). Dynamic shared memory:
+// rows * k floats.
+__global__ void __launch_bounds__(THREADS)
+kth_kernel(const float* __restrict__ d2, const float* __restrict__ pp,
+           const unsigned char* __restrict__ valid, float2* __restrict__ kp,
+           int* __restrict__ flags, int total, int k, bool vec) {
+  extern __shared__ float4 tile_d2[];
+  float* sd = reinterpret_cast<float*>(tile_d2);
+  __shared__ float row_pp[MAX_TILE_ROWS];
+  __shared__ unsigned char row_valid[MAX_TILE_ROWS];
+  const int rows_per_tile = tile_rows(k);
+  const int row0 = blockIdx.x * rows_per_tile;
+  const int rows = min(rows_per_tile, total - row0);
+  const int cnt = rows * k;
+  const float* src = d2 + (size_t)row0 * k;
+  if (blockIdx.x == 0 && threadIdx.x < N_FLAGS) flags[threadIdx.x] = 0;
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {  // in flight with the rows
+    row_pp[r] = pp[row0 + r];
+    row_valid[r] = valid[row0 + r];
   }
-  m = warp_max(m);
-  if (lane == 0) kth[i] = valid[i] ? m : -1.0f;
+  const int nvec = vec ? cnt >> 2 : 0;
+  for (int q = threadIdx.x; q < nvec; q += blockDim.x) {
+    const float4 v = reinterpret_cast<const float4*>(src)[q];
+    tile_d2[q] = make_float4(finite_or(v.x, -1.0f), finite_or(v.y, -1.0f),
+                             finite_or(v.z, -1.0f), finite_or(v.w, -1.0f));
+  }
+  for (int e = 4 * nvec + threadIdx.x; e < cnt; e += blockDim.x) sd[e] = finite_or(src[e], -1.0f);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5) {
+    float m = -1.0f;
+    for (int s = lane; s < k; s += 32) m = fmaxf(m, sd[r * k + s]);
+    m = warp_max(m);
+    if (lane == 0) kp[row0 + r] = make_float2(row_valid[r] ? m : -1.0f, row_pp[r]);
+  }
 }
 
-__global__ void edge_kernel(const int* __restrict__ idx, const float* __restrict__ d2,
-                            const float* __restrict__ pp, const float* __restrict__ kth,
-                            int* __restrict__ nbr, unsigned* __restrict__ tie,
-                            unsigned char* __restrict__ core, int* __restrict__ lab,
-                            int* __restrict__ flags, int total, int n, int k, float r2, float eps,
-                            int min_samples, const unsigned char* __restrict__ valid) {
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (i >= total) return;  // uniform per warp
-  const int off = (i / n) * n;
-  const int words = (k + 31) >> 5;
-  const float pp_i = pp[i];
-  int deg = 0;
-  for (int base = 0; base < k; base += 32) {
-    const int s = base + lane;
-    bool is_tie = false;
-    if (s < k) {
-      const size_t e = (size_t)i * k + s;
-      const float d = d2[e];
-      int out = -1;
-      if (isfinite(d) && d <= r2) {
-        const int jl = idx[e];
-        if (jl < 0 || jl >= n) {
-          atomicExch(flags + F_BAD, 1);
-        } else {
-          const int j = off + jl;
-          const float kj = kth[j];
-          if (d <= kj && fabsf(__fsub_rn(pp_i, pp[j])) <= eps) {
-            out = j;
-            is_tie = !(d < kj);
-          }
-        }
+// Slot gate: the global neighbour index of an edge, else -1; *flag gets 1
+// for an edge and 3 for a tie edge (d2 == kth[j]), *bad is set by an
+// index outside the frame.
+__device__ __forceinline__ int gate(float d, int jl, float pp_i, int off, int n, float r2,
+                                    float eps, const float2* __restrict__ kp, unsigned* flag,
+                                    bool* bad) {
+  if (!(isfinite(d) && d <= r2)) return -1;
+  if (jl < 0 || jl >= n) {
+    *bad = true;
+    return -1;
+  }
+  const int j = off + jl;
+  const float2 q = kp[j];
+  if (!(d <= q.x && fabsf(__fsub_rn(pp_i, q.y)) <= eps)) return -1;
+  *flag = d < q.x ? 1u : 3u;
+  return j;
+}
+
+// vec: idx, d2 and nbr are 16-byte aligned. Dynamic shared memory: rows * k
+// bytes, rounded up to 4.
+__global__ void __launch_bounds__(THREADS)
+edge_kernel(const int* __restrict__ idx, const float* __restrict__ d2,
+            const float2* __restrict__ kp, const unsigned char* __restrict__ valid,
+            int* __restrict__ nbr, unsigned* __restrict__ tie, unsigned char* __restrict__ core,
+            int* __restrict__ lab, int* __restrict__ flags, int total, int n, int k, float r2,
+            float eps, int min_samples, bool vec) {
+  extern __shared__ unsigned tile_flag_words[];
+  unsigned char* tile_flag = reinterpret_cast<unsigned char*>(tile_flag_words);
+  __shared__ float row_pp[MAX_TILE_ROWS];
+  __shared__ int row_off[MAX_TILE_ROWS];
+  __shared__ unsigned char row_valid[MAX_TILE_ROWS];
+  const int rows_per_tile = tile_rows(k);
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * rows_per_tile;  // reverse order, for L2
+  const int rows = min(rows_per_tile, total - row0);
+  const int cnt = rows * k;
+  const size_t g0 = (size_t)row0 * k;
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    row_pp[r] = kp[row0 + r].y;
+    row_off[r] = (row0 + r) / n * n;
+    row_valid[r] = valid[row0 + r];
+  }
+  __syncthreads();
+
+  bool bad = false;
+  const int nvec = vec ? cnt >> 2 : 0;
+  for (int q = threadIdx.x; q < nvec; q += blockDim.x) {
+    const int4 iv = __ldcs(reinterpret_cast<const int4*>(idx + g0) + q);
+    const float4 dv = __ldcs(reinterpret_cast<const float4*>(d2 + g0) + q);
+    const int jl[4] = {iv.x, iv.y, iv.z, iv.w};
+    const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
+    int out[4];
+    unsigned bytes = 0;
+    int r = 4 * q / k, s = 4 * q - r * k;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      unsigned f = 0;
+      out[c] = gate(dd[c], jl[c], row_pp[r], row_off[r], n, r2, eps, kp, &f, &bad);
+      bytes |= f << (8 * c);
+      if (++s == k) {
+        s = 0;
+        ++r;
       }
-      nbr[e] = out;
-      deg += out >= 0;
     }
-    const unsigned word = __ballot_sync(FULL, is_tie);
-    if (lane == 0) tie[(size_t)i * words + (base >> 5)] = word;
+    __stcs(reinterpret_cast<int4*>(nbr + g0) + q, make_int4(out[0], out[1], out[2], out[3]));
+    tile_flag_words[q] = bytes;
   }
-  deg = warp_sum(deg);
-  if (lane == 0) {
-    const bool c = valid[i] && deg + 1 >= min_samples;
-    core[i] = c;
-    lab[i] = c ? i : SENT;
+  for (int e = 4 * nvec + threadIdx.x; e < cnt; e += blockDim.x) {
+    const int r = e / k;
+    unsigned f = 0;
+    nbr[g0 + e] = gate(d2[g0 + e], idx[g0 + e], row_pp[r], row_off[r], n, r2, eps, kp, &f, &bad);
+    tile_flag[e] = static_cast<unsigned char>(f);
+  }
+  if (bad) flags[F_BAD] = 1;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int words = (k + 31) >> 5;
+  for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5) {
+    const int i = row0 + r;
+    int deg = 0;
+    for (int base = 0; base < k; base += 32) {
+      const unsigned f = base + lane < k ? tile_flag[r * k + base + lane] : 0u;
+      const unsigned edges = __ballot_sync(FULL, f & 1u);
+      const unsigned ties = __ballot_sync(FULL, f & 2u);
+      deg += __popc(edges);
+      if (lane == 0) tie[(size_t)i * words + (base >> 5)] = ties;
+    }
+    if (lane == 0) {
+      const bool c = row_valid[r] && deg + 1 >= min_samples;
+      core[i] = c;
+      lab[i] = c ? i : SENT;
+    }
   }
 }
 
@@ -344,25 +443,30 @@ extern "C" {
 int dbscan_sentinel() { return SENT; }
 int dbscan_flag_count() { return N_FLAGS; }
 
+int dbscan_max_k() { return MAX_K; }
+
 // flags: N_FLAGS int32 of scratch shared with dbscan_prop_launch
-// (flags[0] = a bad neighbour index was seen). kth: total float32 of
-// scratch. tie: (total, ceil(k / 32)) uint32. *kernels gets the kernels
-// launched (2).
+// (flags[0] = a bad neighbour index was seen), zeroed here. kp: total
+// float2 of scratch. tie: (total, ceil(k / 32)) uint32. *kernels gets the
+// kernels launched (2).
 int dbscan_edge_launch(const void* idx, const void* d2, const void* pp, const void* valid,
-                       void* kth, void* nbr, void* tie, void* core, void* lab, void* flags,
+                       void* kp, void* nbr, void* tie, void* core, void* lab, void* flags,
                        int total, int n, int k, float r2, float eps, int min_samples,
                        void* stream, int* kernels) {
   cudaStream_t s = (cudaStream_t)stream;
   *kernels = 0;
   if (total <= 0) return 0;
-  cudaMemsetAsync(flags, 0, sizeof(int) * N_FLAGS, s);
-  kth_kernel<<<warp_blocks(total), THREADS, 0, s>>>((const float*)d2,
-                                                    (const unsigned char*)valid, (float*)kth,
-                                                    total, k);
-  edge_kernel<<<warp_blocks(total), THREADS, 0, s>>>(
-      (const int*)idx, (const float*)d2, (const float*)pp, (const float*)kth, (int*)nbr,
-      (unsigned*)tie, (unsigned char*)core, (int*)lab, (int*)flags, total, n, k, r2, eps,
-      min_samples, (const unsigned char*)valid);
+  if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+  const int rows = tile_rows(k);
+  const int tiles = (total + rows - 1) / rows;
+  auto aligned = [](const void* p) { return ((size_t)p & 15) == 0; };
+  kth_kernel<<<tiles, THREADS, sizeof(float) * rows * k, s>>>(
+      (const float*)d2, (const float*)pp, (const unsigned char*)valid, (float2*)kp, (int*)flags,
+      total, k, aligned(d2));
+  edge_kernel<<<tiles, THREADS, (rows * k + 3) & ~3, s>>>(
+      (const int*)idx, (const float*)d2, (const float2*)kp, (const unsigned char*)valid,
+      (int*)nbr, (unsigned*)tie, (unsigned char*)core, (int*)lab, (int*)flags, total, n, k, r2,
+      eps, min_samples, aligned(idx) && aligned(d2) && aligned(nbr));
   *kernels = 2;
   return (int)cudaGetLastError();
 }

@@ -29,9 +29,15 @@
 //     hands every thread the winner's coordinates for the next step. No
 //     block or cluster barrier runs per step.
 //   * Small clouds (N < 1024, the RoI tower's 512- and 128-point sub-clouds
-//     and SA4's 256): fps_warp_kernel, one warp per cloud and several clouds
-//     per block, the cloud in shared memory, so a step needs only warp
-//     shuffles and no barrier at all.
+//     and SA4's 256): fps_warp_kernel<P>, one block of one warp per cloud,
+//     so that the RoI tower's 400 clouds spread over every SM. Each lane
+//     keeps x, y, z and the running distance of its P = ceil(N / 32) points
+//     in registers (P a power of two up to 32), so the scan touches no
+//     memory per point; a copy of the cloud as float4 in shared memory
+//     serves only the one broadcast load of the winner's coordinates per
+//     step. The argmax is two redux.sync (warp_argmax), with no barrier.
+//     Splitting a cloud over 2 or 4 warps (a table of winners and a block
+//     barrier per step) was slower at all three path shapes (PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -43,11 +49,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kSmallWarps = 4;        // small clouds: clouds (warps) per block
 constexpr int kLargeCloud = 1024;     // N at and above which a cloud gets a cluster
 constexpr int kTargetThreads = 128;   // cluster kernel: threads per CTA it aims at
 constexpr int kMaxThreads = 512;      // per CTA: at most 4096 points with P = 8
-constexpr int kMaxPerThread = 8;      // P: points a thread keeps in registers
+constexpr int kMaxPerThread = 8;      // P: points a thread keeps in registers (clusters)
+constexpr int kSmallMaxPerThread = 32;  // P of the small-cloud kernel: N < 1024
 constexpr int kMaxCluster = 8;        // the largest portable cluster size
 constexpr int kMaxSlots = kMaxCluster * kMaxThreads / 32;  // one per warp of a cluster
 
@@ -58,72 +64,6 @@ __device__ __forceinline__ float dist2(float x, float y, float z,
   const float dz = __fsub_rn(z, lz);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
-
-// ---- small clouds -------------------------------------------------------
-
-// argmax order: the larger value wins, equal values go to the lower index.
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-// Butterfly reduction: every lane ends with the warp's (max, lowest index).
-__device__ __forceinline__ void warp_argmax_shfl(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kSmallWarps * 32)
-fps_warp_kernel(const float* __restrict__ xyz, int* __restrict__ out, int batch, int n,
-                int npoint) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * kSmallWarps + warp;
-  if (b >= batch) return;  // the whole warp leaves; no block barrier follows
-
-  float* sx = smem + static_cast<size_t>(warp) * 4 * n;
-  float* sy = sx + n;
-  float* sz = sy + n;
-  float* sd = sz + n;
-  int* o = out + static_cast<size_t>(b) * npoint;
-  const float* p = xyz + static_cast<size_t>(b) * n * 3;
-  for (int j = lane; j < n; j += 32) {
-    sx[j] = p[3 * j];
-    sy[j] = p[3 * j + 1];
-    sz[j] = p[3 * j + 2];
-    sd[j] = 1e10f;
-  }
-  if (lane == 0) o[0] = 0;
-  __syncwarp();
-
-  int last = 0;
-  for (int s = 1; s < npoint; ++s) {
-    const float lx = sx[last], ly = sy[last], lz = sz[last];
-    float bv = -1.0f;  // every distance is >= 0, so an empty lane never wins
-    int bi = INT_MAX;
-    // j rises within a lane, so a strict > keeps the lowest index among equals
-    for (int j = lane; j < n; j += 32) {
-      const float d = fminf(sd[j], dist2(sx[j], sy[j], sz[j], lx, ly, lz));
-      sd[j] = d;
-      if (d > bv) {
-        bv = d;
-        bi = j;
-      }
-    }
-    warp_argmax_shfl(bv, bi);
-    last = bi;
-    if (lane == 0) o[s] = bi;
-  }
-}
-
-// ---- large clouds -------------------------------------------------------
 
 // A candidate: the distance's bits as an int (d >= 0, so the float order is
 // the int order; a masked point holds d = -1, whose bits are negative), its
@@ -191,16 +131,68 @@ __device__ __forceinline__ void mbarrier_wait(unsigned long long* bar, unsigned 
 }
 
 // Warp argmax without a butterfly: the max of the keys, then the min of the
-// indices of the lanes that hold it. Every lane gets the winner's (key, idx);
-// returns the lowest lane that holds it.
-__device__ __forceinline__ int warp_argmax_redux(int& key, int& idx) {
+// indices of the lanes that hold it. Every lane gets the winner's (key, idx).
+__device__ __forceinline__ void warp_argmax(int& key, int& idx) {
   const int kmax = __reduce_max_sync(0xffffffffu, key);
-  const int imin = __reduce_min_sync(0xffffffffu, key == kmax ? idx : INT_MAX);
-  const unsigned holders = __ballot_sync(0xffffffffu, key == kmax && idx == imin);
+  idx = __reduce_min_sync(0xffffffffu, key == kmax ? idx : INT_MAX);
   key = kmax;
-  idx = imin;
-  return __ffs(holders) - 1;
 }
+
+// warp_argmax that also returns the lowest lane holding the winner.
+__device__ __forceinline__ int warp_argmax_redux(int& key, int& idx) {
+  const int own_key = key, own_idx = idx;
+  warp_argmax(key, idx);
+  return __ffs(__ballot_sync(0xffffffffu, own_key == key && own_idx == idx)) - 1;
+}
+
+// ---- small clouds -------------------------------------------------------
+
+// Grid: one warp per cloud; lane t keeps the points t + 32k, k < P. A point
+// past N is masked with distance -1, as in the cluster kernel.
+template <int P>
+__global__ void __launch_bounds__(32)
+fps_warp_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoint) {
+  __shared__ float4 cloud[32 * P];
+  const int t = threadIdx.x;
+  const float* p = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
+  int* o = out + static_cast<size_t>(blockIdx.x) * npoint;
+
+  float px[P], py[P], pz[P], pd[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int j = t + 32 * k;
+    const bool mine = j < n;
+    const int jj = mine ? j : 0;
+    px[k] = p[3 * jj];
+    py[k] = p[3 * jj + 1];
+    pz[k] = p[3 * jj + 2];
+    pd[k] = mine ? 1e10f : -1.0f;
+    if (mine) cloud[j] = make_float4(px[k], py[k], pz[k], 0.0f);
+  }
+  if (t == 0) o[0] = 0;
+  __syncwarp();
+
+  float4 last = cloud[0];
+  for (int s = 1; s < npoint; ++s) {
+    int key = INT_MIN, best = 0;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float d = fminf(pd[k], dist2(px[k], py[k], pz[k], last.x, last.y, last.z));
+      pd[k] = d;
+      const int kd = __float_as_int(d);
+      if (kd > key) {  // indices rise with k: strict > keeps the lowest among equals
+        key = kd;
+        best = k;
+      }
+    }
+    int idx = key >= 0 ? t + 32 * best : INT_MAX;  // a masked point never wins
+    warp_argmax(key, idx);
+    if (t == 0) o[s] = idx;
+    last = cloud[idx];
+  }
+}
+
+// ---- large clouds -------------------------------------------------------
 
 // Grid: batch * C CTAs of `threads` threads in clusters of C along x; CTA
 // rank r of cloud b owns points [r * chunk, min(N, (r + 1) * chunk)), and
@@ -398,13 +390,15 @@ int fps_launch(const float* xyz, int* out, int batch, int n, int npoint, const c
     }
   } else {
     *kernel = "fps_warp_kernel";
-    const size_t smem = kSmallWarps * 4 * sizeof(float) * static_cast<size_t>(n);
-    e = cudaFuncSetAttribute(fps_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e == cudaSuccess) {
-      const int blocks = (batch + kSmallWarps - 1) / kSmallWarps;
-      fps_warp_kernel<<<blocks, kSmallWarps * 32, smem, st>>>(xyz, out, batch, n, npoint);
-    }
+    // P: the points a lane keeps, ceil(N / 32) rounded up to a power of two
+    const int per = (n + 31) / 32;
+    if (per <= 1) fps_warp_kernel<1><<<batch, 32, 0, st>>>(xyz, out, n, npoint);
+    else if (per <= 2) fps_warp_kernel<2><<<batch, 32, 0, st>>>(xyz, out, n, npoint);
+    else if (per <= 4) fps_warp_kernel<4><<<batch, 32, 0, st>>>(xyz, out, n, npoint);
+    else if (per <= 8) fps_warp_kernel<8><<<batch, 32, 0, st>>>(xyz, out, n, npoint);
+    else if (per <= 16) fps_warp_kernel<16><<<batch, 32, 0, st>>>(xyz, out, n, npoint);
+    else fps_warp_kernel<kSmallMaxPerThread><<<batch, 32, 0, st>>>(xyz, out, n, npoint);
+    e = cudaSuccess;
   }
   // cudaGetLastError also clears the error a refused call left behind, so a
   // refused launch does not fail the next one.

@@ -54,7 +54,7 @@ def _lib():
     lib.dbscan_prop_launch.restype = i
     lib.dbscan_error_string.argtypes = [i]
     lib.dbscan_error_string.restype = ctypes.c_char_p
-    for fn in (lib.dbscan_sentinel, lib.dbscan_flag_count):
+    for fn in (lib.dbscan_sentinel, lib.dbscan_flag_count, lib.dbscan_max_k):
         fn.argtypes = []
         fn.restype = i
     if lib.dbscan_sentinel() != SENT:
@@ -223,11 +223,12 @@ def dbscan_edge_cuda(idx, d2, pp, valid, radius2: float, eps: float,
     _check(idx, d2, pp, valid, "dbscan_edge_cuda")
     b, n, k = idx.shape
     total = b * n
-    if total * 32 >= 2**31 or total * k >= 2**31 or total >= SENT:
-        raise ValueError(f"dbscan_edge_cuda: B·N = {total} points with k = {k} is too large")
     lib = _lib()
+    if total * 32 >= 2**31 or total * k >= 2**31 or total >= SENT or k > lib.dbscan_max_k():
+        raise ValueError(f"dbscan_edge_cuda: B·N = {total} points with k = {k} is too large "
+                         f"(k <= {lib.dbscan_max_k()})")
     dev = idx.device
-    kth = torch.empty(total, dtype=torch.float32, device=dev)
+    kp = torch.empty((total, 2), dtype=torch.float32, device=dev)  # (kth², pp) per point
     nbr = torch.empty((total, k), dtype=torch.int32, device=dev)
     tie = torch.empty((total, (k + 31) // 32), dtype=torch.int32, device=dev)
     core = torch.empty((b, n), dtype=torch.bool, device=dev)
@@ -236,7 +237,7 @@ def dbscan_edge_cuda(idx, d2, pp, valid, radius2: float, eps: float,
     kernels = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = lib.dbscan_edge_launch(idx.data_ptr(), d2.data_ptr(), pp.data_ptr(),
-                                     valid.data_ptr(), kth.data_ptr(), nbr.data_ptr(),
+                                     valid.data_ptr(), kp.data_ptr(), nbr.data_ptr(),
                                      tie.data_ptr(), core.data_ptr(), lab.data_ptr(),
                                      flags.data_ptr(), total, n, k, float(radius2), float(eps),
                                      int(min_samples), _stream(idx), ctypes.byref(kernels))

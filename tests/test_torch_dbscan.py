@@ -85,12 +85,22 @@ def test_plain_equals_xla_and_pallas_interpret(b, n, n_pad, k):
     assert (raw >= 0).mean() > 0.2 and core.any()  # the frames really cluster
 
 
-def test_edge_stage_matches_jax_edge_graph():
-    """The edge twin's neighbour rows are exactly JAX's gated edges."""
-    rng = np.random.RandomState(4)
-    x, p, v = _make_frame(rng, 1500, 2048)
-    idx, d2 = C._knn(jnp.asarray(x), jnp.asarray(v), 30, row_chunk=1024)
-    idx, d2 = np.asarray(idx), np.asarray(d2)
+@pytest.mark.parametrize("n,n_pad,k", [(1500, 2048, 30),
+                                         # the edge kernel's tiles: rows not a multiple of 4,
+                                         # k around the tie word's 32 bits
+                                         (1493, 1999, 1), (1493, 1999, 31), (1493, 1999, 32),
+                                         (1493, 1999, 33), (1493, 1999, 70)])
+def test_edge_stage_matches_jax_edge_graph(n, n_pad, k):
+    """The edge twin's neighbour rows are exactly JAX's gated edges, and its
+    tie words mark the edges with d² = kth²(j) and leave the bits past k
+    clear; on frames with pad rows, invalid rows among the points and rows
+    whose every slot is empty."""
+    rng = np.random.RandomState(4 + k)
+    x, p, v = _make_frame(rng, n, n_pad)
+    v[rng.choice(n, 9, replace=False)] = False  # invalid rows among the points
+    idx, d2 = C._knn(jnp.asarray(x), jnp.asarray(v), k, row_chunk=n_pad)
+    idx, d2 = np.array(idx), np.array(d2)
+    d2[rng.choice(n, 9, replace=False)] = np.inf  # rows of empty slots only
     graph = TD.dbscan_edge_plain(torch.from_numpy(idx)[None], torch.from_numpy(d2)[None],
                                  torch.from_numpy(p)[None], torch.from_numpy(v)[None],
                                  float(R2), float(EPS32), MIN_SAMPLES)
@@ -99,6 +109,12 @@ def test_edge_stage_matches_jax_edge_graph():
     edge = fin & (d2 <= kth[idx]) & (d2 <= R2) & (np.abs(p[:, None] - p[idx]) <= EPS32)
     np.testing.assert_array_equal(graph.nbr.numpy(), np.where(edge, idx, -1))
     np.testing.assert_array_equal(graph.core.numpy()[0], v & (edge.sum(1) + 1 >= MIN_SAMPLES))
+    np.testing.assert_array_equal(TD.unpack_bits(graph.tie, k).numpy(),
+                                  edge & (d2 == kth[idx]))
+    assert graph.tie.shape == (n_pad, (k + 31) // 32)
+    high = graph.tie[:, -1].numpy().view(np.uint32) >> np.uint32(k % 32) if k % 32 else 0
+    assert not np.any(high), "bits past k in the last tie word"
+    assert edge.any() and (~fin).all(axis=1).sum() >= 9
 
 
 def test_long_chain_needs_many_sweeps_and_converges():

@@ -25,6 +25,15 @@ from modest_tpu_torch.ops.fps import furthest_point_sample_cuda, furthest_point_
         (2, 1024, 1),
         (1, 256, 256),    # npoint = N: every point, then index 0 once all dists are 0
         (2, 300, 37),     # ragged N
+        # the small-cloud kernel's register templates: P = ceil(N / 32) points
+        # a lane, rounded up to 1, 2, 4, ..., 32, each side of every edge
+        (2, 1, 1),
+        (2, 31, 31),
+        (2, 33, 20),
+        (2, 257, 257),
+        (2, 511, 128),
+        (2, 513, 2),
+        (1, 1023, 1023),
     ],
 )
 def test_fps_plain_matches_xla_and_pallas(b, n, npoint):
