@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Four paths, each at full size from fixed seeds:
+Five paths, each at full size from fixed seeds:
 
 * the flagship detector's eval forward plus post-processing (PointRCNN,
   configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
   scan, random weights);
+* its training: the train CLI (cli/train.py) at full width and depth, B = 2
+  scans of 12288 points with gt sampling and world augmentation, on 16
+  synthetic Lyft-sized scans written to a temporary directory;
 * the label-free seed path: the PP-score CLI (pre_compute_pp_score) over a
   synthetic multi-traversal dataset written to a temporary directory (5
   traversals of 8 frames and 16 origin frames of ~89.6k points, the
@@ -23,14 +26,23 @@ Phases, each printing one JSON line:
 1. build the hand-written CUDA kernels from modest_tpu_torch/csrc, one nvcc
    per source, all at once;
 2. hold FPS against its plain PyTorch version at every shape the forward
-   gives it, on tie-heavy and ragged clouds at SA1 size and at the
-   small-cloud kernel's register edges (N = 1, 33, 513, 1023; indices must
-   be equal), with event and profiler times, the cluster size and the time
-   per step;
+   and a train step give it, on tie-heavy and ragged clouds at SA1 size and
+   at the small-cloud kernel's register edges (N = 1, 33, 513, 1023;
+   indices must be equal), with event and profiler times, the cluster size
+   and the time per step;
 3. run the forward + post_process on 4 synthetic scans (the bench.py scene
    recipe) and check the output, the FPS launch count and the stage times;
 4. compare the card's final boxes on one scan with the port's own CPU
    forward (>= 98% must match 1:1);
+4a. training: write the training set and its infos and gt database
+   (train_dataset); run the train CLI for 2 epochs (train: every step's
+   losses finite, 3 + 3 FPS launches a step, scans/s after the first two
+   steps, the step's stages by CUDA events, peak memory), then resume from
+   the epoch-1 checkpoint to 3 epochs (train_resume: it restarts at the
+   second epoch); 20 steps on one batch must lower the loss
+   (train_overfit); one step's point-head losses and backbone and
+   point-head gradients on the card must equal the CPU path's within the
+   stated tolerances, and >= 98% of its sampled RoIs (train_card_vs_cpu);
 5. run the PP-score CLI on the card: origins/s, radius-count launches per
    origin, stage split, peak memory; the scores must be finite and rank the
    ephemeral clusters below the ground;
@@ -106,8 +118,37 @@ FPS_EXTRA_SHAPES = [("ragged_n", BATCH, 1000, 100), ("npoint_1", BATCH, 12288, 1
                     # a lane
                     ("small_1", BATCH, 1, 1), ("small_33", BATCH * 100, 33, 33),
                     ("small_513", BATCH * 100, 513, 128), ("small_1023", BATCH, 1023, 1023)]
+# (stage, B, N, npoint) of every FPS call in one train step at B = 2: the RoI
+# tower runs on the B·ROI_PER_IMAGE sampled RoIs
+TRAIN_BATCH = 2
+TRAIN_ROIS = TRAIN_BATCH * 128
+FPS_TRAIN_SHAPES = [
+    ("train_sa1", TRAIN_BATCH, 12288, 4096),
+    ("train_sa2", TRAIN_BATCH, 4096, 1024),
+    ("train_sa3", TRAIN_BATCH, 1024, 256),
+    ("train_sa4", TRAIN_BATCH, 256, 64),
+    ("train_roi_sa1", TRAIN_ROIS, 512, 128),
+    ("train_roi_sa2", TRAIN_ROIS, 128, 32),
+]
 # the small-cloud kernel's stages of the path
 FPS_SMALL_STAGES = ("backbone_sa4", "roi_sa1", "roi_sa2")
+FPS_TRAIN_SMALL_STAGES = ("train_sa4", "train_roi_sa1", "train_roi_sa2")
+# training: the flagship config file (shipped as a dict), a synthetic set of
+# Lyft-sized scans, two epochs at B = 2, the overfit run's steps
+FLAGSHIP_CFG = "configs/models/lyft_models/pointrcnn_dynamic_obj.yaml"
+TRAIN_SCANS, TRAIN_EPOCHS = 16, 2
+OVERFIT_STEPS = 20
+# card vs CPU on one train step: the point-head losses within rtol; at most
+# this share of the backbone's ball-query slots and max-pool sources picked
+# otherwise (PR 7 reading: 0 and 1.7e-6); the card's backbone and point-head
+# gradients no further from a float64 run's than this many times the CPU's
+# float32 gradients are (reading 0.49: both part from float64 by float32
+# rounding, up to 9.2e-3 of a norm on the CPU); the RoI head's inputs hang
+# on NMS, so its sampled RoIs are held to the eval's 98%
+TRAIN_LOSS_RTOL = 1e-3
+MAX_DIFFER_SHARE = 1e-4
+TRAIN_GRAD_F64_RATIO = 2.0
+MIN_ROI_MATCH = 0.98
 KERNEL_SOURCES = ("fps", "radius_count", "dbscan", "knn", "gather")
 # seed path: the PP dataset (bench_pipeline.py sizes) and the seed-mask groups
 PP_TRAVERSALS, PP_FRAMES_PER_TRAVERSAL, PP_ORIGINS = 5, 8, 16
@@ -187,12 +228,17 @@ def fps_inputs(torch, dev, scenes):
     gen = torch.Generator(device="cpu").manual_seed(1)
     xyz = torch.from_numpy(scenes[..., :3]).to(dev).contiguous()
     inputs = {}
-    for stage, b, n, npoint in FPS_PATH_SHAPES + FPS_EXTRA_SHAPES:
+    train_xyz = xyz[:TRAIN_BATCH]
+    for stage, b, n, npoint in FPS_PATH_SHAPES + FPS_EXTRA_SHAPES + FPS_TRAIN_SHAPES:
         sa1 = inputs.get("backbone_sa1")
         if stage.startswith("backbone"):
             inputs[stage] = xyz
             idx = furthest_point_sample_plain(xyz, npoint).long()
             xyz = torch.gather(xyz, 1, idx[..., None].expand(-1, -1, 3)).contiguous()
+        elif stage.startswith("train_sa"):  # the backbone levels of the first 2 scans
+            inputs[stage] = train_xyz
+            idx = furthest_point_sample_plain(train_xyz, npoint).long()
+            train_xyz = torch.gather(train_xyz, 1, idx[..., None].expand(-1, -1, 3)).contiguous()
         elif stage == "npoint_1":
             inputs[stage] = sa1
         elif stage == "dup_ranks":  # point j + N/2 repeats point j
@@ -214,7 +260,7 @@ def phase_fps(torch, inputs, card):
     from modest_tpu_torch.utils.device import device_ms
 
     rows = {}
-    for stage, b, n, npoint in FPS_PATH_SHAPES + FPS_EXTRA_SHAPES:
+    for stage, b, n, npoint in FPS_PATH_SHAPES + FPS_EXTRA_SHAPES + FPS_TRAIN_SHAPES:
         x = inputs[stage]
         dev = x.device
         got = furthest_point_sample_cuda(x, npoint)
@@ -364,6 +410,198 @@ def phase_card_vs_cpu(torch, np, api, build_network, model, cfg, scenes, card):
           "match_frac": frac, "cpu_forward_s": cpu_s, "card": card})
     if total == 0 or frac < 0.98:
         fail(f"card vs CPU: {len(pairs) - bad_yaw_or_label}/{total} final boxes match (< 98%)")
+
+
+def reset_fps_counts():
+    from modest_tpu_torch.ops.fps import furthest_point_sample_cuda
+
+    counts = furthest_point_sample_cuda.launches
+    counts.update(dict.fromkeys(counts, 0))
+    return counts
+
+
+def phase_train_dataset(root, card):
+    """A KITTI-format training set of Lyft-sized scans (tools/synth_kitti.py),
+    its infos and the gt database that gt sampling reads."""
+    import numpy as np
+
+    from modest_tpu_torch.configs import POINTRCNN_DYNAMIC_OBJ_FULL
+    from modest_tpu_torch.data.kitti_dataset import create_kitti_infos
+    from modest_tpu_torch.tools.synth_kitti import make_dataset
+    from modest_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    boxes = make_dataset(root, n_train=TRAIN_SCANS, n_val=0, seed=0, full_density=True)
+    cfg = Config(POINTRCNN_DYNAMIC_OBJ_FULL).DATA_CONFIG
+    create_kitti_infos(cfg, ["Dynamic"], root, root, if_val=False)
+    with open(root / "kitti_dbinfos_train.pkl", "rb") as f:
+        db = pickle.load(f)
+    points = [len(np.fromfile(p, np.float32)) // 4
+              for p in sorted((root / "training" / "velodyne").iterdir())]
+    emit({"phase": "train_dataset", "scans": TRAIN_SCANS, "points_min": min(points),
+          "points_max": max(points), "labels_min": min(len(b) for b in boxes.values()),
+          "labels_max": max(len(b) for b in boxes.values()),
+          "gt_database_objects": sum(len(v) for v in db.values()),
+          "seconds": time.perf_counter() - t0, "card": card})
+
+
+def train_argv(root, out, epochs):
+    return ["--cfg_file", str(REPO / FLAGSHIP_CFG), "--data_path", str(root), "--batch_size",
+            str(TRAIN_BATCH), "--epochs", str(epochs), "--fix_random_seed", "--output_dir",
+            str(out)]
+
+
+def check_history(np, history, where):
+    for rec in history:
+        bad = {k: v for k, v in rec["metrics"].items() if not np.isfinite(v)}
+        if bad:
+            fail(f"{where}: step {rec['step']} has non-finite {bad}")
+
+
+def phase_train(torch, np, dev, root, card):
+    """The train CLI on the card at full width: 2 epochs of 8 steps, then a
+    resume from the epoch-1 checkpoint to 3 epochs."""
+    from modest_tpu_torch.cli import train as train_cli
+    from modest_tpu_torch.models.pointrcnn import STAGES
+
+    out = root / "run"
+    counts = reset_fps_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train_cli.main(train_argv(root, out, TRAIN_EPOCHS), stage_times=True)
+    seconds = time.perf_counter() - t0
+    launches = dict(counts)
+    hist = state.history
+    steps = len(hist)
+    if steps != TRAIN_SCANS // TRAIN_BATCH * TRAIN_EPOCHS:
+        fail(f"train: {steps} steps")
+    check_history(np, hist, "train")
+    if launches != {"fps_cluster_kernel": 3 * steps, "fps_warp_kernel": 3 * steps}:
+        fail(f"train: {steps} steps launched the fps kernels {launches} times, not 3 + 3 a step")
+    timed = hist[2:]
+    scans_per_s = TRAIN_BATCH * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"])
+    stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
+    forward_ms = sum(stage_ms[k] for k in STAGES)
+    emit({"phase": "train", "batch": TRAIN_BATCH, "points_per_scan": N_POINTS, "steps": steps,
+          "epochs": TRAIN_EPOCHS, "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
+          "scans_per_s": scans_per_s, "timed_steps": len(timed),
+          "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[1]["end_s"]) / len(timed),
+          "data_wait_ms": sum(r["data_wait_ms"] for r in timed) / len(timed),
+          "forward_ms": forward_ms, "stage_ms": stage_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "fps_kernel_launches": launches, "fps_launches_per_step": sum(launches.values()) / steps,
+          "cli_seconds": seconds, "card": card})
+
+    # resume: a fresh output dir holding only the epoch-1 checkpoint
+    resumed_out = root / "resumed"
+    (resumed_out / "ckpt").mkdir(parents=True)
+    shutil.copy(out / "ckpt" / "checkpoint_epoch_1.pth", resumed_out / "ckpt")
+    counts = reset_fps_counts()
+    resumed = train_cli.main(train_argv(root, resumed_out, TRAIN_EPOCHS + 1))
+    per_epoch = TRAIN_SCANS // TRAIN_BATCH
+    first = resumed.history[0]
+    check_history(np, resumed.history, "resumed train")
+    emit({"phase": "train_resume", "start_epoch": resumed.start_epoch, "first_epoch": first["epoch"],
+          "first_step": first["step"], "steps": len(resumed.history),
+          "fps_kernel_launches": dict(counts), "card": card})
+    if (resumed.start_epoch, first["epoch"], first["step"], len(resumed.history)) != (
+            1, 1, per_epoch, 2 * per_epoch):
+        fail(f"resume from epoch 1 restarted at epoch {first['epoch']}, step {first['step']}")
+    return launches, steps
+
+
+def first_batch(torch, root, dev):
+    """The train loader's first batch of the synthetic set, on ``dev``."""
+    import numpy as np
+
+    from modest_tpu_torch.configs import POINTRCNN_DYNAMIC_OBJ_FULL
+    from modest_tpu_torch.data.loader import batch_to_device, build_dataloader
+    from modest_tpu_torch.utils.config import Config
+
+    cfg = Config(POINTRCNN_DYNAMIC_OBJ_FULL)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    np.random.seed(666)
+    _, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, TRAIN_BATCH, training=True)
+    return cfg, batch_to_device(next(iter(loader)), dev)
+
+
+def phase_train_overfit(torch, np, dev, root, card):
+    """OVERFIT_STEPS optimizer steps on one fixed batch and fixed RoI-sampler
+    draws: the loss must fall. The schedule is the flagship's whole run on
+    this set (NUM_EPOCHS epochs of TRAIN_SCANS / TRAIN_BATCH steps), so the
+    steps are its warm-up. The one-cycle rate squeezed into 20 steps peaks
+    by step 8, where the point logits pass -88.7 and the focal loss's
+    exp(-x) overflows: its gradient is NaN there, in the JAX package as in
+    the port (tools/train_probe.py diverge, tests/test_torch_losses.py)."""
+    from modest_tpu_torch.models import build_network
+    from modest_tpu_torch.train.state import create_train_state, step_roi_draws, train_step
+
+    cfg, batch = first_batch(torch, root, dev)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=1)
+    total = int(cfg.OPTIMIZATION.NUM_EPOCHS) * (TRAIN_SCANS // TRAIN_BATCH)
+    state = create_train_state(model, cfg.OPTIMIZATION, total)
+    draws = step_roi_draws(cfg.MODEL, TRAIN_BATCH, 0, 666, dev)  # the same sampler draws too
+    losses, parts = [], []
+    for _ in range(OVERFIT_STEPS):
+        metrics = train_step(state, cfg.MODEL, batch["points"], batch["gt_boxes"],
+                             roi_draws=draws)
+        losses.append(metrics["loss"].item())
+        parts.append({k: metrics[k].item() for k in ("point_loss_cls", "point_loss_box",
+                                                      "rcnn_loss_cls", "rcnn_loss_reg")})
+    last = sum(losses[-5:]) / 5
+    emit({"phase": "train_overfit", "steps": OVERFIT_STEPS, "schedule_steps": total,
+          "last_lr": state.optimizer.current_lr(), "first_loss": losses[0],
+          "last5_mean_loss": last, "losses": losses, "loss_parts": parts, "card": card})
+    if not all(np.isfinite(losses)) or not last < losses[0]:
+        fail(f"train_overfit: the loss did not fall ({losses[0]} → {last})")
+
+
+def phase_train_card_vs_cpu(torch, np, dev, root, card):
+    """One train step's forward, loss and backward from the same weights,
+    batch and RoI draws on the card and on the port's CPU path, and the
+    backbone and point head once more on the CPU in float64 with the
+    float32 run's point choices (``tools/train_probe.py::grad_gap``)."""
+    from modest_tpu_torch.tools.train_probe import grad_gap
+
+    cfg, batch = first_batch(torch, root, torch.device("cpu"))
+    t0 = time.perf_counter()
+    r = grad_gap(dev, cfg, batch)
+    seconds = time.perf_counter() - t0
+    card_m, cpu_m = r["card_metrics"], r["cpu_metrics"]
+    loss_err = {k: abs(card_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-12)
+                for k in ("point_loss_cls", "point_loss_box")}
+    # the backbone's ball queries and max-pools (B scans; the RoI tower's
+    # clouds follow the NMS-chosen RoIs, held by the RoI match below)
+    queries = [q for q in r["card"]["ball_queries"] if q["shape"][0] == TRAIN_BATCH]
+    pools = [q for q in r["card"]["max_pools"] if q["shape"][0] == TRAIN_BATCH]
+    slots_differ = sum(q["slots_differ"] for q in queries) / sum(
+        np.prod(q["shape"]) for q in queries)
+    maxima_differ = sum(q["maxima_from_other_point"] for q in pools) / sum(
+        np.prod(q["shape"]) for q in pools)
+    gaps = r["grad_rel_err"]
+    card64 = gaps["card_vs_float64"]["backbone_point_head"]
+    cpu64 = gaps["cpu_vs_float64"]["backbone_point_head"]
+    emit({"phase": "train_card_vs_cpu", "point_loss_rel_err": loss_err,
+          "loss_rtol": TRAIN_LOSS_RTOL, "backbone_slots_differ_share": slots_differ,
+          "backbone_maxima_differ_share": maxima_differ, "share_max": MAX_DIFFER_SHARE,
+          "grad_rel_err": gaps, "card_over_cpu_float64_err": card64["max"] / cpu64["max"],
+          "ratio_max": TRAIN_GRAD_F64_RATIO, "card_losses": card_m, "cpu_losses": cpu_m,
+          "float64_losses": r["float64_metrics"], "float64_neighbours": r["float64"],
+          "card_neighbours": r["card"], "sampled_roi_match": r["sampled_roi_match"],
+          "roi_match_min": MIN_ROI_MATCH, "seconds": seconds, "card": card})
+    if card64["n"] != cpu64["n"] or card64["n"] < 100:
+        fail(f"train card vs CPU: {card64['n']} gradients compared")
+    if max(loss_err.values()) > TRAIN_LOSS_RTOL:
+        fail(f"train card vs CPU: point losses {loss_err}")
+    if max(slots_differ, maxima_differ) > MAX_DIFFER_SHARE:
+        fail(f"train card vs CPU: {slots_differ} of the backbone's neighbours, {maxima_differ} "
+             f"of its max-pool sources differ")
+    if card64["max"] > TRAIN_GRAD_F64_RATIO * cpu64["max"]:
+        fail(f"train card vs CPU: the card's gradients are {card64['max']} from float64 "
+             f"({card64['worst']}), the CPU's {cpu64['max']}")
+    if r["sampled_roi_match"] < MIN_ROI_MATCH:
+        fail(f"train card vs CPU: {r['sampled_roi_match']:.4f} of the sampled RoIs agree "
+             f"(< {MIN_ROI_MATCH})")
 
 
 def build_kernels(card):
@@ -1063,6 +1301,18 @@ def main() -> int:
     randomise_bn(torch, model, seed=0)
     fps_launches = phase_forward(torch, dev, api, model, cfg, scenes, card)
     phase_card_vs_cpu(torch, np, api, build_network, model, cfg, scenes, card)
+    del model
+    torch.cuda.empty_cache()
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        phase_train_dataset(tmp, card)
+        train_launches, train_steps = phase_train(torch, np, dev, tmp, card)
+        phase_train_overfit(torch, np, dev, tmp, card)
+        phase_train_card_vs_cpu(torch, np, dev, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
     try:
@@ -1087,11 +1337,14 @@ def main() -> int:
     gather_rows = phase_gather_vs_plain(torch, np, dev, card)
 
     fps_kernels = []
-    for kernel, replaces, stages in (
+    for kernel, replaces, stages, train_stages in (
             ("fps_cluster_kernel", "modest_tpu/ops/pallas_fps.py:146",
-             ("backbone_sa1", "backbone_sa2", "backbone_sa3")),
-            ("fps_warp_kernel", "modest_tpu/ops/pallas_fps.py:157", FPS_SMALL_STAGES)):
+             ("backbone_sa1", "backbone_sa2", "backbone_sa3"), ("train_sa1", "train_sa2",
+                                                                 "train_sa3")),
+            ("fps_warp_kernel", "modest_tpu/ops/pallas_fps.py:157", FPS_SMALL_STAGES,
+             FPS_TRAIN_SMALL_STAGES)):
         path = [fps_rows[stage] for stage in stages]
+        train_path = [fps_rows[stage] for stage in train_stages]
         fps_kernels.append({
             "name": kernel, "route": "cuda", "source": "modest_tpu_torch/csrc/fps.cu",
             "replaces": replaces, "launches": fps_launches[kernel],
@@ -1104,7 +1357,16 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in path), "bound_by": "operations",
             "library_ms": None, "cluster": {r["stage"]: r["cluster"] for r in path},
             "us_per_step": {r["stage"]: r["us_per_step"] for r in path},
-            "shapes": f"sum over the FPS calls {', '.join(stages)} of one B=4 forward"})
+            "shapes": f"sum over the FPS calls {', '.join(stages)} of one B=4 forward",
+            "train_launches": train_launches[kernel], "train_steps": train_steps,
+            "train_max_abs_err": max(r["max_abs_err"] for r in train_path),
+            "train_ms": sum(r["ms"] for r in train_path),
+            "train_kernel_device_ms": None if any(r["kernel_device_ms"] is None
+                                                  for r in train_path)
+            else sum(r["kernel_device_ms"] for r in train_path),
+            "train_plain_ms": sum(r["plain_ms"] for r in train_path),
+            "train_bound_ms": sum(r["bound_ms"] for r in train_path),
+            "train_shapes": f"sum over {', '.join(train_stages)} of one B=2 train step"})
     emit({"kernels": [*fps_kernels, {
         "name": "radius_count", "route": "cuda", "source": "modest_tpu_torch/csrc/radius_count.cu",
         "replaces": "modest_tpu/ops/pallas_radius_count.py:81",

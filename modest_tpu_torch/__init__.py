@@ -7,9 +7,10 @@ ported path is a CUDA kernel written by hand under ``csrc/``, built at first
 use; its plain PyTorch version sits beside it and runs on CPU tensors.
 
 Ported so far: the PointRCNN eval forward and post-processing
-(``models.build_network``, ``models.api.apply_eval`` / ``post_process``), and
-the label-free seed path: the PP score (``pipeline.pp_score``,
-``cli.pre_compute_pp_score``) and the seed masks and boxes
-(``pipeline.clustering``, ``pipeline.box_fit``, ``pipeline.seed_labels``,
+(``models.build_network``, ``models.api.apply_eval`` / ``post_process``), its
+training (``data``, ``models.api.apply_train`` / ``compute_loss``,
+``train``, ``cli.train``), and the label-free seed path: the PP score
+(``pipeline.pp_score``, ``cli.pre_compute_pp_score``) and the seed masks and
+boxes (``pipeline.clustering``, ``pipeline.box_fit``, ``pipeline.seed_labels``,
 ``cli.generate_mask``).
 """

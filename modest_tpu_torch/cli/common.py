@@ -4,20 +4,19 @@ Port of ``modest_tpu/cli/common.py``: a default config plus hydra-style
 ``key=value`` overrides, a ``data_paths`` config group and sharding via
 ``total_part``/``part``. The configs come from the dicts in
 ``modest_tpu_torch/configs.py``, so no YAML parser is needed; ``display_args``
-prints JSON.
+prints the config as ``save_config`` writes it.
 """
 from __future__ import annotations
 
 import argparse
 import copy
-import json
 import os
 import sys
 
 import numpy as np
 
 from ..configs import PIPELINE_CONFIGS, PIPELINE_DATA_PATHS
-from ..utils.config import Config, cfg_from_kv_overrides, resolve_interpolations
+from ..utils.config import Config, cfg_from_kv_overrides, config_text, resolve_interpolations
 
 
 def eprint(*args, **kwargs):
@@ -52,14 +51,10 @@ def shard_idx_list(idx_list, total_part: int, part: int):
     return idx_list
 
 
-def config_json(cfg: Config) -> str:
-    return json.dumps(cfg.to_dict(), indent=1, default=str)
-
-
 def display_args(name: str, cfg: Config):
     eprint(f"========== {name} info ==========")
     eprint("host: {}".format(os.getenv("HOSTNAME")))
-    eprint(config_json(cfg))
+    eprint(config_text(cfg))
     eprint("=" * (26 + len(name)))
 
 

@@ -24,16 +24,16 @@ import numpy as np
 
 from ..pipeline.seed_labels import generate_mask_for_frame, generate_masks_for_frames
 from ..utils import kitti_io
+from ..utils.config import save_config
 from ..utils.device import StageTimer, resolve_device
-from .common import (config_json, display_args, load_pipeline_config, make_parser, progress,
+from .common import (display_args, load_pipeline_config, make_parser, progress,
                      shard_idx_list)
 
 
 def _save_config(cfg, out_dir):
     path = osp.join(out_dir, "configs.yaml")
     if not osp.exists(path):
-        with open(path, "w") as f:
-            f.write(config_json(cfg) + "\n")
+        save_config(cfg, path)
 
 
 def main(argv=None, timer: StageTimer | None = None):

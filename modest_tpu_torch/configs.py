@@ -2,7 +2,11 @@
 
 ``POINTRCNN_DYNAMIC_OBJ`` is the ``MODEL`` section of
 ``configs/models/lyft_models/pointrcnn_dynamic_obj.yaml`` (the flagship
-detector, 12288-point Lyft scans) and ``PIPELINE_*`` are
+detector, 12288-point Lyft scans); ``POINTRCNN_DYNAMIC_OBJ_FULL`` is the
+whole file (``CLASS_NAMES``, ``DATA_CONFIG`` with its ``_BASE_CONFIG_``
+``configs/datasets/lyft_dataset_dynamic_obj.yaml`` merged in, ``MODEL``,
+``OPTIMIZATION``), which ``cli/train.py`` takes when ``--cfg_file`` names
+that file. ``PIPELINE_*`` are
 ``configs/pipeline/{pp_score,generate_mask}.yaml`` and the
 ``data_paths/{fw70_2m,nusc}.yaml`` group, each exactly as PyYAML parses it;
 tests hold them equal.
@@ -122,6 +126,72 @@ POINTRCNN_DYNAMIC_OBJ = {
             "NMS_POST_MAXSIZE": 500,
         },
     },
+}
+
+
+POINTRCNN_DYNAMIC_OBJ_DATA_CONFIG = {
+    "DATASET": "KittiDataset",
+    "DATA_PATH": "data/lyft",
+    "POINT_CLOUD_RANGE": [0, -40, -3, 90.4, 40, 1],
+    "DATA_SPLIT": {"train": "train", "test": "val"},
+    "INFO_PATH": {"train": ["kitti_infos_train.pkl"], "test": ["kitti_infos_val.pkl"]},
+    "GET_ITEM_LIST": ["points"],
+    "FOV_POINTS_ONLY": True,
+    "DATA_AUGMENTOR": {
+        "DISABLE_AUG_LIST": ["placeholder"],
+        "AUG_CONFIG_LIST": [
+            {"NAME": "gt_sampling", "USE_ROAD_PLANE": True,
+             "DB_INFO_PATH": ["kitti_dbinfos_train.pkl"],
+             "PREPARE": {"filter_by_min_points": ["Dynamic:5"], "filter_by_difficulty": []},
+             "SAMPLE_GROUPS": ["Dynamic:40"], "NUM_POINT_FEATURES": 4,
+             "DATABASE_WITH_FAKELIDAR": False, "REMOVE_EXTRA_WIDTH": [0.0, 0.0, 0.0],
+             "LIMIT_WHOLE_SCENE": True},
+            {"NAME": "random_world_flip", "ALONG_AXIS_LIST": ["x"]},
+            {"NAME": "random_world_rotation", "WORLD_ROT_ANGLE": [-0.78539816, 0.78539816]},
+            {"NAME": "random_world_scaling", "WORLD_SCALE_RANGE": [0.95, 1.05]},
+        ],
+    },
+    "POINT_FEATURE_ENCODING": {
+        "encoding_type": "absolute_coordinates_encoding",
+        "used_feature_list": ["x", "y", "z", "intensity"],
+        "src_feature_list": ["x", "y", "z", "intensity"],
+    },
+    "DATA_PROCESSOR": [
+        {"NAME": "mask_points_and_boxes_outside_range", "REMOVE_OUTSIDE_BOXES": True},
+        {"NAME": "sample_points", "NUM_POINTS": {"train": POINTRCNN_DYNAMIC_OBJ_NUM_POINTS,
+                                                 "test": POINTRCNN_DYNAMIC_OBJ_NUM_POINTS}},
+        {"NAME": "shuffle_points", "SHUFFLE_ENABLED": {"train": True, "test": False}},
+    ],
+}
+
+POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION = {
+    "BATCH_SIZE_PER_GPU": 2,
+    "NUM_EPOCHS": 60,
+    "OPTIMIZER": "adam_onecycle",
+    "LR": 0.01,
+    "WEIGHT_DECAY": 0.01,
+    "MOMENTUM": 0.9,
+    "MOMS": [0.95, 0.85],
+    "PCT_START": 0.4,
+    "DIV_FACTOR": 10,
+    "DECAY_STEP_LIST": [35, 45],
+    "LR_DECAY": 0.1,
+    "LR_CLIP": 1e-07,
+    "LR_WARMUP": False,
+    "WARMUP_EPOCH": 1,
+    "GRAD_NORM_CLIP": 10,
+}
+
+POINTRCNN_DYNAMIC_OBJ_FULL = {
+    "CLASS_NAMES": POINTRCNN_DYNAMIC_OBJ_CLASS_NAMES,
+    "DATA_CONFIG": POINTRCNN_DYNAMIC_OBJ_DATA_CONFIG,
+    "MODEL": POINTRCNN_DYNAMIC_OBJ,
+    "OPTIMIZATION": POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION,
+}
+
+# the YAML files (relative to the repository root) that ship as the dicts above
+SHIPPED_MODEL_CONFIGS = {
+    "configs/models/lyft_models/pointrcnn_dynamic_obj.yaml": POINTRCNN_DYNAMIC_OBJ_FULL,
 }
 
 

@@ -15,10 +15,34 @@ import torch
 from torch import nn
 
 
+class BatchNorm(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` that trains as flax's ``nn.BatchNorm(momentum=0.9,
+    epsilon=1e-5)`` does (``modest_tpu/models/layers.py``).
+
+    In train mode it normalises (N, C) rows by their mean and their
+    *biased* variance E[x²] − E[x]² (clipped at 0, flax's fast variance),
+    as (x − mean) · (rsqrt(var + eps) · weight) + bias, and moves the
+    running statistics by r ← 0.9 r + 0.1 · batch with that same biased
+    variance; ``nn.BatchNorm1d`` would move them with the unbiased one. In
+    eval mode it is ``nn.BatchNorm1d``. The keys and the momentum (0.1 in
+    torch's convention) are ``nn.BatchNorm1d``'s."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=0)
+        var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
+            self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+            self.num_batches_tracked.add_(1)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
 class SharedMLP(nn.Sequential):
     """Stack of [Linear (bias only without BN) → BatchNorm → ReLU] on the last
-    axis. Batch norm sees the rows flattened to (-1, C); the slice is eval
-    only, so it normalises with its running statistics."""
+    axis. Batch norm sees the rows flattened to (-1, C)."""
 
     def __init__(self, in_channels: int, channels: Sequence[int], use_bn: bool = True):
         layers = []
@@ -26,7 +50,7 @@ class SharedMLP(nn.Sequential):
         for c in channels:
             layers.append(nn.Linear(c_in, c, bias=not use_bn))
             if use_bn:
-                layers.append(nn.BatchNorm1d(c, eps=1e-5, momentum=0.1))
+                layers.append(BatchNorm(c, eps=1e-5, momentum=0.1))
             layers.append(nn.ReLU())
             c_in = c
         super().__init__(*layers)
@@ -34,7 +58,7 @@ class SharedMLP(nn.Sequential):
 
     def forward(self, x):
         for layer in self:
-            if isinstance(layer, nn.BatchNorm1d):
+            if isinstance(layer, BatchNorm):
                 x = layer(x.reshape(-1, x.shape[-1])).reshape(x.shape)
             else:
                 x = layer(x)

@@ -39,3 +39,31 @@ def boxes_to_corners_3d(boxes3d):
     corners = boxes3d[:, None, 3:6] * tmpl[None]
     corners = rotate_points_along_z(corners, boxes3d[:, 6])
     return corners + boxes3d[:, None, 0:3]
+
+
+def enlarge_box3d(boxes3d, extra_width=(0, 0, 0)):
+    ex = torch.as_tensor(extra_width, dtype=boxes3d.dtype, device=boxes3d.device)
+    return torch.cat([boxes3d[..., 0:3], boxes3d[..., 3:6] + ex, boxes3d[..., 6:]], dim=-1)
+
+
+def points_in_boxes_mask(points, boxes):
+    """points (..., N, 3), boxes (..., M, 7) → (..., M, N) bool (z is the box
+    center)."""
+    shift = points[..., None, :, :3] - boxes[..., :, None, 0:3]
+    c = torch.cos(-boxes[..., 6])[..., None]
+    s = torch.sin(-boxes[..., 6])[..., None]
+    lx = shift[..., 0] * c - shift[..., 1] * s
+    ly = shift[..., 0] * s + shift[..., 1] * c
+    return ((shift[..., 2].abs() <= boxes[..., :, None, 5] / 2)
+            & (lx.abs() <= boxes[..., :, None, 3] / 2)
+            & (ly.abs() <= boxes[..., :, None, 4] / 2))
+
+
+def points_in_boxes_index(points, boxes, box_valid=None):
+    """(..., N) index of the first box holding each point, -1 if none;
+    ``box_valid`` (..., M) masks out padded boxes."""
+    mask = points_in_boxes_mask(points, boxes)
+    if box_valid is not None:
+        mask = mask & box_valid[..., :, None]
+    first = torch.argmax(mask.to(torch.uint8), dim=-2)  # the first maximum
+    return torch.where(mask.any(dim=-2), first, -1)

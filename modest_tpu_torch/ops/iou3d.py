@@ -108,16 +108,16 @@ def boxes_iou_bev(boxes_a, boxes_b):
 
 
 def boxes_iou3d(boxes_a, boxes_b):
-    """(N, 7), (M, 7) → (N, M) 3D IoU."""
+    """(..., N, 7), (..., M, 7) → (..., N, M) 3D IoU."""
     overlap_bev = boxes_overlap_bev(boxes_a, boxes_b)
-    a_max = (boxes_a[:, 2] + boxes_a[:, 5] / 2)[:, None]
-    a_min = (boxes_a[:, 2] - boxes_a[:, 5] / 2)[:, None]
-    b_max = (boxes_b[:, 2] + boxes_b[:, 5] / 2)[None, :]
-    b_min = (boxes_b[:, 2] - boxes_b[:, 5] / 2)[None, :]
+    a_max = (boxes_a[..., 2] + boxes_a[..., 5] / 2)[..., :, None]
+    a_min = (boxes_a[..., 2] - boxes_a[..., 5] / 2)[..., :, None]
+    b_max = (boxes_b[..., 2] + boxes_b[..., 5] / 2)[..., None, :]
+    b_min = (boxes_b[..., 2] - boxes_b[..., 5] / 2)[..., None, :]
     overlap_h = torch.clamp_min(torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min), 0)
     overlap_3d = overlap_bev * overlap_h
-    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
-    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
     return overlap_3d / torch.clamp_min(vol_a + vol_b - overlap_3d, 1e-6)
 
 

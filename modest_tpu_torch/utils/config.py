@@ -1,14 +1,16 @@
 """Hierarchical config: dict with attribute access + YAML loading.
 
-The port's own copy of ``modest_tpu/utils/config.py`` (``Config`` and
-``cfg_from_yaml_file`` with ``_BASE_CONFIG_`` inheritance). PyYAML is
-imported only when a YAML file is read, so code that builds a model from the
-Python dicts in ``modest_tpu_torch.configs`` needs no YAML parser.
+The port's own copy of ``modest_tpu/utils/config.py`` (``Config``,
+``cfg_from_yaml_file`` with ``_BASE_CONFIG_`` inheritance, ``cfg_from_list``
+and ``save_config``). PyYAML is imported only when a YAML file is read, so
+code that builds a model from the Python dicts in ``modest_tpu_torch.configs``
+needs no YAML parser.
 """
 from __future__ import annotations
 
 import collections.abc
 import copy
+import json
 import re
 from pathlib import Path
 
@@ -324,13 +326,15 @@ def parse_value(text: str):
     return _ValueParser(text).parse()
 
 
-def cfg_from_kv_overrides(overrides, config: Config) -> Config:
-    """Apply hydra-style ``a.b.c=value`` overrides; a bool keeps its type and
-    a list must stay a list, as in ``modest_tpu/utils/config.py::_coerce``."""
-    for item in overrides:
-        if "=" not in item:
-            raise ValueError(f"override {item!r} must be key=value")
-        full_key, text = item.split("=", 1)
+def cfg_from_list(cfg_list, config: Config) -> Config:
+    """Apply ``[A.B.C, value, ...]`` pairs, as ``--set`` gives them
+    (reference pcdet/config.py:16-48). A value is read as ``yaml.safe_load``
+    reads it (``parse_value``); a bool keeps its type and a list must stay
+    a list, as in ``modest_tpu/utils/config.py::_coerce``."""
+    if len(cfg_list) % 2:
+        raise ValueError("override list must be key/value pairs")
+    for full_key, v in zip(cfg_list[0::2], cfg_list[1::2]):
+        text = str(v)
         keys = full_key.split(".")
         d = config
         for sub in keys[:-1]:
@@ -345,6 +349,52 @@ def cfg_from_kv_overrides(overrides, config: Config) -> Config:
                 raise ValueError(f"expected list for override, got {text!r}")
         d[keys[-1]] = new
     return config
+
+
+def cfg_from_kv_overrides(overrides, config: Config) -> Config:
+    """Apply hydra-style ``a.b.c=value`` overrides (``cfg_from_list``)."""
+    pairs = []
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} must be key=value")
+        pairs += item.split("=", 1)
+    return cfg_from_list(pairs, config)
+
+
+def _flow(v, pad: str = "") -> str:
+    """``v`` as JSON that YAML 1.1 reads back as the same values: floats
+    keep a dot in the mantissa (YAML reads 1e-07 as a string) and
+    non-finite floats are YAML's .inf and .nan."""
+    if isinstance(v, collections.abc.Mapping):
+        if not v:
+            return "{}"
+        inner = pad + " "
+        items = [f"{inner}{json.dumps(str(k))}: {_flow(x, inner)}" for k, x in v.items()]
+        return "{\n" + ",\n".join(items) + "\n" + pad + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_flow(x, pad) for x in v) + "]"
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        mantissa, e, exp = text.partition("e")
+        return f"{mantissa}.0e{exp}" if e and "." not in mantissa else text
+    if v is None or isinstance(v, (bool, int)):
+        return json.dumps(v)
+    return json.dumps(str(v))
+
+
+def config_text(config: Config) -> str:
+    """``config`` as JSON that a YAML parser reads as the same mapping."""
+    return _flow(config.to_dict())
+
+
+def save_config(config: Config, path) -> None:
+    """Write ``config_text(config)`` (``cfg_from_yaml_file`` reads it back)."""
+    with open(path, "w") as f:
+        f.write(config_text(config) + "\n")
 
 
 def resolve_interpolations(cfg: Config) -> Config:

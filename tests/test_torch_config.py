@@ -92,3 +92,53 @@ def test_a_list_override_must_stay_a_list():
     for cfg_fn, config in ((cfg_from_kv_overrides, Config), (j_cfg_from_kv_overrides, JConfig)):
         with pytest.raises(ValueError, match="expected list"):
             cfg_fn(["class_names=Car"], config({"class_names": ["Car", "Pedestrian"]}))
+
+
+FLAGSHIP_YAML = "configs/models/lyft_models/pointrcnn_dynamic_obj.yaml"
+
+
+@pytest.mark.parametrize("section", ["CLASS_NAMES", "DATA_CONFIG", "MODEL", "OPTIMIZATION"])
+def test_flagship_dicts_equal_the_jax_loaders_yaml(section):
+    """configs.py ships the flagship file whole, its _BASE_CONFIG_ dataset
+    file merged in, as modest_tpu.utils.config reads it."""
+    from modest_tpu.utils.config import cfg_from_yaml_file as j_cfg_from_yaml_file
+    from modest_tpu_torch.configs import POINTRCNN_DYNAMIC_OBJ_FULL, SHIPPED_MODEL_CONFIGS
+
+    want = j_cfg_from_yaml_file(FLAGSHIP_YAML).to_dict()
+    assert list(want) == list(POINTRCNN_DYNAMIC_OBJ_FULL)
+    assert _same(POINTRCNN_DYNAMIC_OBJ_FULL[section], want[section])
+    assert SHIPPED_MODEL_CONFIGS[FLAGSHIP_YAML] is POINTRCNN_DYNAMIC_OBJ_FULL
+
+
+@pytest.mark.parametrize("pairs", [
+    ["OPTIMIZATION.LR", "0.002", "OPTIMIZATION.NUM_EPOCHS", "5"],
+    ["DATA_CONFIG.FOV_POINTS_ONLY", "0", "CLASS_NAMES", "[Car,Pedestrian]"],
+    ["MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_THRESH", "1e-1", "NEW.KEY", "x"],
+    ["DATA_CONFIG.DATA_AUGMENTOR.DISABLE_AUG_LIST", "[gt_sampling, random_world_flip]"],
+])
+def test_cfg_from_list_matches_the_jax_cli(pairs):
+    """``--set`` pairs, as the train CLI applies them."""
+    from modest_tpu.utils.config import cfg_from_list as j_cfg_from_list
+    from modest_tpu_torch.configs import POINTRCNN_DYNAMIC_OBJ_FULL
+    from modest_tpu_torch.utils.config import cfg_from_list
+
+    got = cfg_from_list(list(pairs), Config(POINTRCNN_DYNAMIC_OBJ_FULL))
+    want = j_cfg_from_list(list(pairs), JConfig(POINTRCNN_DYNAMIC_OBJ_FULL))
+    assert _same(got.to_dict(), want.to_dict())
+
+
+def test_cfg_from_list_refuses_a_lone_key():
+    from modest_tpu_torch.utils.config import cfg_from_list
+
+    with pytest.raises(ValueError, match="pairs"):
+        cfg_from_list(["OPTIMIZATION.LR"], Config({}))
+
+
+def test_save_config_reads_back_through_the_yaml_loaders(tmp_path):
+    from modest_tpu.utils.config import cfg_from_yaml_file as j_cfg_from_yaml_file
+    from modest_tpu_torch.configs import POINTRCNN_DYNAMIC_OBJ_FULL
+    from modest_tpu_torch.utils.config import cfg_from_yaml_file, save_config
+
+    save_config(Config(POINTRCNN_DYNAMIC_OBJ_FULL), tmp_path / "cfg.yaml")
+    assert _same(cfg_from_yaml_file(tmp_path / "cfg.yaml").to_dict(), POINTRCNN_DYNAMIC_OBJ_FULL)
+    assert _same(j_cfg_from_yaml_file(tmp_path / "cfg.yaml").to_dict(), POINTRCNN_DYNAMIC_OBJ_FULL)

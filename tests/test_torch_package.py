@@ -1,5 +1,6 @@
 """Rules of the PyTorch port package: it never imports JAX or the JAX
-package (nor PyYAML, tqdm or sklearn, which the card's machine lacks), it
+package (nor PyYAML, tqdm, sklearn, PIL or tensorboard, which the card's
+machine lacks), it
 runs on the card unless the caller asks for the CPU, it ships the flagship
 config as a dict equal to the YAML, and its state-dict keys are pcdet's."""
 import json
@@ -32,14 +33,17 @@ def test_port_never_imports_jax_or_the_jax_package(path):
     assert not FORBIDDEN.findall(src), f"{path} imports {FORBIDDEN.findall(src)}"
 
 
-THIRD_PARTY = re.compile(r"^\s*(?:import|from)\s+(yaml|tqdm|sklearn)\b", re.MULTILINE)
+THIRD_PARTY = re.compile(r"^\s*(?:import|from)\s+(yaml|tqdm|sklearn|PIL|tensorboard|tensorboardX)\b",
+                         re.MULTILINE)
 
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*(REPO / "modest_tpu_torch").rglob("*.py"),
                                       REPO / "chip_smoke.py"]))
 def test_port_never_imports_yaml_tqdm_or_sklearn(path):
-    """The card's machine has none of them. The one exception is the lazy
+    """The card's machine has none of them (nor PIL or tensorboard;
+    ``train/metrics.py`` reaches TensorBoard only through a guarded
+    ``torch.utils.tensorboard``). The one exception is the lazy
     ``import yaml`` inside ``utils/config.py::_load_yaml``, which only
     ``cfg_from_yaml_file`` reaches."""
     src = (REPO / path).read_text()
@@ -81,9 +85,27 @@ def test_build_network_refuses_unported_detectors(name, backbone):
 
 
 def test_forward_refuses_train_mode():
+    """Train mode needs gt boxes: without them the forward refuses and
+    points to eval mode."""
     model = build_network(Config(POINTRCNN_DYNAMIC_OBJ), 1, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="eval"):
+    with pytest.raises(ValueError, match="eval"):
         model(torch.zeros(1, 64, 4))
+
+
+def test_importing_the_port_loads_no_missing_package():
+    """Every module of the port imports, and none of them loads JAX, PyYAML,
+    PIL or tensorboard at import time (torch itself imports tqdm where it is
+    installed, so tqdm is held by the source scan above)."""
+    mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
+                  for p in (REPO / "modest_tpu_torch").rglob("*.py"))
+    mods = [m.removesuffix(".__init__") for m in mods]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print([m for m in ('jax', 'flax', 'yaml', 'PIL', 'tensorboard') if m in sys.modules])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["[]"]
 
 
 def test_seeded_init_and_pcdet_state_dict_keys():
