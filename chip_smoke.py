@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five paths, each at full size from fixed seeds:
+Six paths, each at full size from fixed seeds:
 
 * the flagship detector's eval forward plus post-processing (PointRCNN,
   configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
@@ -16,6 +16,13 @@ Five paths, each at full size from fixed seeds:
   traversals of 8 frames and 16 origin frames of ~89.6k points, the
   bench_pipeline.py recipe), then the seed-mask CLI (generate_mask) on those
   scores in groups of 4 frames;
+* one self-training round on that dataset's 16 origin scans, through the
+  CLIs at the flagship's full width: the seed boxes as label files
+  (generate_label_files), a round-0 dataset with its infos and gt
+  database, one epoch of cli/train.py, cli/test.py on the train split at
+  B = 4 (the round-0 result.pkl), then cli/self_train.py for round 1
+  (combine_labels, the round dataset, infos, one epoch, train-split
+  inference) and once more, when it must skip the finished round;
 * the windowed kNN (nearest_k) at the flagship backbone's four kNN shapes,
   B = 4, through modest_tpu_torch/tools/knn_bench.py;
 * the label-table gathers (take, take_along_axis) at the DBSCAN gather
@@ -61,6 +68,16 @@ Phases, each printing one JSON line:
    PP counts equal on every 4th query tile, and one frame's seed labels
    (>= 99.9% up to the cluster-id permutation) and boxes (1:1, centre
    < 1 cm) equal;
+8a. the self-training round (self_train): every stage's outputs, every
+   result.pkl frame once, >= 1 fused label a frame on average, finite AP
+   and recall, 3 + 3 FPS launches per train step and per test batch, the
+   host library built; eval scans/s of cli/test.py at B = 4, the host
+   seconds of the AP evaluation, combine_labels frames/s, each stage's
+   wall time, peak memory; the second driver call skips the round. Card
+   vs CPU (self_train_card_vs_cpu): one scan's detections from the
+   round-0 checkpoint 1:1 (>= 98%), and combine_labels' label text equal
+   on every frame except where a box pair's BEV IoU lies within 1e-5 of
+   the NMS threshold (such pairs are counted);
 9. run tools/knn_bench.py: per shape the certificate, the slot match
    against the dense exact path (>= 99.9% where certified), the dense
    fallbacks and the windowed and dense times; then hold the kNN kernels
@@ -130,6 +147,16 @@ FPS_TRAIN_SHAPES = [
     ("train_roi_sa1", TRAIN_ROIS, 512, 128),
     ("train_roi_sa2", TRAIN_ROIS, 128, 32),
 ]
+# the RoI tower of cli/self_train.py's train-split inference, which runs
+# cli/test.py at the config's batch (= TRAIN_BATCH) with its test-time
+# NMS_POST_MAXSIZE RoIs a scan; its backbone levels are the train rows'
+ROUND_ROIS_PER_SCAN = 100
+ROUND_ROIS = TRAIN_BATCH * ROUND_ROIS_PER_SCAN
+FPS_ROUND_SHAPES = [
+    ("round_roi_sa1", ROUND_ROIS, 512, 128),
+    ("round_roi_sa2", ROUND_ROIS, 128, 32),
+]
+FPS_SHAPES = FPS_PATH_SHAPES + FPS_EXTRA_SHAPES + FPS_TRAIN_SHAPES + FPS_ROUND_SHAPES
 # the small-cloud kernel's stages of the path
 FPS_SMALL_STAGES = ("backbone_sa4", "roi_sa1", "roi_sa2")
 FPS_TRAIN_SMALL_STAGES = ("train_sa4", "train_roi_sa1", "train_roi_sa2")
@@ -170,6 +197,20 @@ PROP_KERNELS = ("init_kernel", "compress_kernel", "union_kernel", "flatten_kerne
 # the edge kernel's tile edges at path size: k past one tie word, rows not a multiple of 4
 ODD_GRAPH = {"frames": 3, "n": 49151, "k": 33}
 MIN_SLOT_MATCH_PCT = 99.9
+# self-training round: one epoch per training, cli/test.py at B = 4 on the
+# train split, detections card vs CPU 1:1 at the forward's 98%; combine_labels
+# card vs CPU may differ only where a box pair's BEV IoU is this close to the
+# NMS threshold
+ROUND_EPOCHS = 1
+ROUND_EVAL_BATCH = 4
+# after its 8 steps the round-0 detector scores its boxes below the config's
+# SCORE_THRESH of 0.1 (PR 8 run 1: no detection on the first scan, no RCNN
+# recall, no detection among the fused labels), so its
+# train-split inference keeps every box the NMS keeps, which gives the fusion
+# and the card-vs-CPU checks detections; round 1 keeps the config's threshold
+ROUND0_SCORE_THRESH = 0.0
+MIN_BOX_MATCH = 0.98
+NMS_IOU_SHELL = 1e-5
 
 
 def emit(obj) -> None:
@@ -229,7 +270,7 @@ def fps_inputs(torch, dev, scenes):
     xyz = torch.from_numpy(scenes[..., :3]).to(dev).contiguous()
     inputs = {}
     train_xyz = xyz[:TRAIN_BATCH]
-    for stage, b, n, npoint in FPS_PATH_SHAPES + FPS_EXTRA_SHAPES + FPS_TRAIN_SHAPES:
+    for stage, b, n, npoint in FPS_SHAPES:
         sa1 = inputs.get("backbone_sa1")
         if stage.startswith("backbone"):
             inputs[stage] = xyz
@@ -260,7 +301,7 @@ def phase_fps(torch, inputs, card):
     from modest_tpu_torch.utils.device import device_ms
 
     rows = {}
-    for stage, b, n, npoint in FPS_PATH_SHAPES + FPS_EXTRA_SHAPES + FPS_TRAIN_SHAPES:
+    for stage, b, n, npoint in FPS_SHAPES:
         x = inputs[stage]
         dev = x.device
         got = furthest_point_sample_cuda(x, npoint)
@@ -1054,6 +1095,294 @@ def phase_pipeline_card_vs_cpu(torch, np, dev, data_root, root, rc_state, card):
              f"{len(objs_g)} card / {len(objs_c)} CPU")
 
 
+def round0_test_argv(cfg_file, out, data, device):
+    """cli/test.py on a round dataset's TRAIN split, as cli/self_train.py runs
+    it, at B = ROUND_EVAL_BATCH and ROUND0_SCORE_THRESH."""
+    return ["--cfg_file", cfg_file, "--ckpt_dir", str(out / "ckpt"), "--data_path", str(data),
+            "--output_dir", str(out / "eval_train_root"), "--batch_size", str(ROUND_EVAL_BATCH),
+            "--device", device, "--set", "DATA_CONFIG.DATA_SPLIT.test", "train",
+            "DATA_CONFIG.INFO_PATH.test", "[kitti_infos_train.pkl]",
+            "MODEL.POST_PROCESSING.SCORE_THRESH", str(ROUND0_SCORE_THRESH)]
+
+
+def check_result(np, annos, ids, where):
+    got = [a["frame_id"] for a in annos]
+    if got != ids:
+        fail(f"{where}: result.pkl holds frames {got}, not {ids} once each")
+    for a in annos:
+        if not (np.isfinite(a["boxes_lidar"]).all() and np.isfinite(a["score"]).all()):
+            fail(f"{where}: non-finite boxes in frame {a['frame_id']}")
+
+
+def label_lines(label_dir, ids):
+    return {i: (Path(label_dir) / f"{i}.txt").read_text().splitlines() for i in ids}
+
+
+def fusion_shell_pairs(torch, cfg, det, gen_objs, ptc_rect, pp_score):
+    """Pairs that one frame's fusion NMS compares (a box the greedy pass
+    keeps against a later candidate, in the CPU run's score order) whose BEV
+    IoU (CPU, float32) lies within NMS_IOU_SHELL of the NMS threshold: there
+    the card's and the CPU's float32 IoU may fall on either side of it. Up to
+    the first such pair both runs keep the same boxes, so a frame whose
+    labels differ without one is a fault."""
+    from modest_tpu_torch.ops.iou3d import boxes_iou_bev
+    from modest_tpu_torch.pipeline.seed_labels import fusion_candidates, objs_to_bev_boxes
+
+    objs = fusion_candidates(det, gen_objs, ptc_rect, pp_score, cfg)
+    if not objs:
+        return 0
+    boxes = torch.from_numpy(objs_to_bev_boxes(objs))
+    scores = torch.tensor([o.score for o in objs], dtype=torch.float32)
+    order = torch.sort(scores, descending=True, stable=True).indices
+    iou = boxes_iou_bev(boxes[order], boxes[order])  # [s, t]: the earlier box clips
+    thresh, kept, pairs = cfg.nms.threshold, [], 0
+    for t in range(len(objs)):
+        col = iou[kept, t]
+        pairs += int(((col - thresh).abs() <= NMS_IOU_SHELL).sum())
+        if not bool((col > thresh).any()):
+            kept.append(t)
+    return pairs
+
+
+def phase_self_train(torch, np, dev, root, data_root, card):
+    """One self-training round at the flagship's full width through the CLIs,
+    on the pipeline dataset's origin frames: the seed boxes as label files
+    (generate_label_files), a round-0 dataset with its infos and gt
+    database, one epoch of cli/train.py and cli/test.py on the train split
+    at B = 4 (the round-0 result.pkl); then cli/self_train.py --max_iter 1
+    (combine, round dataset, infos, train, train-split inference), and a
+    second call that must skip the finished round. Returns the FPS launches
+    of the driver's round, and of the forwards it made."""
+    import os
+
+    from modest_tpu_torch.cli import generate_label_files, self_train
+    from modest_tpu_torch.cli import test as test_cli
+    from modest_tpu_torch.cli import train as train_cli
+    from modest_tpu_torch.data.kitti_dataset import create_kitti_infos
+    from modest_tpu_torch.utils import native
+
+    if not native.available():
+        fail("self_train: the host library did not build, so the eval would take the numpy "
+             "matcher")
+    root = Path(root)
+    device = dev.type
+    ids = [f"{g:06d}" for g in origin_ids(root)]
+    cfg_file = str(REPO / FLAGSHIP_CFG)
+    cfg = train_cli.load_model_config(cfg_file)
+    train_batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    post = int(cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_POST_MAXSIZE)
+    checked = {(b, n, npoint) for _, b, n, npoint in FPS_SHAPES}
+    for b in (ROUND_EVAL_BATCH, train_batch):  # round 0's and the driver's test batch
+        missing = {(b * post, 512, 128), (b * post, 128, 32)} - checked
+        if missing:
+            fail(f"self_train: the RoI FPS shapes {sorted(missing)} of a B = {b} test batch "
+                 f"are not held against the plain version")
+    stages = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    # round 0: the seed boxes as labels, one epoch, the train split's detections
+    label_dir = root / "intermediate_results/lyft_labels_pp_score_fw70_2m_r0.3_fov"
+    timed("label_files", lambda: generate_label_files.main(
+        pipeline_overrides(root, data_root, f"device={device}")))
+    seed_labels = sum(map(len, label_lines(label_dir, ids).values()))
+    round0 = root / "rounds" / "round_0"
+
+    def make_round0():
+        self_train.make_round_dataset(root, round0, label_dir)
+        create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, round0, round0, if_val=False)
+
+    timed("infos", make_round0)
+    out0 = root / "self_training" / "round_0"
+    counts = reset_fps_counts()
+    state = timed("train", lambda: train_cli.main([
+        "--cfg_file", cfg_file, "--data_path", str(round0), "--batch_size", str(train_batch),
+        "--epochs", str(ROUND_EPOCHS), "--fix_random_seed", "--output_dir", str(out0),
+        "--device", device]))
+    r0_annos, r0_ret = timed("inference", lambda: test_cli.main(
+        round0_test_argv(cfg_file, out0, round0, device)))
+    r0_launches = dict(counts)
+    r0_forwards = len(state.history) + -(-len(ids) // ROUND_EVAL_BATCH)
+    r0_result = out0 / "eval_train_root" / "eval" / f"epoch_{ROUND_EPOCHS}" / "train" / "result.pkl"
+    with open(r0_result, "rb") as f:
+        check_result(np, pickle.load(f), ids, "round 0")
+    check_result(np, r0_annos, ids, "round 0")
+    check_history(np, state.history, "round-0 train")
+
+    # round 1 through the driver, then a second call that must skip it
+    st_out = root / "self_training"
+    st_argv = ["--cfg_file", cfg_file, "--base_data", str(root), "--work_dir", str(root),
+               "--seed_result", str(r0_result), "--max_iter", "1", "--epochs", str(ROUND_EPOCHS),
+               "--output_root", str(st_out), "--rounds_dir", str(root / "rounds"),
+               "--device", device]
+    counts = reset_fps_counts()
+    t0 = time.perf_counter()
+    timings = self_train.main(st_argv)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = dict(counts)
+    forwards = len(ids) // train_batch + -(-len(ids) // train_batch)  # train steps, test batches
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    r1_labels = root / "intermediate_results" / "round_1_labels"
+    r1_result = st_out / "round_1" / "eval_train" / "result.pkl"
+    outputs = [label_dir / f"{i}.txt" for i in ids] + [
+        round0 / "kitti_infos_train.pkl", round0 / "kitti_dbinfos_train.pkl",
+        out0 / "ckpt" / f"checkpoint_epoch_{ROUND_EPOCHS}.pth", r0_result,
+        self_train.token(r1_labels), self_train.token(root / "rounds" / "round_1"),
+        root / "rounds" / "round_1" / "kitti_infos_train.pkl",
+        st_out / "round_1" / "ckpt" / f"checkpoint_epoch_{ROUND_EPOCHS}.pth", r1_result]
+    missing = [str(p) for p in outputs if not p.exists()]
+    if missing:
+        fail(f"self_train: stage outputs missing: {missing}")
+    with open(r1_result, "rb") as f:
+        r1_annos = pickle.load(f)
+    check_result(np, r1_annos, ids, "round 1")
+    fused = label_lines(r1_labels, ids)
+    n_fused = sum(map(len, fused.values()))
+
+    stamps = [os.stat(p).st_mtime_ns for p in outputs[-6:]]
+    counts = reset_fps_counts()
+    again = self_train.main(st_argv)
+    resume_ok = (again == {} and stamps == [os.stat(p).st_mtime_ns for p in outputs[-6:]]
+                 and not any(counts.values()))
+
+    # AP and recall of round 0; the host eval of round 1's detections, timed
+    ap = {k: float(v) for k, v in r0_ret.items() if k.endswith("_R40")}
+    rec = r0_ret["recall"]
+    recall = {k: v / rec["gt"] for k, v in rec.items() if k != "gt"} if rec.get("gt") else {}
+    from modest_tpu_torch.data.kitti_dataset import KittiDataset
+
+    r1_cfg = train_cli.load_model_config(cfg_file)
+    r1_cfg.DATA_CONFIG.DATA_SPLIT["test"] = "train"
+    r1_cfg.DATA_CONFIG.INFO_PATH["test"] = ["kitti_infos_train.pkl"]
+    r1_set = KittiDataset(r1_cfg.DATA_CONFIG, r1_cfg.CLASS_NAMES, training=False,
+                          root_path=root / "rounds" / "round_1")
+    t0 = time.perf_counter()
+    _, r1_ap = r1_set.evaluation(r1_annos, r1_cfg.CLASS_NAMES)
+    eval_host_s = time.perf_counter() - t0
+    row = {"phase": "self_train", "frames": len(ids), "seed_labels": seed_labels,
+           "fused_labels": n_fused, "fused_labels_per_frame": n_fused / len(ids),
+           "round0_stage_s": stages, "round1_stage_s": timings.get("round_1"),
+           "round1_s": round_s, "round0_train_steps": len(state.history),
+           "round0_test_batches": -(-len(ids) // ROUND_EVAL_BATCH),
+           "round0_detections": sum(len(a["score"]) for a in r0_annos),
+           "round1_detections": sum(len(a["score"]) for a in r1_annos),
+           "round0_score_thresh": ROUND0_SCORE_THRESH,
+           "eval_batch": ROUND_EVAL_BATCH, "sec_per_example": r0_ret["sec_per_example"],
+           "eval_scans_per_s": 1.0 / r0_ret["sec_per_example"],
+           "steady_sec_per_example": r0_ret["steady_sec_per_example"],
+           "eval_steady_scans_per_s": 1.0 / r0_ret["steady_sec_per_example"],
+           "evaluation_host_s": eval_host_s, "round0_ap": ap, "round0_recall": recall,
+           "round1_ap": {k: float(v) for k, v in r1_ap.items()},
+           "round1_forwards": forwards, "train_batch": train_batch,
+           "fps_launches_round0": r0_launches, "fps_launches_round1": launches,
+           "fps_launches_resume": dict(counts), "resume_skipped": resume_ok,
+           "combine_frames_per_s": len(ids) / timings["round_1"]["combine"],
+           "peak_mem_gb": peak, "host_library": native.available(), "card": card}
+    emit(row)
+    if not resume_ok:
+        fail(f"self_train: the second call did not skip round 1 whole ({again})")
+    if n_fused < len(ids):
+        fail(f"self_train: {n_fused} fused labels over {len(ids)} frames (< 1 a frame)")
+    finite = [*ap.values(), *recall.values(), *row["round1_ap"].values()]
+    if not ap or not all(np.isfinite(finite)):
+        fail(f"self_train: AP {ap} or recall {recall} not finite")
+    for got, n, where in ((r0_launches, r0_forwards, "round 0"), (launches, forwards, "round 1")):
+        if got != {"fps_cluster_kernel": 3 * n, "fps_warp_kernel": 3 * n}:
+            fail(f"self_train {where}: {n} forwards launched the fps kernels {got} times, "
+                 f"not 3 + 3 each")
+    return launches, forwards, {"annos": r0_annos, "result": r0_result, "out": out0,
+                                "data": round0}
+
+
+def phase_self_train_card_vs_cpu(torch, np, root, data_root, round0, card):
+    """The round on the card against the port's CPU path: one scan's
+    train-split detections (the round-0 checkpoint, the first test batch's
+    first scan) and combine_labels on every frame (the driver's round-1
+    labels against device=cpu)."""
+    from modest_tpu_torch.cli import combine_labels
+    from modest_tpu_torch.cli.common import load_pipeline_config
+    from modest_tpu_torch.cli.train import load_model_config
+    from modest_tpu_torch.data.loader import build_dataloader
+    from modest_tpu_torch.models import api, build_network
+    from modest_tpu_torch.train.checkpoint import CheckpointManager
+    from modest_tpu_torch.train.loop import _trim_predictions
+    from modest_tpu_torch.utils.kitti_io import Calibration, load_velo_scan
+
+    root = Path(root)
+    ids = [f"{g:06d}" for g in origin_ids(root)]
+    r0_annos = round0["annos"]
+    cfg = load_model_config(REPO / FLAGSHIP_CFG)
+    cfg.DATA_CONFIG.DATA_PATH = str(round0["data"])
+    cfg.DATA_CONFIG.DATA_SPLIT["test"] = "train"
+    cfg.DATA_CONFIG.INFO_PATH["test"] = ["kitti_infos_train.pkl"]
+    cfg.MODEL.POST_PROCESSING.SCORE_THRESH = ROUND0_SCORE_THRESH
+    eval_set, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, ROUND_EVAL_BATCH,
+                                        training=False)
+    t0 = time.perf_counter()
+    batch = next(iter(loader))  # the test CLI's first batch: the same seed, the same points
+    batch_s = time.perf_counter() - t0
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device="cpu")
+    CheckpointManager(round0["out"] / "ckpt").restore_model(model)
+    t0 = time.perf_counter()
+    final = api.post_process(api.apply_eval(model, cfg.MODEL,
+                                            torch.from_numpy(batch["points"][:1])), cfg.MODEL)
+    cpu_s = time.perf_counter() - t0
+    one = {k: batch[k][:1] for k in ("frame_id", "calib", "image_shape")}
+    want = eval_set.generate_prediction_dicts(one, _trim_predictions(final), cfg.CLASS_NAMES)[0]
+    got = r0_annos[0]
+    pairs = match_1to1(np, got["boxes_lidar"], got["score"], want["boxes_lidar"], want["score"])
+    bad_yaw = sum(min(d, 2 * np.pi - d) >= 2e-3 for d in (
+        abs(float(got["boxes_lidar"][a, 6]) - float(want["boxes_lidar"][j, 6])) % (2 * np.pi)
+        for a, j in pairs))
+    total = max(len(got["score"]), len(want["score"]))
+    frac = (len(pairs) - bad_yaw) / max(total, 1)
+
+    # combine_labels: the driver's round-1 labels (device=cuda) against device=cpu
+    ov = [f"work_dir={root}", "data_paths=fw70_2m", f"data_root={data_root}", "fov_only=true",
+          f"det_result_path={round0['result']}"]
+    t1 = time.perf_counter()
+    combine_labels.main(ov + [f"save_path={root / 'fused_cpu'}", "device=cpu"])
+    combine_cpu_s = time.perf_counter() - t1
+    card_labels = label_lines(root / "intermediate_results" / "round_1_labels", ids)
+    cpu_labels = label_lines(root / "fused_cpu", ids)
+    fcfg = load_pipeline_config("combine_labels", ov)
+    shell, differ, unexplained = 0, [], []
+    for pos, fid in enumerate(ids):
+        calib = Calibration(str(Path(data_root) / "calib" / f"{fid}.txt"))
+        ptc_rect = calib.project_velo_to_rect(
+            load_velo_scan(Path(data_root) / "velodyne" / f"{fid}.bin")[:, :3])
+        pp = np.load(Path(fcfg.data_paths.pp_score_path) / f"{fid}.npy")
+        with open(Path(fcfg.data_paths.bbox_info_save_dst) / f"{fid}.pkl", "rb") as f:
+            gen = pickle.load(f)
+        n = fusion_shell_pairs(torch, fcfg, r0_annos[pos], gen, ptc_rect, pp)
+        shell += n
+        if card_labels[fid] != cpu_labels[fid]:
+            differ.append(fid)
+            if n == 0:
+                unexplained.append(fid)
+    emit({"phase": "self_train_card_vs_cpu", "frame": got["frame_id"],
+          "card_detections": len(got["score"]), "cpu_detections": len(want["score"]),
+          "matched": len(pairs) - bad_yaw, "match_frac": frac, "cpu_forward_s": cpu_s,
+          "host_batch_s": batch_s, "host_batch_scans": ROUND_EVAL_BATCH,
+          "combine_frames": len(ids), "combine_frames_differ": differ,
+          "combine_iou_shell": NMS_IOU_SHELL, "combine_shell_pairs": shell,
+          "combine_cpu_s": combine_cpu_s, "card": card})
+    if got["frame_id"] != want["frame_id"] or total == 0 or frac < MIN_BOX_MATCH:
+        fail(f"self_train card vs CPU: {len(pairs) - bad_yaw}/{total} boxes of frame "
+             f"{got['frame_id']} match 1:1 (< {MIN_BOX_MATCH})")
+    if unexplained:
+        fail(f"combine_labels card vs CPU: frames {unexplained} differ with no box pair within "
+             f"{NMS_IOU_SHELL} of the NMS threshold")
+
+
 def phase_knn(torch, dev, card):
     """The windowed kNN's path: tools/knn_bench.py at its four shapes, B = 4
     (nearest_k with the dense fallback, the checks, the timed calls)."""
@@ -1327,6 +1656,8 @@ def main() -> int:
         rc_row, rc_state = phase_radius_count(torch, np, dev, data_root, root, card)
         db_rows, tie_row, odd_row = phase_dbscan(torch, np, dev, data_root, root, card)
         phase_pipeline_card_vs_cpu(torch, np, dev, data_root, root, rc_state, card)
+        st_launches, st_forwards, round0 = phase_self_train(torch, np, dev, root, data_root, card)
+        phase_self_train_card_vs_cpu(torch, np, root, data_root, round0, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1337,14 +1668,17 @@ def main() -> int:
     gather_rows = phase_gather_vs_plain(torch, np, dev, card)
 
     fps_kernels = []
-    for kernel, replaces, stages, train_stages in (
+    for kernel, replaces, stages, train_stages, round_stages in (
             ("fps_cluster_kernel", "modest_tpu/ops/pallas_fps.py:146",
              ("backbone_sa1", "backbone_sa2", "backbone_sa3"), ("train_sa1", "train_sa2",
-                                                                 "train_sa3")),
+                                                                 "train_sa3"), ()),
             ("fps_warp_kernel", "modest_tpu/ops/pallas_fps.py:157", FPS_SMALL_STAGES,
-             FPS_TRAIN_SMALL_STAGES)):
+             FPS_TRAIN_SMALL_STAGES, tuple(stage for stage, *_ in FPS_ROUND_SHAPES))):
         path = [fps_rows[stage] for stage in stages]
         train_path = [fps_rows[stage] for stage in train_stages]
+        # round 0 tests at B = 4 (the path's rows), trains as the train rows; round 1
+        # tests at the train batch: the train rows' backbone, the round rows' RoIs
+        round_stages = (*stages, *train_stages, *round_stages)
         fps_kernels.append({
             "name": kernel, "route": "cuda", "source": "modest_tpu_torch/csrc/fps.cu",
             "replaces": replaces, "launches": fps_launches[kernel],
@@ -1366,7 +1700,13 @@ def main() -> int:
             else sum(r["kernel_device_ms"] for r in train_path),
             "train_plain_ms": sum(r["plain_ms"] for r in train_path),
             "train_bound_ms": sum(r["bound_ms"] for r in train_path),
-            "train_shapes": f"sum over {', '.join(train_stages)} of one B=2 train step"})
+            "train_shapes": f"sum over {', '.join(train_stages)} of one B=2 train step",
+            "self_train_launches": st_launches[kernel], "self_train_forwards": st_forwards,
+            "self_train_max_abs_err": max(fps_rows[stage]["max_abs_err"]
+                                          for stage in round_stages),
+            "self_train_stages": list(round_stages),
+            "self_train_shapes": "launches over cli/self_train.py's round 1: the train steps "
+                                 "and the train-split test batches, 3 per forward"})
     emit({"kernels": [*fps_kernels, {
         "name": "radius_count", "route": "cuda", "source": "modest_tpu_torch/csrc/radius_count.cu",
         "replaces": "modest_tpu/ops/pallas_radius_count.py:81",

@@ -9,8 +9,12 @@ use; its plain PyTorch version sits beside it and runs on CPU tensors.
 Ported so far: the PointRCNN eval forward and post-processing
 (``models.build_network``, ``models.api.apply_eval`` / ``post_process``), its
 training (``data``, ``models.api.apply_train`` / ``compute_loss``,
-``train``, ``cli.train``), and the label-free seed path: the PP score
+``train``, ``cli.train``), the label-free seed path: the PP score
 (``pipeline.pp_score``, ``cli.pre_compute_pp_score``) and the seed masks and
 boxes (``pipeline.clustering``, ``pipeline.box_fit``, ``pipeline.seed_labels``,
-``cli.generate_mask``).
+``cli.generate_mask``), and the self-training round: detection eval
+(``eval.kitti_eval``, ``train.loop.eval_one_epoch``, ``cli.test``,
+``cli.evaluate``), label files and fusion (``cli.generate_label_files``,
+``cli.combine_labels``, ``cli.gen_gt_mask``) and the driver
+(``cli.self_train``).
 """

@@ -10,9 +10,10 @@ Runs on the card unless ``--device cpu``; without CUDA the default raises.
 When ``--cfg_file`` names a config that ships as a dict
 (``configs.SHIPPED_MODEL_CONFIGS``) no YAML parser is needed; any other file
 is read with PyYAML. One process on one device: multi-process training
-(``--launcher``, ``--num_devices`` > 1) and the eval after training
-(``--eval_after_train``, the detection-eval slice) are not ported and raise.
-A run resumes from the newest checkpoint in its output directory.
+(``--launcher``, ``--num_devices`` > 1) is not ported and raises. A run
+resumes from the newest checkpoint in its output directory;
+``--eval_after_train`` then evaluates the trained weights on the test split
+(``eval/epoch_<E>/val/result.pkl``), as ``cli/test.py`` does.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from ..configs import SHIPPED_MODEL_CONFIGS
 from ..data.loader import build_dataloader
 from ..models import build_network
 from ..train.checkpoint import CheckpointManager, load_params_partial
-from ..train.loop import train_model
+from ..train.loop import eval_one_epoch, train_model
 from ..train.metrics import MetricsLogger
 from ..train.state import create_train_state
 from ..utils.config import Config, cfg_from_list, cfg_from_yaml_file
@@ -92,7 +93,7 @@ def parse_config(argv=None):
     parser.add_argument("--output_dir", type=str, default=None)
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--eval_after_train", action="store_true",
-                        help="not ported (the detection-eval slice)")
+                        help="evaluate on the test split after training")
     parser.add_argument("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
 
@@ -113,9 +114,6 @@ def main(argv=None, stage_times: bool = False):
     if args.launcher != "none" or (args.num_devices or 1) > 1:
         raise NotImplementedError("modest_tpu_torch trains in one process on one device; "
                                   "multi-process training is not ported")
-    if args.eval_after_train:
-        raise NotImplementedError("--eval_after_train: the detection eval (eval_one_epoch, "
-                                  "cli/test.py) is the next slice of the port")
     device = resolve_device(args.device)
     if args.fix_random_seed:
         np.random.seed(666)
@@ -165,6 +163,17 @@ def main(argv=None, stage_times: bool = False):
     if manager.latest_epoch() != epochs:  # the interval saves may already cover it
         manager.save(state, epochs)
     logger.info("training finished")
+
+    if args.eval_after_train:
+        eval_set, eval_loader = build_dataloader(
+            cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size, training=False, logger=logger,
+            max_gt=args.max_gt, num_workers=args.workers)
+        try:
+            eval_one_epoch(model, cfg.MODEL, eval_loader, eval_set, cfg.CLASS_NAMES,
+                           device=device, result_dir=out_root / "eval" / f"epoch_{epochs}" / "val",
+                           logger=logger)
+        finally:
+            eval_loader.close()
     return dataclasses.replace(state, start_epoch=start_epoch, history=history)
 
 

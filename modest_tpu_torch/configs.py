@@ -267,4 +267,37 @@ PIPELINE_DATA_PATHS = {
         "nusc_bbox_pp_score_fw_30_r0.3/", "nusc_labels_pp_score_fw_30_r0.3_fov/"),
 }
 
-PIPELINE_CONFIGS = {"pp_score": PIPELINE_PP_SCORE, "generate_mask": PIPELINE_GENERATE_MASK}
+PIPELINE_GENERATE_LABEL_FILES = {
+    "data_paths": "fw70_2m",
+    "work_dir": ".",
+    "total_part": 1,
+    "part": 0,
+    "data_root": "???",
+    "calib_path": "${data_root}/calib",
+    "ptc_path": "${data_root}/velodyne",
+    "image_shape": [1024, 1224],
+    "fov_only": True,
+    "nms": {"enable": True, "threshold": 0.1},
+}
+
+PIPELINE_COMBINE_LABELS = {
+    "data_paths": "fw70_2m",
+    "work_dir": ".",
+    "total_part": 1,
+    "part": 0,
+    "data_root": "???",
+    "calib_path": "${data_root}/calib",
+    "ptc_path": "${data_root}/velodyne",
+    "det_result_path": None,
+    "save_path": None,
+    "image_shape": [1024, 1224],
+    "fov_only": True,
+    "det_filtering": {"pp_score_percentile": 50, "pp_score_threshold": 0.5,
+                      "score_filtering": -1},
+    "nms": {"enable": True, "threshold": 0.1},
+    "with_score": False,
+}
+
+PIPELINE_CONFIGS = {"pp_score": PIPELINE_PP_SCORE, "generate_mask": PIPELINE_GENERATE_MASK,
+                    "generate_label_files": PIPELINE_GENERATE_LABEL_FILES,
+                    "combine_labels": PIPELINE_COMBINE_LABELS}

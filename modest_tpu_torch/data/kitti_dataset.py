@@ -3,9 +3,10 @@ samples — port of ``modest_tpu/data/kitti_dataset.py`` (reference
 pcdet/datasets/kitti/kitti_dataset.py + dataset.py).
 
 Host-side numpy; every sample has a fixed shape after the sample_points
-processor, so batches stack into dense (B, N, 4) tensors. The detection
-eval's pieces (``generate_prediction_dicts``, ``evaluation``) and the camera
-models' items (images, depth maps) are not ported yet.
+processor, so batches stack into dense (B, N, 4) tensors. Predictions become
+KITTI annos of numpy arrays (``generate_prediction_dicts``), so a
+``result.pkl`` of either package reads in the other. The camera models'
+items (images, depth maps) are not ported.
 """
 from __future__ import annotations
 
@@ -310,6 +311,71 @@ class KittiDataset:
             data_dict.pop("calib", None)
         data_dict.pop("road_plane", None)
         return data_dict
+
+    # --- predictions & evaluation -----------------------------------------
+    @staticmethod
+    def generate_prediction_dicts(batch_dict, pred_dicts, class_names, output_path=None):
+        """Predictions → KITTI annos (reference kitti_dataset.py:316-393).
+
+        pred_dicts entries: pred_boxes (K, 7), pred_scores (K,), pred_labels
+        (K,) numpy, already trimmed to the valid rows."""
+        annos = []
+        for index, box_dict in enumerate(pred_dicts):
+            frame_id = batch_dict["frame_id"][index]
+            calib = batch_dict["calib"][index]
+            image_shape = batch_dict["image_shape"][index]
+            pred_boxes = np.asarray(box_dict["pred_boxes"]).reshape(-1, 7)
+            pred_scores = np.asarray(box_dict["pred_scores"]).reshape(-1)
+            pred_labels = np.asarray(box_dict["pred_labels"]).reshape(-1).astype(int)
+            n = pred_boxes.shape[0]
+            single = {
+                "name": np.zeros(n, dtype="<U32"),
+                "truncated": np.zeros(n),
+                "occluded": np.zeros(n),
+                "alpha": np.zeros(n),
+                "bbox": np.zeros((n, 4)),
+                "dimensions": np.zeros((n, 3)),
+                "location": np.zeros((n, 3)),
+                "rotation_y": np.zeros(n),
+                "score": np.zeros(n),
+                "boxes_lidar": pred_boxes,
+                "frame_id": frame_id,
+            }
+            if n > 0:
+                cam = box_np.boxes3d_lidar_to_kitti_camera(pred_boxes, calib)
+                img = box_np.boxes3d_kitti_camera_to_imageboxes(cam, calib, image_shape)
+                single["name"] = np.array(class_names)[pred_labels - 1]
+                single["alpha"] = -np.arctan2(-pred_boxes[:, 1], pred_boxes[:, 0]) + cam[:, 6]
+                single["bbox"] = img
+                single["dimensions"] = cam[:, 3:6]
+                single["location"] = cam[:, 0:3]
+                single["rotation_y"] = cam[:, 6]
+                single["score"] = pred_scores
+            annos.append(single)
+            if output_path is not None:
+                with open(Path(output_path) / f"{frame_id}.txt", "w") as f:
+                    for k in range(n):
+                        bbox, loc, dims = (single["bbox"][k], single["location"][k],
+                                           single["dimensions"][k])
+                        print(f"{single['name'][k]} -1 -1 {single['alpha'][k]:.4f} "
+                              f"{bbox[0]:.4f} {bbox[1]:.4f} {bbox[2]:.4f} {bbox[3]:.4f} "
+                              f"{dims[1]:.4f} {dims[2]:.4f} {dims[0]:.4f} "
+                              f"{loc[0]:.4f} {loc[1]:.4f} {loc[2]:.4f} "
+                              f"{single['rotation_y'][k]:.4f} {single['score'][k]:.4f}", file=f)
+        return annos
+
+    def evaluation(self, det_annos, class_names, range_eval=True, ranges=(0, 30, 50, 80)):
+        """(result text, AP dict) of ``det_annos`` against this split's gt
+        annos; (None, {}) when the infos hold no labels."""
+        if not self.kitti_infos or "annos" not in self.kitti_infos[0]:
+            return None, {}
+        from ..eval import kitti_eval
+
+        eval_det = copy.deepcopy(det_annos)
+        eval_gt = [copy.deepcopy(info["annos"]) for info in self.kitti_infos]
+        if range_eval:
+            return kitti_eval.get_range_eval_result(eval_gt, eval_det, class_names, ranges=ranges)
+        return kitti_eval.get_official_eval_result(eval_gt, eval_det, class_names)
 
 
 def create_kitti_infos(dataset_cfg, class_names, data_path, save_path, if_val=True):

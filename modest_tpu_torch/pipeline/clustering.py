@@ -225,3 +225,45 @@ def dbscan_pp_many(frames, *, n_neighbors: int = 70, radius: float = 2.0, eps: f
         raw, core = raw.cpu().numpy(), core.cpu().numpy()
     return [_dbscan_post(raw[i, :ns[i]], preps[i][0], ns[i], core[i, :ns[i]])
             for i in range(len(frames))]
+
+
+def smooth_pp_score(ptc: np.ndarray, pp_score: np.ndarray, *, neighbor_type: str = "knn",
+                    n_neighbors: int = 50, radius: float = 1.0, num_iterations: int = 10,
+                    row_chunk: int = 1024, device="cuda") -> np.ndarray:
+    """Graph-smooth a PP score field (reference clustering_utils.smoothing:63-93,
+    dormant there): Gaussian edge weights exp(-d²/2) over the kNN graph,
+    row-normalised, iterated ``num_iterations`` times on ``device``.
+
+    ``radius`` mode keeps the k nearest within the radius (k = n_neighbors
+    cap), as the JAX package does, not the reference's unbounded radius
+    graph. A point with no kept neighbour keeps its own score.
+    """
+    dev = resolve_device(device)
+    n = ptc.shape[0]
+    if n == 0:
+        return pp_score.copy()
+    if neighbor_type not in ("knn", "radius"):
+        raise NotImplementedError(neighbor_type)
+    n_pad = _bucket(n, row_chunk)
+    x = np.full((n_pad, 3), 1e6, np.float32)
+    x[:n] = ptc[:, :3]
+    x[n:, 0] += np.arange(n_pad - n, dtype=np.float32) * max(4.0, 2.1 * radius)
+    p = np.zeros(n_pad, np.float32)
+    p[:n] = pp_score
+    valid = np.zeros(n_pad, bool)
+    valid[:n] = True
+    k = min(n_neighbors, max(n - 1, 1))
+    valid_t = torch.from_numpy(valid).to(dev)
+    idx, d2 = _knn(torch.from_numpy(x)[None].to(dev), valid_t[None], k, row_chunk=row_chunk)
+    idx, d2 = idx[0].long(), d2[0]
+    keep = torch.isfinite(d2)
+    if neighbor_type == "radius":
+        keep = keep & (d2 <= radius * radius)
+    w = torch.where(keep, torch.exp(-d2 / 2.0), 0.0)
+    wsum = w.sum(dim=1, keepdim=True)
+    w = w / torch.clamp_min(wsum, 1e-30)
+    has_nbr = valid_t & (wsum[:, 0] > 0)
+    cur = torch.from_numpy(p).to(dev)
+    for _ in range(num_iterations):
+        cur = torch.where(has_nbr, (w * cur[idx]).sum(dim=1), cur)
+    return cur[:n].cpu().numpy().astype(pp_score.dtype)

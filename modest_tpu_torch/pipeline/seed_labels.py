@@ -1,16 +1,23 @@
-"""Seed-label generation: PP-gated clustering → per-point seed masks and boxes.
+"""Seed labels: PP-gated clustering → per-point seed masks and boxes, then
+KITTI label files and the self-training label fusion.
 
-Port of the seed-mask half of ``modest_tpu/pipeline/seed_labels.py``
-(``generate_mask_for_frame(s)`` and its filters). Per frame: the
+Port of ``modest_tpu/pipeline/seed_labels.py``. Per frame: the
 above-ground ∧ in-range mask (RANSAC ground plane), DBSCAN over the PP-gated
 mutual-kNN graph on the device, the cluster validity filters, then one box
-per surviving cluster, volume-filtered. Label files, NMS and label fusion
-belong to the next slice.
+per surviving cluster, volume-filtered. Label files: BEV NMS over a frame's
+boxes on the device (``ops/iou3d.py::nms_bev``), a camera-FOV filter and
+KITTI label lines; fusion PP-filters a detector's boxes and merges them with
+the seed boxes.
 """
 from __future__ import annotations
 
-import numpy as np
+import types
 
+import numpy as np
+import torch
+
+from ..ops.iou3d import nms_bev
+from ..utils import kitti_io
 from ..utils.device import StageTimer, resolve_device, stage
 from .box_fit import fit_objs_batched, fit_objs_grouped
 from .clustering import dbscan_pp, dbscan_pp_many
@@ -155,3 +162,142 @@ def generate_masks_for_frames(frames, calibs, cfg, device="cuda",
                       for (ptc, _), lb, calib in zip(frames, labels_list, calibs)]
         fits = fit_objs_grouped(fit_groups, fit_method=cfg.bbox_gen.fit_method, device=dev)
         return [_finish_frame(lb, f, cfg) for lb, f in zip(labels_list, fits)]
+
+
+# ---------------------------------------------------------------------------
+# NMS over objs + KITTI label writing (reference pointcloud_utils.py:320-379)
+# ---------------------------------------------------------------------------
+
+
+def objs_to_bev_boxes(objs) -> np.ndarray:
+    """objs (camera frame) → (N, 7) lidar-layout boxes for BEV IoU:
+    (t_x, t_z, 0, l, w, h, -ry) — BEV overlap only sees the (x, z) footprint
+    and the yaw's sign flip."""
+    return np.array(
+        [[o.t[0], o.t[2], 0.0, o.l, o.w, o.h, -o.ry] for o in objs], dtype=np.float32
+    ).reshape(-1, 7)
+
+
+def objs_nms(objs, use_score_rank=False, nms_threshold=0.1, device="cuda"):
+    """Greedy BEV NMS over a frame's objects on ``device``; the kept objects
+    in their original order.
+
+    Rank: detection score, or BEV area (the reference ranks by the diagonal
+    of the IoU matrix — self-IoU ≈ 1 for every box, i.e. fp noise; the
+    intended area ranking is used here, reference pointcloud_utils.py:335).
+    """
+    if len(objs) == 0:
+        return objs
+    dev = resolve_device(device)
+    boxes = objs_to_bev_boxes(objs)
+    if use_score_rank:
+        scores = np.array([o.score for o in objs], np.float32)
+    else:
+        scores = (boxes[:, 3] * boxes[:, 4]).astype(np.float32)
+    keep_idx, keep_mask = nms_bev(torch.from_numpy(boxes)[None].to(dev),
+                                  torch.from_numpy(scores)[None].to(dev), nms_threshold,
+                                  max_keep=len(objs))
+    keep = sorted(keep_idx[0][keep_mask[0]].tolist())
+    return [objs[i] for i in keep]
+
+
+def is_within_fov(obj, calib, image_shape) -> bool:
+    center = np.array(obj.t, dtype=np.float64).copy()
+    center[1] -= obj.h / 2
+    uv = calib.project_rect_to_image(center.reshape(1, -1)).squeeze()
+    return bool(
+        0 <= uv[0] < image_shape[1] and 0 <= uv[1] < image_shape[0] and center[2] > 0
+    )
+
+
+def objs2label(objs, calib, obj_type="Dynamic", with_score=False) -> str:
+    lines = []
+    for obj in objs:
+        alpha = -np.arctan2(obj.t[0], obj.t[2]) + obj.ry
+        corners_2d = kitti_io.compute_box_3d(obj, calib.P)[0]
+        min_uv = corners_2d.min(axis=0)
+        max_uv = corners_2d.max(axis=0)
+        score = getattr(obj, "score", -1)
+        line = (
+            f"{obj_type} -1 -1 {alpha:.4f} "
+            f"{min_uv[0]:.4f} {min_uv[1]:.4f} {max_uv[0]:.4f} {max_uv[1]:.4f} "
+            f"{obj.h:.4f} {obj.w:.4f} {obj.l:.4f} "
+            f"{obj.t[0]:.4f} {obj.t[1]:.4f} {obj.t[2]:.4f} {obj.ry:.4f}"
+        )
+        if with_score:
+            line += f" {score:.4f}"
+        lines.append(line)
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# self-training label fusion (reference combine_labels.py:23-60)
+# ---------------------------------------------------------------------------
+
+
+def predicts2objs(preds: dict) -> list:
+    objs = []
+    for i in range(preds["location"].shape[0]):
+        o = types.SimpleNamespace()
+        o.t = preds["location"][i]
+        o.l = preds["dimensions"][i][0]
+        o.h = preds["dimensions"][i][1]
+        o.w = preds["dimensions"][i][2]
+        o.ry = preds["rotation_y"][i]
+        o.score = preds["score"][i]
+        objs.append(o)
+    return objs
+
+
+def add_area_score(objs):
+    for o in objs:
+        o.score = -999 + o.w * o.l
+
+
+def points_in_camera_box(ptc_rect, obj) -> np.ndarray:
+    """bool mask of rect-coordinate points inside a label box (bottom-centre t)."""
+    shifted = ptc_rect[:, [0, 2]] - np.asarray(obj.t)[[0, 2]]
+    c, s = np.cos(obj.ry), np.sin(obj.ry)
+    u = shifted[:, 0] * c - shifted[:, 1] * s
+    v = shifted[:, 0] * s + shifted[:, 1] * c
+    return ((u > -obj.l / 2) & (u < obj.l / 2) & (v > -obj.w / 2) & (v < obj.w / 2)
+            & (ptc_rect[:, 1] > obj.t[1] - obj.h) & (ptc_rect[:, 1] <= obj.t[1]))
+
+
+def filter_by_ppscore(ptc_rect, pp_score, obj, percentile=50, threshold=0.5) -> bool:
+    """Keep a detection iff its in-box PP percentile is low (ephemeral)."""
+    mask = points_in_camera_box(ptc_rect, obj)
+    if mask.sum() == 0 or np.percentile(pp_score[mask], percentile) > threshold:
+        return False
+    return True
+
+
+def fusion_candidates(det_preds: dict, gen_objs: list, ptc_rect, pp_score, cfg) -> list:
+    """The boxes a frame's fusion ranks: the detections whose in-box PP is
+    low and whose score passes ``det_filtering``, then the seed boxes scored
+    by area below every detection."""
+    det_objs = [
+        o
+        for o in predicts2objs(det_preds)
+        if filter_by_ppscore(
+            ptc_rect, pp_score, o,
+            percentile=cfg.det_filtering.pp_score_percentile,
+            threshold=cfg.det_filtering.pp_score_threshold,
+        )
+        and o.score > cfg.det_filtering.score_filtering
+    ]
+    add_area_score(gen_objs)
+    return det_objs + gen_objs
+
+
+def combine_labels_for_frame(det_preds: dict, gen_objs: list, ptc_rect, pp_score, calib, cfg,
+                             device="cuda"):
+    """One frame of the self-training fusion: ``fusion_candidates``, a
+    score-ranked NMS on ``device``, the optional FOV filter."""
+    objs = fusion_candidates(det_preds, gen_objs, ptc_rect, pp_score, cfg)
+    if len(objs) > 0:
+        objs = objs_nms(objs, nms_threshold=cfg.nms.threshold, use_score_rank=True,
+                        device=device)
+    if cfg.fov_only:
+        objs = [o for o in objs if is_within_fov(o, calib, cfg.image_shape)]
+    return objs

@@ -7,7 +7,11 @@ wall, 89600 points per frame. ``write_dataset`` lays frames out in the KITTI
 multi-traversal format the pipeline CLIs read (``velodyne``, ``oxts``,
 ``l2e``, ``calib``, and the track list / valid-index pickles and the index
 list under ``meta_data/lyft`` with the ``fw70_2m`` names), so
-``work_dir=<root> data_root=<root>/training`` runs both CLIs on it.
+``work_dir=<root> data_root=<root>/training`` runs the pipeline CLIs on it.
+It also writes what a detector's dataset reads beside the labels: an
+``image_2`` PNG header of the pipeline configs' image size, a road plane
+under the ground, and ``ImageSets/train.txt`` listing the origin frames, so
+the same root serves as a self-training round's base dataset.
 """
 from __future__ import annotations
 
@@ -17,16 +21,19 @@ from pathlib import Path
 
 import numpy as np
 
-from ..utils.kitti_io import save_velo_scan
+from ..utils.kitti_io import save_plane, save_velo_scan
+from .synth_kitti import write_png_header
 
 P2 = np.array([[700.0, 0, 600, 0], [0, 700.0, 200, 0], [0, 0, 1.0, 0]])
 V2C = np.array([[0.0, -1, 0, 0], [0, 0, -1, 0], [1.0, 0, 0, 0]])
+IMG_SHAPE = (1024, 1224)  # H, W: image_shape of configs/pipeline/*.yaml
+GROUND_Z = -1.8  # lidar z of synth_frame's ground
 
 
 def synth_frame(rng, n_ground=60000, n_objects=12, n_wall=20000) -> np.ndarray:
     """(n_ground + 800·n_objects + n_wall, 3) float32 velodyne points."""
     pts = [np.stack([rng.uniform(0, 90, n_ground), rng.uniform(-40, 40, n_ground),
-                     rng.normal(-1.8, 0.03, n_ground)], 1)]
+                     rng.normal(GROUND_Z, 0.03, n_ground)], 1)]
     for _ in range(n_objects):
         c = rng.uniform([5, -30, -1.6], [70, 30, -1.2])
         pts.append(c + rng.uniform(-1, 1, (800, 3)) * [2.2, 1.0, 0.75])
@@ -46,11 +53,11 @@ def write_dataset(root, frames, track_list, valid_idx, poses=None) -> tuple[Path
     dataset under ``root``. ``track_list``: global ids per sequence;
     ``valid_idx``: {origin id: (origin seq, origin frame, [(seq, frame
     indices), ...])}; ``poses``: {global id: oxts line "x y z rx ry rz"},
-    identity where missing. The index list holds the origin ids. Returns
-    (root, data_root)."""
+    identity where missing. The index list and ``ImageSets/train.txt`` hold
+    the origin ids. Returns (root, data_root)."""
     root = Path(root)
     data_root = root / "training"
-    for sub in ("velodyne", "oxts", "l2e", "calib"):
+    for sub in ("velodyne", "oxts", "l2e", "calib", "image_2", "planes"):
         os.makedirs(data_root / sub, exist_ok=True)
     meta = root / "meta_data" / "lyft"
     os.makedirs(meta, exist_ok=True)
@@ -62,11 +69,16 @@ def write_dataset(root, frames, track_list, valid_idx, poses=None) -> tuple[Path
                                                            + "\n")
         np.save(data_root / "l2e" / f"{gid:06d}.npy", np.eye(4, dtype=np.float32))
         write_calib(data_root / "calib" / f"{gid:06d}.txt")
+        write_png_header(data_root / "image_2" / f"{gid:06d}.png", *IMG_SHAPE)
+        # the road plane in rect coordinates, -y + d = 0 with y down: d = -GROUND_Z
+        save_plane(data_root / "planes" / f"{gid:06d}.txt", np.array([0.0, -1.0, 0.0, -GROUND_Z]))
     with open(meta / "fw70_2m_train_track_list.pkl", "wb") as f:
         pickle.dump(track_list, f)
     with open(meta / "fw70_2m_valid_train_idx_info.pkl", "wb") as f:
         pickle.dump(valid_idx, f)
     (meta / "fw70_2m_train_idx.txt").write_text("".join(f"{i}\n" for i in valid_idx))
+    os.makedirs(root / "ImageSets", exist_ok=True)
+    (root / "ImageSets" / "train.txt").write_text("".join(f"{i:06d}\n" for i in valid_idx))
     return root, data_root
 
 

@@ -44,15 +44,26 @@ class CheckpointManager:
             self.path(old).unlink()
         return path
 
+    def _load(self, epoch: int | None):
+        epoch = self.latest_epoch() if epoch is None else epoch
+        return None if epoch is None else torch.load(self.path(epoch), map_location="cpu")
+
     def restore(self, state, epoch: int | None = None) -> int | None:
         """Load ``epoch`` (the latest when None) into ``state``; returns the
         epoch, or None when the directory holds no checkpoint."""
-        epoch = self.latest_epoch() if epoch is None else epoch
-        if epoch is None:
+        payload = self._load(epoch)
+        if payload is None:
             return None
-        payload = torch.load(self.path(epoch), map_location="cpu")
         state.model.load_state_dict(payload["model_state"])
         state.optimizer.load_state_dict(payload["optimizer_state"])
+        return int(payload["epoch"])
+
+    def restore_model(self, model, epoch: int | None = None) -> int | None:
+        """``restore`` of the weights alone, for evaluation."""
+        payload = self._load(epoch)
+        if payload is None:
+            return None
+        model.load_state_dict(payload["model_state"])
         return int(payload["epoch"])
 
 

@@ -74,6 +74,10 @@ def get_lib():
         lib.mh_bev_overlap.argtypes = [c.c_void_p, c.c_int64, c.c_void_p, c.c_int64, c.c_void_p]
         lib.mh_bev_iou.restype = None
         lib.mh_bev_iou.argtypes = [c.c_void_p, c.c_int64, c.c_void_p, c.c_int64, c.c_void_p]
+        lib.mh_match_stats.restype = None
+        lib.mh_match_stats.argtypes = [c.c_void_p, c.c_int64, c.c_int64, c.c_void_p, c.c_void_p,
+                                       c.c_void_p, c.c_double, c.c_void_p, c.c_int64,
+                                       c.c_void_p]
         _lib = lib
         return _lib
 
@@ -156,3 +160,24 @@ def bev_iou(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
 def bev_overlap(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
     """(N, M) rotated BEV intersection areas on the host."""
     return _bev_pairs("mh_bev_overlap", "boxes_overlap_bev", boxes_a, boxes_b)
+
+
+def match_stats(overlaps, scores, ignored_gt, ignored_det, min_overlap, thresholds):
+    """Per-threshold (tp, fp, fn), (T, 3) int64, of the KITTI eval's greedy
+    matcher on one frame (no DontCare boxes), or None without the library:
+    the caller then runs ``eval/kitti_eval.py::compute_statistics``."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    ov = np.ascontiguousarray(overlaps, np.float64)
+    sc = np.ascontiguousarray(scores, np.float64)
+    ig = np.ascontiguousarray(ignored_gt, np.int64)
+    idt = np.ascontiguousarray(ignored_det, np.int64)
+    th = np.ascontiguousarray(thresholds, np.float64)
+    if ov.size != len(sc) * len(ig) or len(idt) != len(sc):
+        raise ValueError(f"match_stats: overlaps {ov.shape} for {len(sc)} detections "
+                         f"({len(idt)} flags) and {len(ig)} gt boxes")
+    out = np.zeros((len(th), 3), np.int64)
+    lib.mh_match_stats(_ptr(ov), len(sc), len(ig), _ptr(sc), _ptr(ig), _ptr(idt),
+                       float(min_overlap), _ptr(th), len(th), _ptr(out))
+    return out

@@ -142,3 +142,19 @@ def test_save_config_reads_back_through_the_yaml_loaders(tmp_path):
     save_config(Config(POINTRCNN_DYNAMIC_OBJ_FULL), tmp_path / "cfg.yaml")
     assert _same(cfg_from_yaml_file(tmp_path / "cfg.yaml").to_dict(), POINTRCNN_DYNAMIC_OBJ_FULL)
     assert _same(j_cfg_from_yaml_file(tmp_path / "cfg.yaml").to_dict(), POINTRCNN_DYNAMIC_OBJ_FULL)
+
+
+@pytest.mark.parametrize("name", ["generate_label_files", "combine_labels"])
+def test_label_pipeline_dicts_equal_the_yaml(name):
+    """The label-file and fusion configs ship as dicts equal to their YAML
+    and load through cli/common.py as the JAX CLIs load them."""
+    from modest_tpu.cli.common import load_pipeline_config as j_load_pipeline_config
+    from modest_tpu.utils.config import cfg_from_yaml_file as j_cfg_from_yaml_file
+    from modest_tpu_torch.cli.common import load_pipeline_config
+    from modest_tpu_torch.configs import PIPELINE_CONFIGS
+
+    assert PIPELINE_CONFIGS[name] == j_cfg_from_yaml_file(
+        f"configs/pipeline/{name}.yaml").to_dict()
+    overrides = ["work_dir=/w", "data_root=/d", "nms.threshold=0.2", "fov_only=false"]
+    assert _same(load_pipeline_config(name, overrides).to_dict(),
+                 j_load_pipeline_config(name, overrides).to_dict())

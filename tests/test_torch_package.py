@@ -108,6 +108,32 @@ def test_importing_the_port_loads_no_missing_package():
     assert out.stdout.split() == ["[]"]
 
 
+ROUND_MODULES = ["eval/kitti_eval.py", "cli/test.py", "cli/evaluate.py",
+                 "cli/generate_label_files.py", "cli/combine_labels.py", "cli/gen_gt_mask.py",
+                 "cli/self_train.py"]
+
+
+def test_the_round_modules_are_held_to_the_rules():
+    """The self-training round's modules are among those the import scans
+    above read, and its entry points load their configs without PyYAML or
+    JAX: the two label configs and the shipped flagship file."""
+    scanned = {str(p.relative_to(REPO)) for p in (REPO / "modest_tpu_torch").rglob("*.py")}
+    assert {f"modest_tpu_torch/{m}" for m in ROUND_MODULES} <= scanned
+    code = ("import sys\n"
+            "from modest_tpu_torch.cli import (combine_labels, evaluate, gen_gt_mask,\n"
+            "    generate_label_files, self_train, test)\n"
+            "from modest_tpu_torch.cli.common import load_pipeline_config\n"
+            "from modest_tpu_torch.cli.train import load_model_config\n"
+            "for n in ('generate_label_files', 'combine_labels'):\n"
+            "    load_pipeline_config(n, ['data_root=/d'])\n"
+            "load_model_config('configs/models/lyft_models/pointrcnn_dynamic_obj.yaml')\n"
+            "print([m for m in ('jax', 'flax', 'yaml', 'PIL', 'tensorboard') if m in sys.modules])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["[]"]
+
+
 def test_seeded_init_and_pcdet_state_dict_keys():
     a = build_network(Config(POINTRCNN_DYNAMIC_OBJ), 1, device="cpu", seed=5).state_dict()
     b = build_network(Config(POINTRCNN_DYNAMIC_OBJ), 1, device="cpu", seed=5).state_dict()

@@ -1,10 +1,11 @@
 """The port's train CLI on tests/synth_kitti.py data with the tiny config on
 the CPU: a run writes checkpoints and metrics, a second run resumes from
-them, a pcdet-keyed .pth loads as a pretrained model, and what is not
-ported (multi-process, the eval after training) or not present (CUDA)
+them, a pcdet-keyed .pth loads as a pretrained model, --eval_after_train
+evaluates, and what is not ported (multi-process) or not present (CUDA)
 raises."""
 import copy
 import json
+import pickle
 import subprocess
 import sys
 from pathlib import Path
@@ -111,8 +112,19 @@ def test_pretrained_pcdet_pth_loads_by_key(tiny_env, tmp_path):
     assert state.step == 2
 
 
+def test_eval_after_train_evaluates(tiny_env, tmp_path):
+    """--eval_after_train evaluates the trained weights on the val split:
+    result.pkl under eval/epoch_<E>/val with every val frame once."""
+    root, cfg_file = tiny_env
+    state = run(cfg_file, tmp_path, 1, "--eval_after_train")
+    assert state.step == 2
+    with open(tmp_path / "eval" / "epoch_1" / "val" / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    assert [a["frame_id"] for a in annos] == ["000004"]
+    assert {"boxes_lidar", "score", "location"} <= set(annos[0])
+
+
 @pytest.mark.parametrize("extra,match", [
-    (["--eval_after_train"], "next slice"),
     (["--launcher", "slurm"], "one process"),
     (["--num_devices", "2"], "one process"),
 ])
