@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six paths, each at full size from fixed seeds:
+Seven paths, each at full size from fixed seeds:
 
 * the flagship detector's eval forward plus post-processing (PointRCNN,
   configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
@@ -19,10 +19,16 @@ Six paths, each at full size from fixed seeds:
 * one self-training round on that dataset's 16 origin scans, through the
   CLIs at the flagship's full width: the seed boxes as label files
   (generate_label_files), a round-0 dataset with its infos and gt
-  database, one epoch of cli/train.py, cli/test.py on the train split at
+  database, one epoch of cli/train.py (its one-cycle at the rate the
+  config's first epoch reaches), cli/test.py on the train split at
   B = 4 (the round-0 result.pkl), then cli/self_train.py for round 1
   (combine_labels, the round dataset, infos, one epoch, train-split
   inference) and once more, when it must skip the finished round;
+* the grid detectors PointPillars and SECOND
+  (configs/models/lyft_models/{pointpillar,second}_dynamic_obj.yaml) at
+  full width: their eval forward plus post-processing at B = 4 on the
+  training set's scans sampled to 65536 points, and cli/train.py for 16
+  steps each with a resume;
 * the windowed kNN (nearest_k) at the flagship backbone's four kNN shapes,
   B = 4, through modest_tpu_torch/tools/knn_bench.py;
 * the label-table gathers (take, take_along_axis) at the DBSCAN gather
@@ -40,7 +46,13 @@ Phases, each printing one JSON line:
 3. run the forward + post_process on 4 synthetic scans (the bench.py scene
    recipe) and check the output, the FPS launch count and the stage times;
 4. compare the card's final boxes on one scan with the port's own CPU
-   forward (>= 98% must match 1:1);
+   forward (>= 98% must match 1:1), and the forward stage by stage with
+   the card's decisions handed to the CPU (forward_chain: point and RCNN
+   logits and boxes within the matcher's limits plus 1e-4 of their
+   magnitude, the proposal layer's RoIs and
+   the final NMS's boxes 1:1 >= 98% on the card's inputs); the end-to-end
+   match may fall below 98% only where a device's own top-k or NMS
+   decision kept another box;
 4a. training: write the training set and its infos and gt database
    (train_dataset); run the train CLI for 2 epochs (train: every step's
    losses finite, 3 + 3 FPS launches a step, scans/s after the first two
@@ -50,6 +62,16 @@ Phases, each printing one JSON line:
    (train_overfit); one step's point-head losses and backbone and
    point-head gradients on the card must equal the CPU path's within the
    stated tolerances, and >= 98% of its sampled RoIs (train_card_vs_cpu);
+4b. grid detectors, each of PointPillars and SECOND: the forward +
+   post_process (grid_forward: scans/s over 8 batches after a warm-up,
+   stage ms by CUDA events, peak memory, kept boxes, and SECOND's kept
+   voxels, dropped points and active sites per sparse stage), card vs CPU
+   with the same weights (grid_card_vs_cpu: one scan's detections 1:1
+   >= 98%, the batch's voxel or pillar keys, coords and flags bit-equal,
+   one train-mode forward's losses within 1e-3), and cli/train.py for the
+   first 4 epochs of the config's schedule, 16 steps at B = 4 (grid_train:
+   finite losses, scans/s after two steps, stage split, peak memory), then
+   a resume from the epoch-3 checkpoint (grid_train_resume);
 5. run the PP-score CLI on the card: origins/s, radius-count launches per
    origin, stage split, peak memory; the scores must be finite and rank the
    ephemeral clusters below the ground;
@@ -75,7 +97,9 @@ Phases, each printing one JSON line:
    seconds of the AP evaluation, combine_labels frames/s, each stage's
    wall time, peak memory; the second driver call skips the round. Card
    vs CPU (self_train_card_vs_cpu): one scan's detections from the
-   round-0 checkpoint 1:1 (>= 98%), and combine_labels' label text equal
+   round-0 checkpoint 1:1 (>= 98%) and its forward_chain, as in 4 (after
+   8 steps the scores are all but tied, so the NMS keeps whichever box its
+   device's rounding ranks first), and combine_labels' label text equal
    on every frame except where a box pair's BEV IoU lies within 1e-5 of
    the NMS threshold (such pairs are counted);
 9. run tools/knn_bench.py: per shape the certificate, the slot match
@@ -203,6 +227,12 @@ MIN_SLOT_MATCH_PCT = 99.9
 # NMS threshold
 ROUND_EPOCHS = 1
 ROUND_EVAL_BATCH = 4
+# round 0's cli/train.py runs its one-cycle at the highest rate the first of
+# the config's 60 epochs reaches: at the config's 0.01 squeezed into 8 steps,
+# half of the trainings on an H100 drove the point logits below -20 or to NaN
+# (tools/train_probe.py det_gap --lr 0.01), the fault ROADMAP.md Queue 3
+# records; round 1, through cli/self_train.py, keeps the config's rate
+ROUND_LR = 1.04e-3
 # after its 8 steps the round-0 detector scores its boxes below the config's
 # SCORE_THRESH of 0.1 (PR 8 run 1: no detection on the first scan, no RCNN
 # recall, no detection among the fused labels), so its
@@ -210,7 +240,30 @@ ROUND_EVAL_BATCH = 4
 # and the card-vs-CPU checks detections; round 1 keeps the config's threshold
 ROUND0_SCORE_THRESH = 0.0
 MIN_BOX_MATCH = 0.98
+# match_1to1's limits: box centres, sizes (and match_finals' yaw), scores
+MATCH_CENTER, MATCH_SIZE, MATCH_SCORE = 1e-2, 2e-3, 5e-4
+# PointRCNN card vs CPU with the card's decisions handed to the CPU
+# (forward_chain): a stage's logits and box parameters may part by
+# MATCH_SCORE and MATCH_SIZE plus this share of their magnitude
+FORWARD_RTOL = 1e-4
 NMS_IOU_SHELL = 1e-5
+# grid detectors: the two Lyft configs (shipped as dicts) at full width on the
+# training set's scans sampled to 65536 points, B = 4; a GRID_EPOCHS-epoch
+# schedule (16 steps) whose one-cycle peaks at GRID_LR, then a resume for the
+# last epoch. GRID_LR is the highest rate the first 4 epochs of the config's
+# 60-epoch schedule reach: at the config's 0.003 squeezed into 16 steps,
+# SECOND's logits passed -88.72 at step 12 and the focal loss's gradient went
+# NaN, the fault ROADMAP.md Queue 3 records for both packages. The random
+# head scores an empty BEV cell (the same logit on thousands of anchors, whose
+# order among ties is arbitrary on either device) at GRID_EMPTY_LOGIT, below
+# SCORE_THRESH's logit (0.1 → -2.197)
+GRID_CFGS = {"pointpillar": "configs/models/lyft_models/pointpillar_dynamic_obj.yaml",
+             "second": "configs/models/lyft_models/second_dynamic_obj.yaml"}
+GRID_BATCH = 4
+GRID_EPOCHS = 4
+GRID_LR = 4.8e-4
+GRID_TIMED_ITERS = 8
+GRID_EMPTY_LOGIT = -3.0
 
 
 def emit(obj) -> None:
@@ -416,7 +469,8 @@ def match_1to1(np, boxes, scores, rb, rs):
     for j in range(len(rb)):
         d = np.linalg.norm(boxes[:, :3] - rb[j, :3], axis=1)
         ds = np.abs(boxes[:, 3:6] - rb[j, 3:6]).max(axis=1)
-        cand = np.flatnonzero((d < 1e-2) & (ds < 2e-3) & (np.abs(scores - rs[j]) < 5e-4) & ~used)
+        cand = np.flatnonzero((d < MATCH_CENTER) & (ds < MATCH_SIZE)
+                              & (np.abs(scores - rs[j]) < MATCH_SCORE) & ~used)
         if len(cand):
             used[cand[0]] = True
             pairs.append((int(cand[0]), j))
@@ -426,12 +480,21 @@ def match_1to1(np, boxes, scores, rb, rs):
 def phase_card_vs_cpu(torch, np, api, build_network, model, cfg, scenes, card):
     cpu_model = build_network(cfg, model.num_class, device="cpu")
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    scan = torch.from_numpy(scenes[:1])
     t0 = time.perf_counter()
-    want = run_path(api, cpu_model, cfg, scan)
+    chain, got, want = forward_chain(torch, np, model, cpu_model, cfg,
+                                     torch.from_numpy(scenes[:1]))
     cpu_s = time.perf_counter() - t0
-    got = run_path(api, model, cfg, scan.to(next(model.parameters()).device))
+    match = match_finals(np, got, want)
+    emit({"phase": "card_vs_cpu", "points": N_POINTS, **match, **chain,
+          "chain_s": cpu_s, "card": card})
+    check_chain(chain, match["match_frac"], match["card_detections"] + match["cpu_detections"],
+                "card vs CPU")
 
+
+def match_finals(np, got, want) -> dict:
+    """Scan 0's final boxes of two post_process outputs, matched 1:1 with
+    ``match_1to1``; a pair whose yaw differs by 2e-3 or more, or whose label
+    differs, does not count."""
     def valid(final):
         v = final["valid"][0].cpu().numpy()
         return (final["boxes"][0].cpu().numpy()[v], final["scores"][0].cpu().numpy()[v],
@@ -440,17 +503,95 @@ def phase_card_vs_cpu(torch, np, api, build_network, model, cfg, scenes, card):
     gb, gs, gl = valid(got)
     wb, ws, wl = valid(want)
     pairs = match_1to1(np, gb, gs, wb, ws)
-    bad_yaw_or_label = 0
+    bad = 0
     for a, j in pairs:
         dyaw = abs(float(gb[a, 6]) - float(wb[j, 6])) % (2 * np.pi)
-        bad_yaw_or_label += int(min(dyaw, 2 * np.pi - dyaw) >= 2e-3 or gl[a] != wl[j])
+        bad += int(min(dyaw, 2 * np.pi - dyaw) >= MATCH_SIZE or gl[a] != wl[j])
     total = max(len(gb), len(wb))
-    frac = (len(pairs) - bad_yaw_or_label) / max(total, 1)
-    emit({"phase": "card_vs_cpu", "points": N_POINTS, "card_detections": len(gb),
-          "cpu_detections": len(wb), "matched": len(pairs) - bad_yaw_or_label,
-          "match_frac": frac, "cpu_forward_s": cpu_s, "card": card})
-    if total == 0 or frac < 0.98:
-        fail(f"card vs CPU: {len(pairs) - bad_yaw_or_label}/{total} final boxes match (< 98%)")
+    return {"card_detections": len(gb), "cpu_detections": len(wb), "matched": len(pairs) - bad,
+            "match_frac": (len(pairs) - bad) / max(total, 1)}
+
+
+def match_rois(np, got, want) -> float:
+    """1:1 share (``match_1to1``) of two forwards' valid RoIs of scan 0."""
+    def valid(out):
+        v = out["roi_valid"][0].cpu()
+        return out["rois"][0].cpu()[v].numpy(), out["roi_scores"][0].cpu()[v].numpy()
+
+    gb, gs = valid(got)
+    wb, ws = valid(want)
+    return len(match_1to1(np, gb, gs, wb, ws)) / max(len(gb), len(wb), 1)
+
+
+def forward_chain(torch, np, card_model, cpu_model, model_cfg, scan):
+    """PointRCNN's eval forward on ``scan`` (1, N, C) on the card and on the
+    CPU, and stage by stage with the card's decisions handed to the CPU:
+    the point logits and decoded boxes (``point_tol_used``: the largest
+    |card - CPU| over its limit, MATCH_SCORE or MATCH_SIZE + FORWARD_RTOL *
+    |CPU|); the CPU's proposal layer on the card's point outputs against the
+    card's RoIs (``proposals_given_card_points``, 1:1); the CPU's RoI pooling
+    and head on the card's RoIs against the card's RCNN logits and boxes
+    (``rcnn_tol_used``); the CPU's post-processing of the card's RCNN outputs
+    against the card's final boxes (``finals_given_card_rcnn``, 1:1). So
+    each decision (the top-k cut, both NMS) meets the same inputs on both
+    devices. Left to decide on its own values, each device may keep another
+    box where a decision's alternatives lie closer than the two devices'
+    rounding: after a few training steps the scores are all but tied.
+    ``proposals_card_vs_cpu`` and ``finals_given_card_rois`` say whether
+    that happened. Returns (row, card's final boxes, CPU's), on the CPU."""
+    from unittest import mock
+
+    from modest_tpu_torch.models import api, pointrcnn
+    from modest_tpu_torch.models.roi_head import proposal_layer
+
+    def used(got, want, keys):
+        return max(float(((got[k] - want[k]).abs() / (atol + FORWARD_RTOL * want[k].abs())).max())
+                   for k, atol in zip(keys, (MATCH_SCORE, MATCH_SIZE)))
+
+    dev = next(card_model.parameters()).device
+    out = api.apply_eval(card_model, model_cfg, scan.to(dev))
+    got = {k: v.cpu() for k, v in api.post_process(out, model_cfg).items() if v is not None}
+    card = {k: v.cpu() for k, v in out.items()}
+    cpu = api.apply_eval(cpu_model, model_cfg, scan)
+    want = api.post_process(cpu, model_cfg)
+    nms = model_cfg.ROI_HEAD.NMS_CONFIG.TEST
+    rois, roi_scores, _, roi_valid = proposal_layer(
+        card["point_boxes_decoded"], card["point_cls_preds"], nms_pre=int(nms.NMS_PRE_MAXSIZE),
+        nms_post=int(nms.NMS_POST_MAXSIZE), nms_thresh=float(nms.NMS_THRESH))
+    forced = tuple(card[k] for k in ("rois", "roi_scores", "roi_labels", "roi_valid"))
+    with mock.patch.object(pointrcnn, "proposal_layer", lambda *a, **k: forced):
+        given = api.apply_eval(cpu_model, model_cfg, scan)
+    row = {
+        "point_tol_used": used(card, cpu, ("point_cls_preds", "point_boxes_decoded")),
+        "proposals_given_card_points": match_rois(
+            np, card, {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid}),
+        "rcnn_tol_used": used(card, given, ("batch_cls_preds", "batch_box_preds")),
+        "finals_given_card_rcnn": match_finals(np, got, api.post_process(card, model_cfg))[
+            "match_frac"],
+        "proposals_card_vs_cpu": match_rois(np, card, cpu),
+        "finals_given_card_rois": match_finals(np, got, api.post_process(given, model_cfg))[
+            "match_frac"]}
+    return row, got, want
+
+
+def check_chain(chain, match_frac, detections, where, parted=False):
+    """Fails unless every stage of ``forward_chain`` agrees and the
+    end-to-end detections match 1:1 (>= MIN_BOX_MATCH), or part only where
+    a device's own decision kept another RoI or another final box
+    (``parted`` adds another such decision the caller saw)."""
+    if detections == 0:
+        fail(f"{where}: no detection on either device")
+    bad = {k: chain[k] for k in ("point_tol_used", "rcnn_tol_used") if not chain[k] <= 1.0}
+    bad.update({k: chain[k] for k in ("proposals_given_card_points", "finals_given_card_rcnn")
+                if chain[k] < MIN_BOX_MATCH})
+    if bad:
+        fail(f"{where}: with the card's decisions the CPU parts from the card: {bad} "
+             f"(limits 1 and {MIN_BOX_MATCH})")
+    parted = (parted or chain["proposals_card_vs_cpu"] < 1.0
+              or chain["finals_given_card_rois"] < 1.0)
+    if match_frac < MIN_BOX_MATCH and not parted:
+        fail(f"{where}: {match_frac:.4f} of the final boxes match 1:1 (< {MIN_BOX_MATCH}), yet "
+             "each device's decisions kept the same RoIs and final boxes")
 
 
 def reset_fps_counts():
@@ -643,6 +784,246 @@ def phase_train_card_vs_cpu(torch, np, dev, root, card):
     if r["sampled_roi_match"] < MIN_ROI_MATCH:
         fail(f"train card vs CPU: {r['sampled_roi_match']:.4f} of the sampled RoIs agree "
              f"(< {MIN_ROI_MATCH})")
+
+
+def grid_config(name, root):
+    """A grid model's shipped config on the synthetic set, its test split the
+    training scans (no augmentation, 65536 points a scan)."""
+    from modest_tpu_torch.cli.train import load_model_config
+
+    cfg = load_model_config(REPO / GRID_CFGS[name])
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    cfg.DATA_CONFIG.DATA_SPLIT.test = "train"
+    cfg.DATA_CONFIG.INFO_PATH.test = ["kitti_infos_train.pkl"]
+    return cfg
+
+
+def grid_batch(torch, cfg, dev):
+    """The dataset and its first B = 4 test-mode batch on ``dev``."""
+    from modest_tpu_torch.data.loader import batch_to_device, build_dataloader
+
+    ds, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, GRID_BATCH, training=False)
+    try:
+        batch = next(iter(loader))
+    finally:
+        loader.close()
+    return ds, batch_to_device(batch, dev)
+
+
+def calibrate_grid_model(torch, api, model, cfg, batch):
+    """Random weights made to score like a detector: every batch norm's
+    running statistics from one train-mode pass over ``batch`` (momentum 1),
+    then the class head's bias moved so that an empty BEV cell (a scene with
+    no point in range) scores GRID_EMPTY_LOGIT per anchor channel."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    momenta = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    with torch.no_grad():
+        api.apply_train(model, cfg, batch["points"], batch["gt_boxes"])
+    for m, momentum in zip(bns, momenta):
+        m.momentum = momentum
+    empty = torch.full_like(batch["points"][:1], -1e4)
+    head = model.dense_head.conv_cls
+    logits = api.apply_eval(model, cfg, empty)["cls_preds"][0].reshape(-1, head.out_channels)
+    with torch.no_grad():
+        head.bias -= logits.median(dim=0).values - GRID_EMPTY_LOGIT
+    model.eval()
+
+
+def phase_grid_forward(torch, np, api, build_network, name, cfg, ds, batch, card):
+    """Eval forward + post-process of one grid model at full width, B = 4:
+    scans/s over GRID_TIMED_ITERS batches after a warm-up, stage ms by CUDA
+    events, peak memory, kept boxes, and SECOND's voxel counts per scan."""
+    from modest_tpu_torch.models.grid_detectors import MAX_VOXELS
+    from modest_tpu_torch.models.voxelize import voxel_counts
+
+    dev = batch["points"].device
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=0, dataset=ds)
+    calibrate_grid_model(torch, api, model, cfg.MODEL, batch)
+    points = batch["points"]
+    final = run_path(api, model, cfg.MODEL, points)
+    torch.cuda.synchronize()
+    detections = check_final(torch, final, GRID_BATCH, f"{name} forward on the card")
+
+    events = []
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((stage, ev))
+
+    stage_ms = {stage: 0.0 for stage in (*model.stages, "post_nms")}
+    forward_ms = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRID_TIMED_ITERS):
+        t_it = time.perf_counter()
+        events.clear()
+        mark("start")
+        final = run_path(api, model, cfg.MODEL, points, on_stage=mark)
+        mark("post_nms")
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t_it) * 1e3)
+        for (_, a), (stage, b) in zip(events, events[1:]):
+            stage_ms[stage] += a.elapsed_time(b) / GRID_TIMED_ITERS
+    wall = time.perf_counter() - t0
+    forward_ms.sort()
+    check_final(torch, final, GRID_BATCH, f"{name} timed forward on the card")
+    row = {"phase": "grid_forward", "model": name, "batch": GRID_BATCH,
+           "points_per_scan": int(points.shape[1]), "grid_size": [int(v) for v in ds.grid_size],
+           "anchors": int(model.anchors.shape[0]), "detections": detections,
+           "kept_per_scan": final["valid"].sum(1).tolist(),
+           "stage_ms": stage_ms, "forward_ms_median": forward_ms[len(forward_ms) // 2],
+           "forward_ms_max": forward_ms[-1], "timed_forwards": GRID_TIMED_ITERS,
+           "scans_per_s": GRID_BATCH * GRID_TIMED_ITERS / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "card": card}
+    if name == "second":
+        in_range, occupied, kept, dropped = voxel_counts(
+            points, model.point_cloud_range, model.voxel_size, model.grid_size,
+            MAX_VOXELS)
+        model.backbone_3d.record_active = True
+        run_path(api, model, cfg.MODEL, points)
+        model.backbone_3d.record_active = False
+        row.update(max_voxels=MAX_VOXELS, points_in_range=in_range.tolist(),
+                   occupied_voxels=occupied.tolist(), kept_voxels=kept.tolist(),
+                   dropped_points=dropped.tolist(),
+                   active_sites={k: v.tolist()
+                                 for k, v in model.backbone_3d.active_counts.items()})
+    emit(row)
+    return model
+
+
+def phase_grid_card_vs_cpu(torch, np, api, build_network, name, cfg, ds, model, batch, card):
+    """The same weights on the card and on the CPU: one scan's detections
+    1:1 (>= MIN_BOX_MATCH), the batch's voxel (pillar) keys, coords and
+    validity bit-equal, and one train-mode forward's losses on that scan
+    within TRAIN_LOSS_RTOL."""
+    from modest_tpu_torch.models.grid_detectors import MAX_VOXELS
+    from modest_tpu_torch.models.voxelize import pillar_stats, point_voxel_coords, voxelize_sparse
+
+    cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device="cpu", dataset=ds)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    cpu_model.load_state_dict(state)
+    scan = batch["points"][:1]
+    t0 = time.perf_counter()
+    want = run_path(api, cpu_model, cfg.MODEL, scan.cpu())
+    cpu_s = time.perf_counter() - t0
+    match = match_finals(np, run_path(api, model, cfg.MODEL, scan), want)
+
+    def voxels(points):
+        """(keys, coords, flags) and the mean features of SECOND's voxels or
+        the pillars, on the CPU."""
+        coords, inside = point_voxel_coords(points, model.point_cloud_range, model.voxel_size,
+                                            model.grid_size)
+        if name == "second":
+            vc, vf, vv, vk = voxelize_sparse(points, inside, coords, MAX_VOXELS,
+                                             *model.grid_size)
+            return [vk.cpu(), vc.cpu(), vv.cpu()], vf.cpu()
+        _, mean, key = pillar_stats(points, inside, coords[..., :2], *model.grid_size[:2])
+        return [key.cpu(), coords.cpu(), inside.cpu()], mean.cpu()
+
+    card_keys, card_feats = voxels(batch["points"])
+    cpu_keys, cpu_feats = voxels(batch["points"].cpu())
+    key_mismatch = sum(int((a != b).sum()) for a, b in zip(card_keys, cpu_keys))
+    feat_err = float((card_feats - cpu_feats).abs().max())
+
+    losses = {}
+    for where, m in (("card", model), ("cpu", cpu_model)):
+        m.load_state_dict({k: v.to(next(m.parameters()).device) for k, v in state.items()})
+        dev = next(m.parameters()).device
+        out = api.apply_train(m, cfg.MODEL, scan.to(dev), batch["gt_boxes"][:1].to(dev))
+        _, metrics = api.compute_loss(out, None, cfg.MODEL, len(cfg.CLASS_NAMES))
+        losses[where] = {k: v.item() for k, v in metrics.items()}
+        m.eval()
+    loss_err = {k: abs(losses["card"][k] - losses["cpu"][k]) / max(abs(losses["cpu"][k]), 1e-12)
+                for k in losses["cpu"]}
+    emit({"phase": "grid_card_vs_cpu", "model": name, **match, "key_mismatches": key_mismatch,
+          "voxel_feature_max_abs_err": feat_err,
+          "card_losses": losses["card"], "cpu_losses": losses["cpu"],
+          "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL, "cpu_forward_s": cpu_s,
+          "card": card})
+    if match["card_detections"] + match["cpu_detections"] == 0 \
+            or match["match_frac"] < MIN_BOX_MATCH:
+        fail(f"{name} card vs CPU: {match['matched']} final boxes match (< {MIN_BOX_MATCH})")
+    if key_mismatch:
+        fail(f"{name} card vs CPU: {key_mismatch} voxel keys, coords or flags differ")
+    if max(loss_err.values()) > TRAIN_LOSS_RTOL:
+        fail(f"{name} card vs CPU: train losses {loss_err}")
+
+
+def phase_grid_train(torch, np, dev, root, name, card):
+    """cli/train.py on one grid config at full width, B = 4: GRID_EPOCHS
+    epochs (16 steps) at a peak rate of GRID_LR, then a resume from the
+    last-but-one epoch's checkpoint."""
+    from modest_tpu_torch.cli import train as train_cli
+
+    def argv(out):
+        return ["--cfg_file", str(REPO / GRID_CFGS[name]), "--data_path", str(root),
+                "--batch_size", str(GRID_BATCH), "--epochs", str(GRID_EPOCHS),
+                "--fix_random_seed", "--output_dir", str(out),
+                "--set", "OPTIMIZATION.LR", str(GRID_LR)]
+
+    out = root / f"grid_{name}"
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train_cli.main(argv(out), stage_times=True)
+    seconds = time.perf_counter() - t0
+    hist = state.history
+    per_epoch = TRAIN_SCANS // GRID_BATCH
+    if len(hist) != per_epoch * GRID_EPOCHS:
+        fail(f"{name} train: {len(hist)} steps")
+    check_history(np, hist, f"{name} train")
+    timed = hist[2:]
+    stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
+    emit({"phase": "grid_train", "model": name, "batch": GRID_BATCH, "steps": len(hist),
+          "epochs": GRID_EPOCHS, "last_lr": state.optimizer.current_lr(),
+          "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
+          "scans_per_s": GRID_BATCH * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"]),
+          "timed_steps": len(timed),
+          "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[1]["end_s"]) / len(timed),
+          "data_wait_ms": sum(r["data_wait_ms"] for r in timed) / len(timed),
+          "forward_ms": sum(stage_ms[k] for k in state.model.stages), "stage_ms": stage_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "cli_seconds": seconds,
+          "card": card})
+
+    resumed_out = root / f"grid_{name}_resumed"
+    (resumed_out / "ckpt").mkdir(parents=True)
+    shutil.copy(out / "ckpt" / f"checkpoint_epoch_{GRID_EPOCHS - 1}.pth", resumed_out / "ckpt")
+    torch.cuda.reset_peak_memory_stats(dev)
+    resumed = train_cli.main(argv(resumed_out))
+    first = resumed.history[0]
+    check_history(np, resumed.history, f"{name} resumed train")
+    emit({"phase": "grid_train_resume", "model": name, "start_epoch": resumed.start_epoch,
+          "first_epoch": first["epoch"], "first_step": first["step"],
+          "steps": len(resumed.history),
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "card": card})
+    if (resumed.start_epoch, first["epoch"], first["step"], len(resumed.history)) != (
+            GRID_EPOCHS - 1, GRID_EPOCHS - 1, per_epoch * (GRID_EPOCHS - 1), per_epoch):
+        fail(f"{name} resume from epoch {GRID_EPOCHS - 1} restarted at epoch {first['epoch']}, "
+             f"step {first['step']}")
+
+
+def phase_grid(torch, np, api, build_network, dev, root, card):
+    """PointPillars and SECOND: forward, card vs CPU, training. Their path
+    runs no hand kernel (the JAX package runs it outside Pallas): the FPS
+    counts, set to 0 before it, must read 0 after it."""
+    counts = reset_fps_counts()
+    t0 = time.perf_counter()
+    for name in GRID_CFGS:
+        cfg = grid_config(name, root)
+        ds, batch = grid_batch(torch, cfg, dev)
+        model = phase_grid_forward(torch, np, api, build_network, name, cfg, ds, batch, card)
+        phase_grid_card_vs_cpu(torch, np, api, build_network, name, cfg, ds, model, batch, card)
+        del model
+        torch.cuda.empty_cache()
+        phase_grid_train(torch, np, dev, root, name, card)
+        torch.cuda.empty_cache()
+    emit({"phase": "grid_kernels", "fps_kernel_launches": dict(counts),
+          "seconds": time.perf_counter() - t0, "card": card})
+    if any(counts.values()):
+        fail(f"the grid detectors launched hand kernels {dict(counts)}")
 
 
 def build_kernels(card):
@@ -1148,8 +1529,9 @@ def phase_self_train(torch, np, dev, root, data_root, card):
     """One self-training round at the flagship's full width through the CLIs,
     on the pipeline dataset's origin frames: the seed boxes as label files
     (generate_label_files), a round-0 dataset with its infos and gt
-    database, one epoch of cli/train.py and cli/test.py on the train split
-    at B = 4 (the round-0 result.pkl); then cli/self_train.py --max_iter 1
+    database, one epoch of cli/train.py (at ROUND_LR) and cli/test.py on
+    the train split at B = 4 (the round-0 result.pkl); then
+    cli/self_train.py --max_iter 1
     (combine, round dataset, infos, train, train-split inference), and a
     second call that must skip the finished round. Returns the FPS launches
     of the driver's round, and of the forwards it made."""
@@ -1188,7 +1570,7 @@ def phase_self_train(torch, np, dev, root, data_root, card):
         stages[name] = time.perf_counter() - t0
         return out
 
-    # round 0: the seed boxes as labels, one epoch, the train split's detections
+    # round 0: the seed boxes as labels, one epoch at ROUND_LR, the train split's detections
     label_dir = root / "intermediate_results/lyft_labels_pp_score_fw70_2m_r0.3_fov"
     timed("label_files", lambda: generate_label_files.main(
         pipeline_overrides(root, data_root, f"device={device}")))
@@ -1205,7 +1587,7 @@ def phase_self_train(torch, np, dev, root, data_root, card):
     state = timed("train", lambda: train_cli.main([
         "--cfg_file", cfg_file, "--data_path", str(round0), "--batch_size", str(train_batch),
         "--epochs", str(ROUND_EPOCHS), "--fix_random_seed", "--output_dir", str(out0),
-        "--device", device]))
+        "--device", device, "--set", "OPTIMIZATION.LR", str(ROUND_LR)]))
     r0_annos, r0_ret = timed("inference", lambda: test_cli.main(
         round0_test_argv(cfg_file, out0, round0, device)))
     r0_launches = dict(counts)
@@ -1311,7 +1693,7 @@ def phase_self_train_card_vs_cpu(torch, np, root, data_root, round0, card):
     from modest_tpu_torch.cli.common import load_pipeline_config
     from modest_tpu_torch.cli.train import load_model_config
     from modest_tpu_torch.data.loader import build_dataloader
-    from modest_tpu_torch.models import api, build_network
+    from modest_tpu_torch.models import build_network
     from modest_tpu_torch.train.checkpoint import CheckpointManager
     from modest_tpu_torch.train.loop import _trim_predictions
     from modest_tpu_torch.utils.kitti_io import Calibration, load_velo_scan
@@ -1329,21 +1711,32 @@ def phase_self_train_card_vs_cpu(torch, np, root, data_root, round0, card):
     t0 = time.perf_counter()
     batch = next(iter(loader))  # the test CLI's first batch: the same seed, the same points
     batch_s = time.perf_counter() - t0
-    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device="cpu")
-    CheckpointManager(round0["out"] / "ckpt").restore_model(model)
+    models = {}
+    for where in ("cpu", "cuda"):
+        models[where] = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=where)
+        CheckpointManager(round0["out"] / "ckpt").restore_model(models[where])
     t0 = time.perf_counter()
-    final = api.post_process(api.apply_eval(model, cfg.MODEL,
-                                            torch.from_numpy(batch["points"][:1])), cfg.MODEL)
-    cpu_s = time.perf_counter() - t0
+    chain, card_final, final = forward_chain(torch, np, models["cuda"], models["cpu"], cfg.MODEL,
+                                             torch.from_numpy(batch["points"][:1]))
+    chain_s = time.perf_counter() - t0
     one = {k: batch[k][:1] for k in ("frame_id", "calib", "image_shape")}
-    want = eval_set.generate_prediction_dicts(one, _trim_predictions(final), cfg.CLASS_NAMES)[0]
+
+    def annos(fin):
+        return eval_set.generate_prediction_dicts(one, _trim_predictions(fin), cfg.CLASS_NAMES)[0]
+
+    def match(got, want):
+        pairs = match_1to1(np, got["boxes_lidar"], got["score"], want["boxes_lidar"],
+                           want["score"])
+        bad_yaw = sum(min(d, 2 * np.pi - d) >= 2e-3 for d in (
+            abs(float(got["boxes_lidar"][a, 6]) - float(want["boxes_lidar"][j, 6]))
+            % (2 * np.pi) for a, j in pairs))
+        return len(pairs) - bad_yaw, max(len(got["score"]), len(want["score"]))
+
+    want = annos(final)
     got = r0_annos[0]
-    pairs = match_1to1(np, got["boxes_lidar"], got["score"], want["boxes_lidar"], want["score"])
-    bad_yaw = sum(min(d, 2 * np.pi - d) >= 2e-3 for d in (
-        abs(float(got["boxes_lidar"][a, 6]) - float(want["boxes_lidar"][j, 6])) % (2 * np.pi)
-        for a, j in pairs))
-    total = max(len(got["score"]), len(want["score"]))
-    frac = (len(pairs) - bad_yaw) / max(total, 1)
+    matched, total = match(got, want)
+    frac = matched / max(total, 1)
+    rerun, rerun_total = match(got, annos(card_final))  # the CLI's boxes, the chain's card run
 
     # combine_labels: the driver's round-1 labels (device=cuda) against device=cpu
     ov = [f"work_dir={root}", "data_paths=fw70_2m", f"data_root={data_root}", "fov_only=true",
@@ -1370,14 +1763,16 @@ def phase_self_train_card_vs_cpu(torch, np, root, data_root, round0, card):
                 unexplained.append(fid)
     emit({"phase": "self_train_card_vs_cpu", "frame": got["frame_id"],
           "card_detections": len(got["score"]), "cpu_detections": len(want["score"]),
-          "matched": len(pairs) - bad_yaw, "match_frac": frac, "cpu_forward_s": cpu_s,
+          "matched": matched, "match_frac": frac, **chain,
+          "cli_vs_card_forward": rerun / max(rerun_total, 1), "chain_s": chain_s,
           "host_batch_s": batch_s, "host_batch_scans": ROUND_EVAL_BATCH,
           "combine_frames": len(ids), "combine_frames_differ": differ,
           "combine_iou_shell": NMS_IOU_SHELL, "combine_shell_pairs": shell,
           "combine_cpu_s": combine_cpu_s, "card": card})
-    if got["frame_id"] != want["frame_id"] or total == 0 or frac < MIN_BOX_MATCH:
-        fail(f"self_train card vs CPU: {len(pairs) - bad_yaw}/{total} boxes of frame "
-             f"{got['frame_id']} match 1:1 (< {MIN_BOX_MATCH})")
+    if got["frame_id"] != want["frame_id"]:
+        fail(f"self_train card vs CPU: frame {got['frame_id']} against {want['frame_id']}")
+    check_chain(chain, frac, total, f"self_train card vs CPU, frame {got['frame_id']} "
+                f"({matched}/{total} boxes 1:1)", parted=rerun < rerun_total)
     if unexplained:
         fail(f"combine_labels card vs CPU: frames {unexplained} differ with no box pair within "
              f"{NMS_IOU_SHELL} of the NMS threshold")
@@ -1639,6 +2034,7 @@ def main() -> int:
         train_launches, train_steps = phase_train(torch, np, dev, tmp, card)
         phase_train_overfit(torch, np, dev, tmp, card)
         phase_train_card_vs_cpu(torch, np, dev, tmp, card)
+        phase_grid(torch, np, api, build_network, dev, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()

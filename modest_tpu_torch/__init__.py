@@ -16,5 +16,7 @@ boxes (``pipeline.clustering``, ``pipeline.box_fit``, ``pipeline.seed_labels``,
 (``eval.kitti_eval``, ``train.loop.eval_one_epoch``, ``cli.test``,
 ``cli.evaluate``), label files and fusion (``cli.generate_label_files``,
 ``cli.combine_labels``, ``cli.gen_gt_mask``) and the driver
-(``cli.self_train``).
+(``cli.self_train``); and the grid detectors PointPillars and SECOND
+(``models.voxelize``, ``models.sparse_conv``, ``models.grid_detectors``),
+which train, test and self-train through the same entry points.
 """

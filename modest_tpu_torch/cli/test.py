@@ -80,7 +80,8 @@ def main(argv=None):
     batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     eval_set, eval_loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
                                              training=False, num_workers=args.workers)
-    model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), device=device)
+    model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), device=device,
+                          dataset=eval_set)
     split = cfg.DATA_CONFIG.DATA_SPLIT["test"]
 
     def eval_epoch(epoch):

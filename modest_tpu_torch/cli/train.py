@@ -7,7 +7,9 @@ Usage:
       [--merge_all_iters_to_one_epoch] [--output_dir DIR] [--set KEY VALUE ...]
 
 Runs on the card unless ``--device cpu``; without CUDA the default raises.
-When ``--cfg_file`` names a config that ships as a dict
+PointRCNN, PointPillars and SECOND train (``pointrcnn_dynamic_obj.yaml``,
+``pointpillar_dynamic_obj.yaml``, ``second_dynamic_obj.yaml`` of
+``configs/models/lyft_models/``). When ``--cfg_file`` names a config that ships as a dict
 (``configs.SHIPPED_MODEL_CONFIGS``) no YAML parser is needed; any other file
 is read with PyYAML. One process on one device: multi-process training
 (``--launcher``, ``--num_devices`` > 1) is not ported and raises. A run
@@ -135,7 +137,8 @@ def main(argv=None, stage_times: bool = False):
     total_steps = (len(train_loader) if args.merge_all_iters_to_one_epoch
                    else len(train_loader) * epochs)
 
-    model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), device=device)
+    model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), device=device,
+                          dataset=train_set)
     state = create_train_state(model, cfg.OPTIMIZATION, total_steps,
                                iters_per_epoch=len(train_loader))
     n_params = sum(p.numel() for p in model.parameters())

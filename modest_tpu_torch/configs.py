@@ -6,7 +6,8 @@ detector, 12288-point Lyft scans); ``POINTRCNN_DYNAMIC_OBJ_FULL`` is the
 whole file (``CLASS_NAMES``, ``DATA_CONFIG`` with its ``_BASE_CONFIG_``
 ``configs/datasets/lyft_dataset_dynamic_obj.yaml`` merged in, ``MODEL``,
 ``OPTIMIZATION``), which ``cli/train.py`` takes when ``--cfg_file`` names
-that file. ``PIPELINE_*`` are
+that file. ``POINTPILLAR_DYNAMIC_OBJ(_FULL)`` and ``SECOND_DYNAMIC_OBJ(_FULL)``
+are the grid detectors' files of the same directory, in the same forms. ``PIPELINE_*`` are
 ``configs/pipeline/{pp_score,generate_mask}.yaml`` and the
 ``data_paths/{fw70_2m,nusc}.yaml`` group, each exactly as PyYAML parses it;
 tests hold them equal.
@@ -189,9 +190,134 @@ POINTRCNN_DYNAMIC_OBJ_FULL = {
     "OPTIMIZATION": POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION,
 }
 
+
+# ---------------------------------------------------------------------------
+# The grid detectors: configs/models/lyft_models/{pointpillar,second}_dynamic_obj.yaml,
+# each whole with the same dataset base merged in. Both sample 65536 points
+# a scan for the on-device voxelizer and record the voxel grid.
+# ---------------------------------------------------------------------------
+
+GRID_NUM_POINTS = 65536
+
+
+def _grid_data_config(point_cloud_range, voxel_size, max_points_per_voxel: int,
+                      limit_whole_scene: bool):
+    import copy
+
+    data = copy.deepcopy(POINTRCNN_DYNAMIC_OBJ_DATA_CONFIG)
+    data["POINT_CLOUD_RANGE"] = point_cloud_range
+    data["DATA_AUGMENTOR"]["AUG_CONFIG_LIST"][0]["LIMIT_WHOLE_SCENE"] = limit_whole_scene
+    data["DATA_PROCESSOR"] = [
+        {"NAME": "mask_points_and_boxes_outside_range", "REMOVE_OUTSIDE_BOXES": True},
+        {"NAME": "sample_points", "NUM_POINTS": {"train": GRID_NUM_POINTS,
+                                                 "test": GRID_NUM_POINTS}},
+        {"NAME": "shuffle_points", "SHUFFLE_ENABLED": {"train": True, "test": False}},
+        {"NAME": "transform_points_to_voxels", "VOXEL_SIZE": voxel_size,
+         "MAX_POINTS_PER_VOXEL": max_points_per_voxel,
+         "MAX_NUMBER_OF_VOXELS": {"train": 16000, "test": 40000}},
+    ]
+    return data
+
+
+def _grid_model_config(name: str, feature_map_stride: int, **parts):
+    anchor = {
+        "class_name": "Dynamic",
+        "anchor_sizes": [[2.0, 1.0, 1.7]],
+        "anchor_rotations": [0, 1.57],
+        "anchor_bottom_heights": [-1.6],
+        "align_center": False,
+        "feature_map_stride": feature_map_stride,
+        "matched_threshold": 0.5,
+        "unmatched_threshold": 0.35,
+    }
+    return {
+        "NAME": name,
+        **parts,
+        "DENSE_HEAD": {
+            "NAME": "AnchorHeadSingle",
+            "CLASS_AGNOSTIC": False,
+            "USE_DIRECTION_CLASSIFIER": True,
+            "DIR_OFFSET": 0.78539,
+            "DIR_LIMIT_OFFSET": 0.0,
+            "NUM_DIR_BINS": 2,
+            "ANCHOR_GENERATOR_CONFIG": [anchor],
+            "TARGET_ASSIGNER_CONFIG": {
+                "NAME": "AxisAlignedTargetAssigner",
+                "POS_FRACTION": -1.0,
+                "SAMPLE_SIZE": 512,
+                "NORM_BY_NUM_EXAMPLES": False,
+                "MATCH_HEIGHT": False,
+                "BOX_CODER": "ResidualCoder",
+            },
+            "LOSS_CONFIG": {
+                "LOSS_WEIGHTS": {
+                    "cls_weight": 1.0,
+                    "loc_weight": 2.0,
+                    "dir_weight": 0.2,
+                    "code_weights": [1.0] * 7,
+                },
+            },
+        },
+        "POST_PROCESSING": {
+            "RECALL_THRESH_LIST": [0.3, 0.5, 0.7],
+            "SCORE_THRESH": 0.1,
+            "OUTPUT_RAW_SCORE": False,
+            "EVAL_METRIC": "kitti",
+            "NMS_CONFIG": {
+                "MULTI_CLASSES_NMS": False,
+                "NMS_TYPE": "nms_gpu",
+                "NMS_THRESH": 0.01,
+                "NMS_PRE_MAXSIZE": 4096,
+                "NMS_POST_MAXSIZE": 500,
+            },
+        },
+    }
+
+
+GRID_OPTIMIZATION = {**POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION, "BATCH_SIZE_PER_GPU": 4,
+                     "LR": 0.003}
+
+POINTPILLAR_DYNAMIC_OBJ = _grid_model_config(
+    "PointPillar", 2,
+    VFE={"NAME": "PillarVFE", "WITH_DISTANCE": False, "USE_ABSLOTE_XYZ": True,
+         "USE_NORM": True, "NUM_FILTERS": [64]},
+    MAP_TO_BEV={"NAME": "PointPillarScatter", "NUM_BEV_FEATURES": 64},
+    BACKBONE_2D={"NAME": "BaseBEVBackbone", "LAYER_NUMS": [3, 5, 5], "LAYER_STRIDES": [2, 2, 2],
+                 "NUM_FILTERS": [64, 128, 256], "UPSAMPLE_STRIDES": [1, 2, 4],
+                 "NUM_UPSAMPLE_FILTERS": [128, 128, 128]},
+)
+
+POINTPILLAR_DYNAMIC_OBJ_FULL = {
+    "CLASS_NAMES": ["Dynamic"],
+    "DATA_CONFIG": _grid_data_config([0, -39.68, -3, 89.6, 39.68, 1], [0.16, 0.16, 4], 32,
+                                     limit_whole_scene=False),
+    "MODEL": POINTPILLAR_DYNAMIC_OBJ,
+    "OPTIMIZATION": GRID_OPTIMIZATION,
+}
+
+SECOND_DYNAMIC_OBJ = _grid_model_config(
+    "SECONDNet", 8,
+    VFE={"NAME": "MeanVFE"},
+    BACKBONE_3D={"NAME": "VoxelBackBone8x"},
+    MAP_TO_BEV={"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+    BACKBONE_2D={"NAME": "BaseBEVBackbone", "LAYER_NUMS": [5, 5], "LAYER_STRIDES": [1, 2],
+                 "NUM_FILTERS": [128, 256], "UPSAMPLE_STRIDES": [1, 2],
+                 "NUM_UPSAMPLE_FILTERS": [256, 256]},
+)
+
+SECOND_DYNAMIC_OBJ_FULL = {
+    "CLASS_NAMES": ["Dynamic"],
+    "DATA_CONFIG": _grid_data_config([0, -40, -3, 90.4, 40, 1], [0.05, 0.05, 0.1], 5,
+                                     limit_whole_scene=True),
+    "MODEL": SECOND_DYNAMIC_OBJ,
+    "OPTIMIZATION": GRID_OPTIMIZATION,
+}
+
 # the YAML files (relative to the repository root) that ship as the dicts above
 SHIPPED_MODEL_CONFIGS = {
     "configs/models/lyft_models/pointrcnn_dynamic_obj.yaml": POINTRCNN_DYNAMIC_OBJ_FULL,
+    "configs/models/lyft_models/pointpillar_dynamic_obj.yaml": POINTPILLAR_DYNAMIC_OBJ_FULL,
+    "configs/models/lyft_models/second_dynamic_obj.yaml": SECOND_DYNAMIC_OBJ_FULL,
 }
 
 

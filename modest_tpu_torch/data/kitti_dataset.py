@@ -69,6 +69,8 @@ class KittiDataset:
         self.data_processor = DataProcessor(
             dataset_cfg.DATA_PROCESSOR, self.point_cloud_range, training
         )
+        self.grid_size = self.data_processor.grid_size
+        self.voxel_size = self.data_processor.voxel_size
 
         self.kitti_infos = []
         self.include_kitti_data(self.mode)

@@ -3,9 +3,10 @@
 
 numpy, before batching; ``sample_points`` makes every sample a fixed
 (NUM_POINTS, 4) array, so a batch stacks into one dense tensor. The steps
-draw from ``np.random`` in the JAX package's order. Only the point-based
-detector's steps are ported; the grid detectors' voxel and depth-map steps
-raise ``NotImplementedError``.
+draw from ``np.random`` in the JAX package's order. The grid detectors
+voxelize on the device (``models/voxelize.py``): ``transform_points_to_voxels``
+and ``calculate_grid_size`` only record the grid here. The camera model's
+depth-map step is not ported and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -110,12 +111,20 @@ class DataProcessor:
         self.point_cloud_range = np.asarray(point_cloud_range, np.float32)
         self.training = training
         self.mode = "train" if training else "test"
+        self.grid_size = None
+        self.voxel_size = None
         self.steps = []
         for cfg in processor_cfgs:
             if cfg.NAME not in ("mask_points_and_boxes_outside_range", "shuffle_points",
-                                "sample_points"):
+                                "sample_points", "transform_points_to_voxels",
+                                "calculate_grid_size"):
                 raise NotImplementedError(f"modest_tpu_torch: processor {cfg.NAME} is not ported")
             self.steps.append((cfg.NAME, cfg))
+            if cfg.NAME in ("transform_points_to_voxels", "calculate_grid_size"):
+                grid = (self.point_cloud_range[3:6] - self.point_cloud_range[0:3]) / np.array(
+                    cfg.VOXEL_SIZE)
+                self.grid_size = np.round(grid).astype(np.int64)
+                self.voxel_size = list(cfg.VOXEL_SIZE)
 
     def __call__(self, data_dict):
         for name, cfg in self.steps:
@@ -127,6 +136,10 @@ class DataProcessor:
                 )
             elif name == "shuffle_points":
                 data_dict = shuffle_points(data_dict, cfg.SHUFFLE_ENABLED[self.mode])
-            else:
+            elif name == "sample_points":
                 data_dict = sample_points(data_dict, int(cfg.NUM_POINTS[self.mode]))
+            elif name == "transform_points_to_voxels":
+                # the grid is in __init__; the caps are recorded as the JAX package does
+                data_dict["max_voxels"] = int(cfg.MAX_NUMBER_OF_VOXELS[self.mode])
+                data_dict["max_points_per_voxel"] = int(cfg.MAX_POINTS_PER_VOXEL)
         return data_dict

@@ -1,5 +1,6 @@
-"""Shared NN building blocks, channel-last — port of
-``modest_tpu/models/layers.py`` (f32 throughout, as in the JAX exact mode).
+"""Shared NN building blocks — port of ``modest_tpu/models/layers.py`` (f32
+throughout, as in the JAX exact mode), and the batch norms of the grid
+detectors.
 
 The stacks are ``nn.Sequential``s laid out like pcdet's 1x1-conv stacks
 (linear, [batch norm], ReLU, ...), so their state-dict keys follow pcdet's
@@ -30,14 +31,136 @@ class BatchNorm(nn.BatchNorm1d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=0)
-        var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.0)
-        with torch.no_grad():
-            keep = 1.0 - self.momentum
-            self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
-            self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
-            self.num_batches_tracked.add_(1)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return _flax_train_norm(self, x, (0,), (1, -1))
+
+
+def _update_running(bn, mean, var):
+    with torch.no_grad():
+        keep = 1.0 - bn.momentum
+        bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
+        bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
+        bn.num_batches_tracked.add_(1)
+
+
+def _flax_train_norm(bn, x, dims, shape):
+    """flax's train-mode batch norm over ``dims`` of ``x``: the fast biased
+    variance, the running statistics moved by it, and (x − mean) ·
+    (rsqrt(var + eps) · weight) + bias; per-channel vectors are viewed as
+    ``shape``."""
+    mean = x.mean(dim=dims)
+    var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+    _update_running(bn, mean, var)
+    return ((x - mean.view(shape)) * (torch.rsqrt(var + bn.eps) * bn.weight).view(shape)
+            + bn.bias.view(shape))
+
+
+class _Im2colConv2d(torch.autograd.Function):
+    """A bias-free conv2d forward and backward with cuDNN switched off,
+    which PyTorch runs as im2col and a GEMM."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, padding):
+        with torch.backends.cudnn.flags(enabled=False):
+            y = nn.functional.conv2d(x, weight, None, stride, padding)
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, padding = ctx.conf
+        with torch.backends.cudnn.flags(enabled=False):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                grad, x, weight, None, stride, padding, (1, 1), False, (0, 0), 1,
+                (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
+        return gx, gw, None, None
+
+
+# the stride-1 BEV convs that run cuDNN off: at least IM2COL_MIN_CHANNELS in
+# and an input map of at least IM2COL_MIN_SITES cells (SECOND's level 1,
+# 200 × 226 at 256 and 128 channels; PointPillars' widest stride-1 map, 248 ×
+# 280, has 64 channels and stays on cuDNN)
+IM2COL_MIN_CHANNELS = 128
+IM2COL_MIN_SITES = 40_000
+
+
+def conv_uses_cudnn(in_channels: int, hw, stride) -> bool:
+    """Whether ``Conv2d`` runs an input map of ``hw`` cells on cuDNN (else
+    cuDNN off: im2col and a GEMM). A rule of the shape, so a run's route
+    and rounding do not depend on timing."""
+    return not (tuple(stride) == (1, 1) and in_channels >= IM2COL_MIN_CHANNELS
+                and hw[0] * hw[1] >= IM2COL_MIN_SITES)
+
+
+class Conv2d(nn.Conv2d):
+    """A bias-free ``nn.Conv2d`` (groups 1, dilation 1) that runs on the card
+    on one of two routes, cuDNN or cuDNN off (im2col and a GEMM), as
+    ``conv_uses_cudnn`` picks from the shape. On the H100 in float32, cuDNN's
+    heuristics take FFT tiling for SECOND's stride-1 convs on its 200 × 226
+    BEV map, and neither its benchmark mode nor channels_last finds better:
+    365 ms against 3.7 for the 256 → 128 conv, 12.6 against 2.0 for 128 →
+    128; cuDNN is the faster route for the configs' other BEV convs
+    (``tools/grid_probe.py convs`` times each shape on both routes, PERF.md
+    PR 9). Both routes compute the same convolution; they round
+    differently. The CPU always takes ``nn.Conv2d``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
+                 padding=0):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=padding, bias=False)
+
+    def forward(self, x):
+        if not x.is_cuda or conv_uses_cudnn(self.in_channels, x.shape[-2:], self.stride):
+            return super().forward(x)
+        return _Im2colConv2d.apply(x, self.weight, self.stride, self.padding)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that trains as flax's ``nn.BatchNorm(momentum=0.99,
+    epsilon=1e-3)`` does over a channel-last map (``BEVBackbone`` of
+    ``modest_tpu/models/grid_detectors.py``): statistics over (B, H, W), the
+    fast biased variance, r ← 0.99 r + 0.01 · batch. Eval mode is
+    ``nn.BatchNorm2d``'s; the keys are its keys."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-3, momentum=0.01)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        return _flax_train_norm(self, x, (0, 2, 3), (1, -1, 1, 1))
+
+
+class MaskedBatchNorm(nn.BatchNorm1d):
+    """Batch norm over the masked rows of a padded batch — port of
+    ``MaskedBatchNorm`` in ``modest_tpu/models/layers.py``.
+
+    ``forward(x (..., C), mask (...))``. In train mode the statistics cover
+    every masked row of the whole batch (the population the reference's
+    BN1d sees), with the two-pass biased variance Σw(x − mean)² / Σw, and the
+    running statistics move by r ← 0.99 r + 0.01 · batch. Unmasked rows come
+    out 0. The keys are ``nn.BatchNorm1d``'s (pcdet's ``norm_fn``, eps 1e-3,
+    momentum 0.01)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-3, momentum=0.01)
+
+    def forward(self, x, mask):
+        c = x.shape[-1]
+        xf = x.reshape(-1, c)
+        mf = mask.reshape(-1)
+        if self.training:
+            w = mf.to(xf.dtype)[:, None]
+            cnt = torch.clamp_min(w.sum(), 1.0)
+            mean = (xf * w).sum(0) / cnt
+            var = (torch.square(xf - mean) * w).sum(0) / cnt
+            _update_running(self, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        y = torch.where(mf[:, None], y, 0.0)
+        return y.reshape(x.shape)
 
 
 class SharedMLP(nn.Sequential):
@@ -77,18 +200,22 @@ class FCHead(SharedMLP):
 
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init of every Linear and BatchNorm1d below ``module``.
+    """Seeded init of every Linear, convolution and batch norm below
+    ``module``.
 
-    Linear weights draw U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (PyTorch's
-    default bound) and biases start at 0; batch norms start at the identity
-    (scale 1, shift 0, running mean 0, running var 1). Drawn on the CPU, so
-    one seed gives the same weights whatever device the module lives on."""
+    Weights draw U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (PyTorch's default
+    bound; a module's ``fan_in`` attribute, where it has one, names its fan-in)
+    and biases start at 0; batch norms start at the identity (scale 1, shift
+    0, running mean 0, running var 1). Drawn on the CPU, so one seed gives
+    the same weights whatever device the module lives on."""
     for m in module.modules():
-        if isinstance(m, nn.Linear):
-            bound = m.in_features ** -0.5
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)) or hasattr(m, "fan_in"):
+            fan_in = getattr(m, "fan_in", None) or nn.init._calculate_fan_in_and_fan_out(
+                m.weight)[0]
+            bound = fan_in ** -0.5
             w = torch.empty(m.weight.shape).uniform_(-bound, bound, generator=generator)
             m.weight.copy_(w)
-            if m.bias is not None:
+            if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm1d):
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()

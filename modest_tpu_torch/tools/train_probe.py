@@ -4,6 +4,7 @@ CPU path's.
 
     python -m modest_tpu_torch.tools.train_probe diverge [--device cpu]
     python -m modest_tpu_torch.tools.train_probe grad_gap
+    python -m modest_tpu_torch.tools.train_probe det_gap [--trials 8] [--lr LR]
 
 Both run from the repository's root on ``chip_smoke.py``'s synthetic training
 set (16 Lyft-sized scans, ``tools/synth_kitti.py``), its first batch at
@@ -28,6 +29,16 @@ choices (FPS and three-NN pick in float32, the ball queries are replayed:
 CPU; per grouped max-pool, the (center, channel) maxima taken from another
 point; and the gradients' errors card vs CPU, CPU vs float64 and card vs
 float64, each relative to the second one's norm.
+
+``det_gap`` trains the flagship as ``chip_smoke.py``'s self-training round 0
+does (one epoch of the synthetic set, B = 2, the one-cycle over its 8 steps
+peaking at ``--lr``, by default ``chip_smoke.ROUND_LR``) from ``trials``
+seeds, and runs each result's eval forward on the first scan on the card and
+on the CPU with SCORE_THRESH 0. Per trial it prints the final boxes' 1:1
+agreement, ``chip_smoke.forward_chain``'s stage-by-stage comparison and the
+verdict of its check, the spread of the point logits and RCNN scores, and
+the ambiguous pairs each of the CPU's two NMS meets (``nms_ambiguity``: a
+score gap of twice the card-vs-CPU one, an IoU shell of 1e-3).
 """
 from __future__ import annotations
 
@@ -345,9 +356,101 @@ def grad_gap(dev, cfg, batch) -> dict:
         .float().mean().item()}
 
 
+def nms_ambiguity(boxes, scores, thresh: float, max_keep: int, score_gap: float,
+                  iou_shell: float) -> dict:
+    """The CPU's greedy NMS over ``boxes`` (N, 7) and ``scores`` (N,) and
+    the ambiguous pairs it meets: a candidate and an earlier kept box whose
+    scores lie within ``score_gap`` and whose IoU exceeds ``thresh`` −
+    ``iou_shell`` (the two may go in either order), or whose IoU lies within
+    ``iou_shell`` of ``thresh``. Returns the keeps, the keeps before the
+    first such pair and the count of pairs."""
+    from ..ops.iou3d import boxes_iou_bev
+
+    order = torch.sort(scores, descending=True, stable=True).indices
+    order = order[torch.isfinite(scores[order])]
+    sb, ss = boxes[order], scores[order]
+    kept, first, pairs = [], None, 0
+    for t in range(len(order)):
+        if len(kept) >= max_keep:
+            break
+        col = boxes_iou_bev(sb[kept], sb[t:t + 1])[:, 0]
+        amb = ((ss[kept] - ss[t]).abs() <= score_gap) & (col > thresh - iou_shell)
+        amb |= (col - thresh).abs() <= iou_shell
+        pairs += int(amb.sum())
+        if first is None and bool(amb.any()):
+            first = len(kept)
+        if not bool((col > thresh).any()):
+            kept.append(t)
+    return {"keeps": len(kept), "keeps_before_ambiguity": len(kept) if first is None else first,
+            "ambiguous_pairs": pairs}
+
+
+def det_gap(dev, cfg, trials: int, lr: float) -> list:
+    """``trials`` round-0 trainings on ``dev`` and, for each, the card-vs-CPU
+    comparison of ``chip_smoke.forward_chain`` on the first scan, its
+    verdict, and the ambiguous pairs of the CPU's two NMS (the module
+    docstring)."""
+    import chip_smoke as cs
+    from ..data.loader import batch_to_device, build_dataloader
+    from ..train.state import create_train_state, train_step
+
+    cfg.OPTIMIZATION.NUM_EPOCHS = 1
+    cfg.OPTIMIZATION.LR = lr
+    cfg.DATA_CONFIG.DATA_SPLIT["test"] = "train"
+    cfg.DATA_CONFIG.INFO_PATH["test"] = ["kitti_infos_train.pkl"]
+    m = cfg.MODEL
+    m.POST_PROCESSING.SCORE_THRESH = 0.0
+    np.random.seed(666)
+    _, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, cs.TRAIN_BATCH, training=True)
+    batches = [batch_to_device(b, dev) for b in loader]
+    _, test_loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 4, training=False)
+    scan = torch.from_numpy(next(iter(test_loader))["points"][:1])
+    prop_nms, post_nms = m.ROI_HEAD.NMS_CONFIG.TEST, m.POST_PROCESSING.NMS_CONFIG
+    rows = []
+    for trial in range(trials):
+        model = build_network(m, 1, device=dev, seed=trial)
+        state = create_train_state(model, cfg.OPTIMIZATION, len(batches), len(batches))
+        for b in batches:
+            train_step(state, m, b["points"], b["gt_boxes"])
+        cpu_model = build_network(m, 1, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        chain, got, want = cs.forward_chain(torch, np, model, cpu_model, m, scan)
+        match = cs.match_finals(np, got, want)
+        try:
+            cs.check_chain(chain, match["match_frac"],
+                           match["card_detections"] + match["cpu_detections"], "det_gap")
+            verdict = "pass"
+        except SystemExit:
+            verdict = "fail"
+        cpu = api.apply_eval(cpu_model, m, scan)
+        card = api.apply_eval(model, m, scan.to(dev))
+        logits = cpu["point_cls_preds"][0].amax(-1)
+        logit_gap = float((card["point_cls_preds"].cpu() - cpu["point_cls_preds"]).abs().max())
+        top = torch.sort(logits, descending=True, stable=True).indices[
+            :int(prop_nms.NMS_PRE_MAXSIZE)]
+        rcnn = torch.sigmoid(cpu["batch_cls_preds"][0].amax(-1))
+        rcnn_gap = float((torch.sigmoid(card["batch_cls_preds"].cpu())
+                          - torch.sigmoid(cpu["batch_cls_preds"])).abs().max())
+        rows.append({
+            "trial": trial, "final": match, "chain": chain, "verdict": verdict,
+            "point_logit_range": [float(logits.min()), float(logits.max())],
+            "rcnn_score_range": [float(rcnn.min()), float(rcnn.max())],
+            "proposal_nms_cpu": nms_ambiguity(
+                cpu["point_boxes_decoded"][0][top], logits[top], float(prop_nms.NMS_THRESH),
+                int(prop_nms.NMS_POST_MAXSIZE), 2 * logit_gap, 1e-3),
+            "final_nms_cpu": nms_ambiguity(
+                cpu["batch_box_preds"][0], torch.where(cpu["roi_valid"][0], rcnn, -float("inf")),
+                float(post_nms.NMS_THRESH), int(post_nms.NMS_POST_MAXSIZE), 2 * rcnn_gap, 1e-3)})
+        emit({"probe": "det_gap", **rows[-1]})
+    return rows
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("probe", choices=["diverge", "grad_gap"])
+    parser.add_argument("probe", choices=["diverge", "grad_gap", "det_gap"])
+    parser.add_argument("--trials", type=int, default=8, help="det_gap only")
+    parser.add_argument("--lr", type=float, default=None,
+                        help="det_gap only: the one-cycle's peak (chip_smoke.ROUND_LR)")
     parser.add_argument("--device", default="cuda", help="diverge only: cuda or cpu")
     args = parser.parse_args(argv)
     dev = torch.device(args.device)
@@ -363,6 +466,13 @@ def main(argv=None) -> None:
         make_train_set(root)
         if args.probe == "diverge":
             diverge(dev, *cs.first_batch(torch, root, dev), cs.OVERFIT_STEPS)
+        elif args.probe == "det_gap":
+            from ..configs import POINTRCNN_DYNAMIC_OBJ_FULL
+            from ..utils.config import Config
+
+            cfg = Config(POINTRCNN_DYNAMIC_OBJ_FULL)
+            cfg.DATA_CONFIG.DATA_PATH = str(root)
+            det_gap(dev, cfg, args.trials, cs.ROUND_LR if args.lr is None else args.lr)
         else:
             emit({"probe": "grad_gap",
                   **grad_gap(dev, *cs.first_batch(torch, root, torch.device("cpu")))})

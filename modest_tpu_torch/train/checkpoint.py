@@ -3,7 +3,9 @@
 
 ``ckpt_dir/checkpoint_epoch_{E}.pth`` holds pcdet's keys: ``epoch``,
 ``model_state`` (the state dict, whose keys are pcdet's) and
-``optimizer_state``. The newest ``max_to_keep`` files are kept.
+``optimizer_state``, and ``format``: ``FORMAT``, which tells this package's
+files from pcdet's (whose SECOND layouts differ, ``models/convert.py``). The
+newest ``max_to_keep`` files are kept.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from pathlib import Path
 import torch
 
 _NAME = re.compile(r"checkpoint_epoch_(\d+)\.pth")
+FORMAT = "modest_tpu_torch"
 
 
 class CheckpointManager:
@@ -35,7 +38,8 @@ class CheckpointManager:
 
     def save(self, state, epoch: int, extra: dict | None = None) -> Path:
         payload = {"epoch": epoch, "model_state": state.model.state_dict(),
-                   "optimizer_state": state.optimizer.state_dict(), "extra": extra or {}}
+                   "optimizer_state": state.optimizer.state_dict(), "extra": extra or {},
+                   "format": FORMAT}
         path = self.path(epoch)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         torch.save(payload, tmp)
@@ -73,7 +77,10 @@ def load_params_partial(model, source, epoch: int | None = None, logger=None):
     detector3d_template.load_params_from_file:327-353). ``source`` is a
     ``.pth`` file (this package's or pcdet's: its ``model_state``, or the
     file itself when it is a bare state dict) or a checkpoint directory
-    (``epoch``, or the latest). Returns (n_loaded, n_skipped)."""
+    (``epoch``, or the latest). A file without this package's ``format``
+    mark (a pcdet checkpoint, or a bare state dict) is read in pcdet's
+    layouts (``models.convert.state_dict_from_pcdet``). Returns (n_loaded,
+    n_skipped)."""
     source = Path(source)
     if source.is_dir():
         manager = CheckpointManager(source)
@@ -83,6 +90,10 @@ def load_params_partial(model, source, epoch: int | None = None, logger=None):
         source = manager.path(epoch)
     payload = torch.load(source, map_location="cpu")
     old = payload.get("model_state", payload)
+    if payload.get("format") != FORMAT:
+        from ..models.convert import state_dict_from_pcdet
+
+        old = state_dict_from_pcdet(old, model)
     own = model.state_dict()
     take = {k: v for k, v in old.items() if k in own and tuple(v.shape) == tuple(own[k].shape)}
     model.load_state_dict(take, strict=False)

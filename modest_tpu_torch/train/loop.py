@@ -49,7 +49,8 @@ def train_model(state, model_cfg, loader, *, device, start_epoch: int, total_epo
     record per step: epoch, step, metrics (floats), ``data_wait_ms`` (host
     time waiting for the batch), ``end_s`` (host clock after the step's
     metrics were read) and, with ``stage_times`` on a CUDA device,
-    ``stage_ms`` by CUDA events (``state.STEP_STAGES``)."""
+    ``stage_ms`` by CUDA events (the model's forward stages, then loss,
+    backward and optimizer)."""
     log = logger.info if logger else print
     timed = stage_times and torch.device(device).type == "cuda"
     history = []

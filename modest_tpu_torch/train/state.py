@@ -1,9 +1,10 @@
 """Train state and one optimizer step — port of ``modest_tpu/train/state.py``.
 
 A step is: forward in train mode, loss, backward, gradient clipping and the
-update (``train/optim.py``). The RoI sampler's draws at step ``s`` come from
-a ``torch.Generator`` seeded from (seed, s), as JAX folds the step into its
-"sampler" key, so a resumed run draws as the uninterrupted one would.
+update (``train/optim.py``). PointRCNN's RoI sampler draws at step ``s``
+from a ``torch.Generator`` seeded from (seed, s), as JAX folds the step into
+its "sampler" key, so a resumed run draws as the uninterrupted one would; a
+grid detector draws nothing.
 """
 from __future__ import annotations
 
@@ -51,10 +52,10 @@ def train_step(state: TrainState, model_cfg, points, gt_boxes, *, seed: int = 66
     """One optimizer step on a batch; returns the metrics (0-dim tensors,
     ``grad_norm`` the global norm before clipping). ``roi_draws`` replace
     the step's seeded draws; ``on_stage(name)`` is called after each of
-    ``STEP_STAGES``."""
+    ``STEP_STAGES`` (a grid detector's forward marks its own ``stages``)."""
     mark = on_stage or (lambda name: None)
     model = state.model
-    if roi_draws is None:
+    if roi_draws is None and not model_api.is_grid_model(model_cfg):
         roi_draws = step_roi_draws(model_cfg, points.shape[0], state.step, seed, points.device)
     for p in model.parameters():
         p.grad = None

@@ -110,6 +110,22 @@ def test_flagship_dicts_equal_the_jax_loaders_yaml(section):
     assert SHIPPED_MODEL_CONFIGS[FLAGSHIP_YAML] is POINTRCNN_DYNAMIC_OBJ_FULL
 
 
+@pytest.mark.parametrize("section", ["CLASS_NAMES", "DATA_CONFIG", "MODEL", "OPTIMIZATION"])
+@pytest.mark.parametrize("name", ["pointpillar", "second"])
+def test_grid_dicts_equal_the_jax_loaders_yaml(name, section):
+    """configs.py ships the PointPillars and SECOND files whole, as
+    modest_tpu.utils.config reads them."""
+    from modest_tpu.utils.config import cfg_from_yaml_file as j_cfg_from_yaml_file
+    from modest_tpu_torch import configs
+
+    yaml = f"configs/models/lyft_models/{name}_dynamic_obj.yaml"
+    full = getattr(configs, f"{name.upper()}_DYNAMIC_OBJ_FULL")
+    want = j_cfg_from_yaml_file(yaml).to_dict()
+    assert list(want) == list(full)
+    assert _same(full[section], want[section])
+    assert configs.SHIPPED_MODEL_CONFIGS[yaml] is full
+
+
 @pytest.mark.parametrize("pairs", [
     ["OPTIMIZATION.LR", "0.002", "OPTIMIZATION.NUM_EPOCHS", "5"],
     ["DATA_CONFIG.FOV_POINTS_ONLY", "0", "CLASS_NAMES", "[Car,Pedestrian]"],

@@ -120,6 +120,36 @@ def test_collated_batches_equal_jax(roots, augment):
         assert not any(np.array_equal(g["points"], p["points"]) for g, p in zip(got, plain))
 
 
+@pytest.mark.parametrize("name", ["POINTPILLAR_DYNAMIC_OBJ_FULL", "SECOND_DYNAMIC_OBJ_FULL"])
+def test_grid_data_config_batches_and_geometry_equal_jax(roots, name):
+    """The grid detectors' data configs (their voxel step records the grid,
+    the points are sampled to a fixed count): grid_size, voxel_size and the
+    recorded voxel caps equal the JAX dataset's, and so do the batches."""
+    from modest_tpu_torch import configs
+
+    full = getattr(configs, name)
+    batches = {}
+    for side, mod, kd, conf in (("jax", jloader, jkd, JConfig), ("torch", tloader, tkd, Config)):
+        cfg = copy.deepcopy(full["DATA_CONFIG"])
+        cfg["DATA_PATH"] = str(roots[side])
+        cfg["DATA_PROCESSOR"][1]["NUM_POINTS"] = {"train": NUM_POINTS, "test": NUM_POINTS}
+        np.random.seed(666)
+        ds, loader = mod.build_dataloader(conf(cfg), ["Dynamic"], batch_size=2, training=True,
+                                          max_gt=64)
+        try:
+            batches[side] = (ds.grid_size, ds.voxel_size, ds[0]["max_voxels"], list(loader))
+        finally:
+            loader.close()
+    (gs, vs, cap, got), (jgs, jvs, jcap, want) = batches["torch"], batches["jax"]
+    np.testing.assert_array_equal(gs, jgs)
+    assert gs.dtype == jgs.dtype and vs == jvs and cap == jcap == 16000
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g["points"].shape == (2, NUM_POINTS, 4)
+        np.testing.assert_array_equal(g["points"], w["points"])
+        np.testing.assert_array_equal(g["gt_boxes"], w["gt_boxes"])
+
+
 def test_worker_processes_give_the_inline_batches(roots):
     inline = _batches(tloader, roots["torch"], True, seed=1, n_epochs=1)
     pooled = _batches(tloader, roots["torch"], True, seed=1, n_epochs=1, num_workers=2,

@@ -74,14 +74,24 @@ def test_build_network_runs_on_the_card_unless_asked_for_the_cpu():
     assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
-@pytest.mark.parametrize("name,backbone", [("SECONDNet", "VoxelBackBone8x"),
+@pytest.mark.parametrize("name,backbone", [("SECONDNet", "VoxelResBackBone8x"),
                                            ("PointRCNN", "UNetV2")])
 def test_build_network_refuses_unported_detectors(name, backbone):
-    cfg = Config(POINTRCNN_DYNAMIC_OBJ)
+    """SECOND with the residual sparse backbone (nuScenes CBGS) and the
+    sparse-UNet PointRCNN (PartA2-free) are not ported."""
+    import copy
+    import types
+
+    from modest_tpu_torch.configs import SECOND_DYNAMIC_OBJ
+
+    cfg = Config(copy.deepcopy(SECOND_DYNAMIC_OBJ if name == "SECONDNet"
+                               else POINTRCNN_DYNAMIC_OBJ))
     cfg.NAME = name
     cfg.BACKBONE_3D.NAME = backbone
+    geometry = types.SimpleNamespace(point_cloud_range=[0, -40, -3, 90.4, 40, 1],
+                                     voxel_size=[0.05, 0.05, 0.1], grid_size=[1808, 1600, 40])
     with pytest.raises(NotImplementedError):
-        build_network(cfg, 1, device="cpu")
+        build_network(cfg, 1, device="cpu", dataset=geometry)
 
 
 def test_forward_refuses_train_mode():

@@ -1,8 +1,12 @@
 """tools/train_probe.py on the CPU at the tiny config (512 points): the
 ball-query tape counts and substitutes indices, the gradient-gap probe of
 the CPU against itself finds no difference and a float64 run within float32
-rounding, and the divergence probe records each step and names the module
-where a non-finite value starts."""
+rounding, the divergence probe records each step and names the module
+where a non-finite value starts, and the detection-gap probe of the CPU
+against itself agrees at every stage. Also chip_smoke.py's stage-by-stage
+detection check (forward_chain, check_chain): it names the stage a changed
+weight parts, and it lets the end-to-end match fall short only where a
+device's own decision kept another box."""
 import copy
 import json
 
@@ -11,6 +15,7 @@ import pytest
 import torch
 
 from modest_tpu_torch.configs import (POINTRCNN_DYNAMIC_OBJ_DATA_CONFIG,
+                                      POINTRCNN_DYNAMIC_OBJ_FULL,
                                       POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION)
 from modest_tpu_torch.data.kitti_dataset import create_kitti_infos
 from modest_tpu_torch.data.loader import build_dataloader
@@ -95,3 +100,85 @@ def test_diverge_records_every_step(cfg_and_batch, capsys):
     assert [r["step"] for r in lines] == [0, 1, 2]
     assert all(r["finite"] and r["probe"] == "diverge" for r in lines)
     assert lines[1]["lr"] == pytest.approx(0.01, rel=1e-6)  # the one-cycle peak of 3 steps
+
+
+def test_det_gap_of_the_cpu_against_itself(tmp_path, capsys):
+    synth_kitti.make_dataset(tmp_path, n_train=4, n_val=0, seed=3)
+    cfg = Config(copy.deepcopy(POINTRCNN_DYNAMIC_OBJ_FULL))
+    cfg.DATA_CONFIG.DATA_PATH = str(tmp_path)
+    cfg.DATA_CONFIG.DATA_PROCESSOR[1].NUM_POINTS = {"train": 512, "test": 512}
+    create_kitti_infos(cfg.DATA_CONFIG, ["Dynamic"], tmp_path, tmp_path, if_val=False)
+    cfg.MODEL = tiny_model_cfg()
+    rows = train_probe.det_gap(torch.device("cpu"), cfg, trials=1, lr=1e-3)
+    (row,) = rows
+    assert row["verdict"] == "pass" and row["final"]["match_frac"] == 1.0
+    assert row["final"]["card_detections"] > 0
+    assert row["chain"] == {"point_tol_used": 0.0, "proposals_given_card_points": 1.0,
+                            "rcnn_tol_used": 0.0, "finals_given_card_rcnn": 1.0,
+                            "proposals_card_vs_cpu": 1.0, "finals_given_card_rois": 1.0}
+    for nms in ("proposal_nms_cpu", "final_nms_cpu"):  # the gaps are 0: no pair is a tie
+        assert row[nms]["keeps"] > 0 and row[nms]["ambiguous_pairs"] == 0
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["probe"] == "det_gap"
+
+
+def test_nms_ambiguity_finds_tied_overlapping_pairs():
+    boxes = torch.tensor([[0, 0, 0, 2, 2, 1, 0], [0.1, 0, 0, 2, 2, 1, 0], [9, 0, 0, 2, 2, 1, 0]])
+    scores = torch.tensor([0.5, 0.5 - 1e-7, 0.5 - 2e-7])
+    tied = train_probe.nms_ambiguity(boxes, scores, 0.5, 10, 1e-6, 1e-3)
+    # box 1 overlaps kept box 0 and ties with it; box 2 ties with box 0 but lies apart
+    assert tied == {"keeps": 2, "keeps_before_ambiguity": 1, "ambiguous_pairs": 1}
+    apart = train_probe.nms_ambiguity(boxes, scores, 0.5, 10, 1e-8, 1e-3)
+    assert apart == {"keeps": 2, "keeps_before_ambiguity": 2, "ambiguous_pairs": 0}
+
+
+@pytest.fixture(scope="module")
+def chain_inputs():
+    import chip_smoke
+
+    model_cfg = Config(tiny_model_cfg())
+    model_cfg.POST_PROCESSING.SCORE_THRESH = 0.0
+    rng = np.random.RandomState(0)
+    scan = np.concatenate([rng.uniform(-20, 20, (512, 3)), rng.uniform(0, 1, (512, 1))], 1)
+    return chip_smoke, model_cfg, torch.from_numpy(scan.astype(np.float32))[None]
+
+
+@pytest.mark.parametrize("part, stage", [(None, None),
+                                         ("point_head.cls_layers.3.bias", "point_tol_used"),
+                                         ("roi_head.reg_layers.3.bias", "rcnn_tol_used")])
+def test_forward_chain_names_the_stage_a_changed_weight_parts(chain_inputs, part, stage):
+    cs, model_cfg, scan = chain_inputs
+    want = train_probe.build_network(model_cfg, 1, device="cpu", seed=0)
+    got = train_probe.build_network(model_cfg, 1, device="cpu", seed=0)
+    if part is not None:
+        with torch.no_grad():
+            dict(got.named_parameters())[part].add_(0.01)  # 20x and 5x the matcher's limits
+    chain, fin_got, fin_want = cs.forward_chain(torch, np, got, want, model_cfg, scan)
+    match = cs.match_finals(np, fin_got, fin_want)
+    detections = match["card_detections"] + match["cpu_detections"]
+    assert detections > 0
+    if stage is None:
+        assert chain["point_tol_used"] == chain["rcnn_tol_used"] == 0.0
+        cs.check_chain(chain, match["match_frac"], detections, "unchanged")
+        return
+    assert chain[stage] > 1.0
+    with pytest.raises(SystemExit):
+        cs.check_chain(chain, match["match_frac"], detections, part)
+
+
+@pytest.mark.parametrize("proposals, finals, passes", [(1.0, 1.0, False), (0.99, 1.0, True),
+                                                       (1.0, 0.5, True)])
+def test_check_chain_excuses_a_short_match_only_where_a_decision_parted(
+        chain_inputs, proposals, finals, passes):
+    cs = chain_inputs[0]
+    chain = {"point_tol_used": 0.01, "proposals_given_card_points": 1.0, "rcnn_tol_used": 0.01,
+             "finals_given_card_rcnn": 1.0, "proposals_card_vs_cpu": proposals,
+             "finals_given_card_rois": finals}
+    if passes:
+        cs.check_chain(chain, 0.5, 20, "parted")
+    else:
+        with pytest.raises(SystemExit):
+            cs.check_chain(chain, 0.5, 20, "not parted")
+    cs.check_chain(dict(chain, proposals_card_vs_cpu=1.0, finals_given_card_rois=1.0), 0.98, 20,
+                   "matched")
+    with pytest.raises(SystemExit):
+        cs.check_chain(dict(chain, finals_given_card_rcnn=0.9), 1.0, 20, "final NMS")
