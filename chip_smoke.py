@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seven paths, each at full size from fixed seeds:
+Nine paths, each at full size from fixed seeds:
 
 * the flagship detector's eval forward plus post-processing (PointRCNN,
   configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
@@ -29,6 +29,15 @@ Seven paths, each at full size from fixed seeds:
   full width: their eval forward plus post-processing at B = 4 on the
   training set's scans sampled to 65536 points, and cli/train.py for 16
   steps each with a resume;
+* PV-RCNN (configs/models/lyft_models/pv_rcnn_dynamic_obj.yaml) at full
+  width on the grid detectors' scans: its eval forward plus post-processing
+  at B = 4 (keypoint FPS of 2048 of 65536 points a scan), and cli/train.py
+  for 16 steps at B = 2 with an evaluation after training, a resume and
+  cli/test.py on its checkpoint;
+* the dataset-preparation CLIs on a synthetic nuScenes-schema set of three
+  drives (tools/nu_scenes.py, written to a temporary directory): the
+  SDK-free Lyft export to KITTI, split_traintest, gather_historical_
+  traversals and ransac_planes, then the PP-score CLI on 2 origins;
 * the windowed kNN (nearest_k) at the flagship backbone's four kNN shapes,
   B = 4, through modest_tpu_torch/tools/knn_bench.py;
 * the label-table gathers (take, take_along_axis) at the DBSCAN gather
@@ -40,9 +49,13 @@ Phases, each printing one JSON line:
    per source, all at once;
 2. hold FPS against its plain PyTorch version at every shape the forward
    and a train step give it, on tie-heavy and ragged clouds at SA1 size and
-   at the small-cloud kernel's register edges (N = 1, 33, 513, 1023;
-   indices must be equal), with event and profiler times, the cluster size
-   and the time per step;
+   at the small-cloud kernel's register edges (N = 1, 33, 513, 1023), at
+   PV-RCNN's keypoint sampling (65536 → 2048 points at B = 4 and 2, also
+   on duplicates and a 1 m grid) and at the edges of the cluster kernel's
+   16-point range (N = 32768, 32769, 65535; indices must be equal), with
+   event and profiler times, the cluster size, the points a thread and the
+   time per step; a cloud of N <= 32768 must launch as the table had it
+   before the 16-point range;
 3. run the forward + post_process on 4 synthetic scans (the bench.py scene
    recipe) and check the output, the FPS launch count and the stage times;
 4. compare the card's final boxes on one scan with the port's own CPU
@@ -72,6 +85,16 @@ Phases, each printing one JSON line:
    first 4 epochs of the config's schedule, 16 steps at B = 4 (grid_train:
    finite losses, scans/s after two steps, stage split, peak memory), then
    a resume from the epoch-3 checkpoint (grid_train_resume);
+4c. PV-RCNN (pv_rcnn_forward: keypoints equal to the plain FPS's, then
+   timed forwards: scans/s, stage ms by CUDA events, peak memory, one FPS
+   launch a forward; pv_rcnn_card_vs_cpu: one scan's detections 1:1 >= 98%
+   or stage by stage with the card's keypoints, ball-query indices and
+   RoIs handed to the CPU; pv_rcnn_train: every loss finite, scans/s, stage
+   split, the eval-after-train result, one FPS launch a step and a test
+   batch; pv_rcnn_train_resume: restarts at epoch 1, then cli/test.py);
+4d. the preparation CLIs (prep: every file written for every frame, PP
+   finite in [0, 1], one radius-count launch an origin, and no tqdm,
+   PyYAML or PIL loaded on the way);
 5. run the PP-score CLI on the card: origins/s, radius-count launches per
    origin, stage split, peak memory; the scores must be finite and rank the
    ephemeral clusters below the ground;
@@ -180,7 +203,21 @@ FPS_ROUND_SHAPES = [
     ("round_roi_sa1", ROUND_ROIS, 512, 128),
     ("round_roi_sa2", ROUND_ROIS, 128, 32),
 ]
-FPS_SHAPES = FPS_PATH_SHAPES + FPS_EXTRA_SHAPES + FPS_TRAIN_SHAPES + FPS_ROUND_SHAPES
+# PV-RCNN's keypoint FPS (NUM_KEYPOINTS of a scan's 65536 points) in one eval
+# forward at B = 4 and one train step at B = 2; the cluster kernel's 16-point
+# range past 32768 points at its edges, and on duplicates in different
+# cluster ranks and a 1 m grid at full size
+PV_POINTS, PV_KEYPOINTS = 65536, 2048
+FPS_PV_SHAPES = [
+    ("pv_keypoints", BATCH, PV_POINTS, PV_KEYPOINTS),
+    ("train_pv_keypoints", TRAIN_BATCH, PV_POINTS, PV_KEYPOINTS),
+    ("pv_dup_ranks", BATCH, PV_POINTS, PV_KEYPOINTS),
+    ("pv_grid_quantised", BATCH, PV_POINTS, PV_KEYPOINTS),
+    ("n_32768", BATCH, 32768, PV_KEYPOINTS), ("n_32769", BATCH, 32769, PV_KEYPOINTS),
+    ("n_65535", BATCH, 65535, PV_KEYPOINTS),
+]
+FPS_SHAPES = (FPS_PATH_SHAPES + FPS_EXTRA_SHAPES + FPS_TRAIN_SHAPES + FPS_ROUND_SHAPES
+              + FPS_PV_SHAPES)
 # the small-cloud kernel's stages of the path
 FPS_SMALL_STAGES = ("backbone_sa4", "roi_sa1", "roi_sa2")
 FPS_TRAIN_SMALL_STAGES = ("train_sa4", "train_roi_sa1", "train_roi_sa2")
@@ -264,6 +301,23 @@ GRID_EPOCHS = 4
 GRID_LR = 4.8e-4
 GRID_TIMED_ITERS = 8
 GRID_EMPTY_LOGIT = -3.0
+# PV-RCNN (configs/models/lyft_models/pv_rcnn_dynamic_obj.yaml, shipped as a
+# dict) on the grid phases' scans: PV_TIMED_ITERS timed eval forwards at B = 4;
+# cli/train.py for PV_EPOCHS epochs (16 steps at the config's B = 2) whose
+# one-cycle peaks at PV_LR, the highest rate the first 2 epochs of the
+# config's 60-epoch schedule at 0.01 reach (its stage 1 has the grid heads'
+# focal loss, whose gradient goes NaN once a logit passes -88.72 at a rate
+# squeezed into 16 steps; ROADMAP.md Queue 3); the class head's empty-cell
+# bias as for the grid detectors
+PV_CFG = "configs/models/lyft_models/pv_rcnn_dynamic_obj.yaml"
+PV_TIMED_ITERS = 4
+PV_EPOCHS = 2
+PV_LR = 1.15e-3
+# the dataset-preparation CLIs on tools/nu_scenes.py's drives: 3 drives of 40
+# sweeps 2 m apart (~27k points a sweep), the PP CLI on the card for 2 origins
+PREP_DRIVES = {"traversals": 3, "frames": 40, "spacing": 2.0, "n_ground": 48000,
+               "n_wall": 6000, "n_cars": 4, "car_points": 300}
+PREP_PP_ORIGINS = 2
 
 
 def emit(obj) -> None:
@@ -314,18 +368,48 @@ def fps_bound(b: int, n: int, npoint: int):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def legacy_launch(n: int):
+    """(cluster, P) of ``csrc/fps.cu``'s launch table for N <= 32768, which
+    the 16-point range past it must leave as it is: the cluster by N (none
+    below 1024), then the fewest points a thread (1, 2, 4, 8) that keep a
+    CTA at 128 threads or fewer, else 8."""
+    def ceil_div(a, b):
+        return -(-a // b)
+
+    if n < 1024:
+        p = 1
+        while p < ceil_div(n, 32):
+            p *= 2
+        return None, p
+    c = 8 if n >= 8192 else 4 if n >= 2048 else 2
+    chunk = ceil_div(n, c)
+    for p in (1, 2, 4, 8):
+        if ceil_div(ceil_div(chunk, p), 32) * 32 <= 128:
+            return c, p
+    return c, 8
+
+
 def fps_inputs(torch, dev, scenes):
     """Inputs at the path's shapes: the backbone levels chain FPS on the
-    bench scans; the RoI tower gets random clouds of RoI-sized extent."""
+    bench scans; the RoI tower gets random clouds of RoI-sized extent; the
+    keypoint rows take bench scans of 65536 points."""
     from modest_tpu_torch.ops.fps import furthest_point_sample_plain
+    from modest_tpu_torch.tools.scenes import bench_scans
 
     gen = torch.Generator(device="cpu").manual_seed(1)
     xyz = torch.from_numpy(scenes[..., :3]).to(dev).contiguous()
+    pv = torch.from_numpy(bench_scans(BATCH, PV_POINTS, seed=2)[..., :3]).to(dev).contiguous()
     inputs = {}
     train_xyz = xyz[:TRAIN_BATCH]
     for stage, b, n, npoint in FPS_SHAPES:
         sa1 = inputs.get("backbone_sa1")
-        if stage.startswith("backbone"):
+        if stage in ("pv_keypoints", "train_pv_keypoints") or stage.startswith("n_"):
+            inputs[stage] = pv[:b, :n].contiguous()
+        elif stage == "pv_dup_ranks":
+            inputs[stage] = torch.cat([pv[:, :n // 2], pv[:, :n // 2]], dim=1).contiguous()
+        elif stage == "pv_grid_quantised":
+            inputs[stage] = torch.round(pv)
+        elif stage.startswith("backbone"):
             inputs[stage] = xyz
             idx = furthest_point_sample_plain(xyz, npoint).long()
             xyz = torch.gather(xyz, 1, idx[..., None].expand(-1, -1, 3)).contiguous()
@@ -350,7 +434,7 @@ def fps_inputs(torch, dev, scenes):
 def phase_fps(torch, inputs, card):
     """Returns the rows by stage."""
     from modest_tpu_torch.ops.fps import (cluster_size, furthest_point_sample_cuda,
-                                          furthest_point_sample_plain)
+                                          furthest_point_sample_plain, per_thread)
     from modest_tpu_torch.utils.device import device_ms
 
     rows = {}
@@ -366,14 +450,18 @@ def phase_fps(torch, inputs, card):
         kernel_ms = kernel_device_ms(lambda: furthest_point_sample_cuda(x, npoint), 10, "fps_")
         plain_ms = device_ms(lambda: furthest_point_sample_plain(x, npoint), dev, 1)
         bound_ms, bound_by = fps_bound(b, n, npoint)
+        launch = (cluster_size(n) or None, per_thread(n))
         row = {"phase": "fps_vs_plain", "stage": stage, "B": b, "N": n, "npoint": npoint,
-               "cluster": cluster_size(n) or None, "mismatches": mismatches, "max_abs_err": max_abs_err, "ms": ms,
+               "cluster": launch[0], "per_thread": launch[1], "mismatches": mismatches,
+               "max_abs_err": max_abs_err, "ms": ms,
                "kernel_device_ms": kernel_ms, "us_per_step": ms * 1e3 / max(npoint - 1, 1),
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "card": card}
         emit(row)
         if mismatches:
             fail(f"fps kernel disagrees with its plain version at {stage}: {mismatches} indices")
+        if n <= 32768 and launch != legacy_launch(n):
+            fail(f"fps at N = {n} launches (cluster, P) = {launch}, not {legacy_launch(n)}")
         rows[stage] = row
     return rows
 
@@ -574,15 +662,17 @@ def forward_chain(torch, np, card_model, cpu_model, model_cfg, scan):
     return row, got, want
 
 
-def check_chain(chain, match_frac, detections, where, parted=False):
+def check_chain(chain, match_frac, detections, where, parted=False,
+                stage1=("point_tol_used", "proposals_given_card_points")):
     """Fails unless every stage of ``forward_chain`` agrees and the
     end-to-end detections match 1:1 (>= MIN_BOX_MATCH), or part only where
     a device's own decision kept another RoI or another final box
-    (``parted`` adds another such decision the caller saw)."""
+    (``parted`` adds another such decision the caller saw). ``stage1`` names
+    the keys of the chain's first stage (``pv_forward_chain``'s differ)."""
     if detections == 0:
         fail(f"{where}: no detection on either device")
-    bad = {k: chain[k] for k in ("point_tol_used", "rcnn_tol_used") if not chain[k] <= 1.0}
-    bad.update({k: chain[k] for k in ("proposals_given_card_points", "finals_given_card_rcnn")
+    bad = {k: chain[k] for k in (stage1[0], "rcnn_tol_used") if not chain[k] <= 1.0}
+    bad.update({k: chain[k] for k in (stage1[1], "finals_given_card_rcnn")
                 if chain[k] < MIN_BOX_MATCH})
     if bad:
         fail(f"{where}: with the card's decisions the CPU parts from the card: {bad} "
@@ -787,11 +877,11 @@ def phase_train_card_vs_cpu(torch, np, dev, root, card):
 
 
 def grid_config(name, root):
-    """A grid model's shipped config on the synthetic set, its test split the
-    training scans (no augmentation, 65536 points a scan)."""
+    """A grid model's (or PV-RCNN's) shipped config on the synthetic set, its
+    test split the training scans (no augmentation, 65536 points a scan)."""
     from modest_tpu_torch.cli.train import load_model_config
 
-    cfg = load_model_config(REPO / GRID_CFGS[name])
+    cfg = load_model_config(REPO / {**GRID_CFGS, "pv_rcnn": PV_CFG}[name])
     cfg.DATA_CONFIG.DATA_PATH = str(root)
     cfg.DATA_CONFIG.DATA_SPLIT.test = "train"
     cfg.DATA_CONFIG.INFO_PATH.test = ["kitti_infos_train.pkl"]
@@ -1024,6 +1114,374 @@ def phase_grid(torch, np, api, build_network, dev, root, card):
           "seconds": time.perf_counter() - t0, "card": card})
     if any(counts.values()):
         fail(f"the grid detectors launched hand kernels {dict(counts)}")
+
+
+def pv_forward_chain(torch, np, card_model, cpu_model, model_cfg, scan):
+    """``forward_chain`` for PV-RCNN: its eval forward on ``scan`` (1, N, C)
+    on the card and on the CPU, then stage by stage with the card's
+    decisions handed to the CPU. The keypoints must be equal (FPS takes
+    exact differences). The dense head's logits and box residuals
+    (``dense_tol_used``, as ``forward_chain``'s point outputs); the CPU's
+    proposal layer on the card's dense outputs against the card's RoIs
+    (``proposals_given_card_dense``, 1:1); the CPU's VSA and RoI-grid head
+    with the card's RoIs and the card's ball-query indices against the
+    card's RCNN logits and boxes (``rcnn_tol_used``); the CPU's
+    post-processing of the card's RCNN outputs (``finals_given_card_rcnn``).
+    A ball query's membership at d² ≈ r² follows each device's rounding of
+    |a|² + |b|² − 2ab, so the CPU is handed the card's indices;
+    ``ball_slots_differ_share`` says how many of its own it would have
+    picked otherwise there. Left to its own decisions the CPU may order its
+    RoIs otherwise among all but tied scores (``rois_same_order``), and a
+    RoI grid point a rounding away from a keypoint's ball may take another
+    neighbour (``own_grid_slots_differ``, counted where the RoIs keep the
+    card's order): either lets the final NMS keep another box. Returns
+    (row, card's final boxes, CPU's)."""
+    from unittest import mock
+
+    from modest_tpu_torch.models import api, pv_rcnn
+    from modest_tpu_torch.models.roi_head import proposal_layer
+    from modest_tpu_torch.ops import pointnet2_stack
+
+    def used(got, want, keys):
+        return max(float(((got[k] - want[k]).abs() / (atol + FORWARD_RTOL * want[k].abs())).max())
+                   for k, atol in zip(keys, (MATCH_SCORE, MATCH_SIZE)))
+
+    real = pointnet2_stack.ball_query_masked
+    queries = []
+
+    def recording(*args):
+        result = real(*args)
+        queries.append(tuple(t.cpu() for t in result))
+        return result
+
+    dev = next(card_model.parameters()).device
+    with mock.patch.object(pointnet2_stack, "ball_query_masked", recording):
+        out = api.apply_eval(card_model, model_cfg, scan.to(dev))
+    got = {k: v.cpu() for k, v in api.post_process(out, model_cfg).items() if v is not None}
+    card = {k: v.cpu() for k, v in out.items() if torch.is_tensor(v)}
+    own_queries = []
+
+    def recording_own(*args):
+        result = real(*args)
+        own_queries.append(result)
+        return result
+
+    with mock.patch.object(pointnet2_stack, "ball_query_masked", recording_own):
+        cpu = api.apply_eval(cpu_model, model_cfg, scan)
+    want = api.post_process(cpu, model_cfg)
+    valid = card["roi_valid"][0]
+    same_order = bool((valid == cpu["roi_valid"][0]).all()) and float(
+        (card["rois"][0][valid] - cpu["rois"][0][valid]).abs().max()) <= MATCH_SIZE
+    n_grid = len(model_cfg.ROI_HEAD.ROI_GRID_POOL.POOL_RADIUS)
+    vsa_differ = sum(int((a[0] != b[0]).sum()) for a, b in zip(own_queries[:-n_grid],
+                                                               queries[:-n_grid]))
+    grid_differ = (sum(int((a[0] != b[0]).sum()) for a, b in zip(own_queries[-n_grid:],
+                                                                 queries[-n_grid:]))
+                   if same_order else None)
+    with torch.inference_mode():
+        bcls, bbox = cpu_model.generate_predicted_boxes(card["cls_preds"], card["box_preds"],
+                                                        card["dir_cls_preds"])
+    nms = model_cfg.ROI_HEAD.NMS_CONFIG.TEST
+    rois, roi_scores, _, roi_valid = proposal_layer(
+        bbox, bcls.reshape(1, -1, cpu_model.num_class), nms_pre=int(nms.NMS_PRE_MAXSIZE),
+        nms_post=int(nms.NMS_POST_MAXSIZE), nms_thresh=float(nms.NMS_THRESH))
+    forced = tuple(card[k] for k in ("rois", "roi_scores", "roi_labels", "roi_valid"))
+    replay, slots = iter(queries), [0, 0]
+
+    def replaying(*args):
+        idx, _ = real(*args)
+        card_idx, card_empty = next(replay)
+        slots[0] += int((idx != card_idx).sum())
+        slots[1] += idx.numel()
+        return card_idx, card_empty
+
+    with mock.patch.object(pv_rcnn, "proposal_layer", lambda *a, **k: forced), \
+            mock.patch.object(pointnet2_stack, "ball_query_masked", replaying):
+        given = api.apply_eval(cpu_model, model_cfg, scan)
+    if next(replay, None) is not None:
+        fail("pv_rcnn card vs CPU: the CPU ran fewer ball queries than the card")
+    row = {
+        "keypoints_equal": bool((cpu["keypoints"] == card["keypoints"]).all()),
+        "dense_tol_used": used(card, cpu, ("cls_preds", "box_preds")),
+        "proposals_given_card_dense": match_rois(
+            np, card, {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid}),
+        "ball_queries": len(queries), "ball_slots_differ_share": slots[0] / slots[1],
+        "own_vsa_slots_differ": vsa_differ, "rois_same_order": same_order,
+        "own_grid_slots_differ": grid_differ,
+        "rcnn_tol_used": used(card, given, ("batch_cls_preds", "batch_box_preds")),
+        "finals_given_card_rcnn": match_finals(np, got, api.post_process(card, model_cfg))[
+            "match_frac"],
+        "proposals_card_vs_cpu": match_rois(np, card, cpu),
+        "finals_given_card_rois": match_finals(np, got, api.post_process(given, model_cfg))[
+            "match_frac"]}
+    return row, got, want
+
+
+def phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card):
+    """PV-RCNN's eval forward + post-process at full width, B = 4 scans of
+    65536 points: a warm-up whose keypoints must equal the plain FPS's,
+    then PV_TIMED_ITERS timed forwards (scans/s, stage ms by CUDA events,
+    peak memory, FPS launches: one a forward)."""
+    from modest_tpu_torch.ops import pointnet2 as p2
+    from modest_tpu_torch.ops.fps import furthest_point_sample_plain
+
+    dev = batch["points"].device
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=0, dataset=ds)
+    calibrate_grid_model(torch, api, model, cfg.MODEL, batch)
+    points = batch["points"]
+    out = api.apply_eval(model, cfg.MODEL, points)
+    xyz = points[..., :3].contiguous()
+    plain = p2.gather_points(xyz, furthest_point_sample_plain(xyz, PV_KEYPOINTS))
+    keypoint_mismatches = int((out["keypoints"] != plain).any(-1).sum())
+    detections = check_final(torch, api.post_process(out, cfg.MODEL), GRID_BATCH,
+                             "pv_rcnn forward on the card")
+
+    events = []
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((stage, ev))
+
+    stage_ms = {stage: 0.0 for stage in (*model.stages, "post_nms")}
+    forward_ms = []
+    counts = reset_fps_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PV_TIMED_ITERS):
+        t_it = time.perf_counter()
+        events.clear()
+        mark("start")
+        final = run_path(api, model, cfg.MODEL, points, on_stage=mark)
+        mark("post_nms")
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t_it) * 1e3)
+        for (_, a), (stage, b) in zip(events, events[1:]):
+            stage_ms[stage] += a.elapsed_time(b) / PV_TIMED_ITERS
+    wall = time.perf_counter() - t0
+    launches = dict(counts)
+    forward_ms.sort()
+    check_final(torch, final, GRID_BATCH, "pv_rcnn timed forward on the card")
+    row = {"phase": "pv_rcnn_forward", "batch": GRID_BATCH,
+           "points_per_scan": int(points.shape[1]), "grid_size": [int(v) for v in ds.grid_size],
+           "keypoints": PV_KEYPOINTS, "keypoint_mismatches": keypoint_mismatches,
+           "detections": detections, "kept_per_scan": final["valid"].sum(1).tolist(),
+           "stage_ms": stage_ms, "forward_ms_median": forward_ms[len(forward_ms) // 2],
+           "forward_ms_max": forward_ms[-1], "timed_forwards": PV_TIMED_ITERS,
+           "scans_per_s": GRID_BATCH * PV_TIMED_ITERS / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "fps_kernel_launches": launches,
+           "fps_launches_per_forward": sum(launches.values()) / PV_TIMED_ITERS, "card": card}
+    emit(row)
+    if keypoint_mismatches:
+        fail(f"pv_rcnn: {keypoint_mismatches} keypoints differ from the plain FPS's")
+    if launches != {"fps_cluster_kernel": PV_TIMED_ITERS, "fps_warp_kernel": 0}:
+        fail(f"pv_rcnn: {PV_TIMED_ITERS} forwards launched the fps kernels {launches} times")
+    return model, row
+
+
+def phase_pv_card_vs_cpu(torch, np, api, build_network, cfg, ds, model, batch, card):
+    """One scan's detections card vs CPU with the same weights: 1:1 >=
+    MIN_BOX_MATCH, or ``pv_forward_chain`` stage by stage."""
+    cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device="cpu", dataset=ds)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    chain, got, want = pv_forward_chain(torch, np, model, cpu_model, cfg.MODEL,
+                                        batch["points"][:1].cpu())
+    match = match_finals(np, got, want)
+    emit({"phase": "pv_rcnn_card_vs_cpu", "points": int(batch["points"].shape[1]), **match,
+          **chain, "chain_s": time.perf_counter() - t0, "card": card})
+    if not chain["keypoints_equal"]:
+        fail("pv_rcnn card vs CPU: the keypoints differ")
+    check_chain(chain, match["match_frac"], match["card_detections"] + match["cpu_detections"],
+                "pv_rcnn card vs CPU", stage1=("dense_tol_used", "proposals_given_card_dense"),
+                parted=not chain["rois_same_order"] or bool(chain["own_vsa_slots_differ"])
+                or bool(chain["own_grid_slots_differ"]))
+
+
+def pv_train_argv(root, out, epochs, *flags):
+    """cli/train.py's arguments; ``flags`` go before ``--set``, which takes
+    the rest of the line."""
+    return ["--cfg_file", str(REPO / PV_CFG), "--data_path", str(root), "--epochs", str(epochs),
+            "--fix_random_seed", "--output_dir", str(out), *flags, "--set", "OPTIMIZATION.LR",
+            str(PV_LR), "DATA_CONFIG.DATA_SPLIT.test", "train", "DATA_CONFIG.INFO_PATH.test",
+            "[kitti_infos_train.pkl]"]
+
+
+def phase_pv_train(torch, np, dev, root, card):
+    """cli/train.py on PV-RCNN at full width and the config's B = 2:
+    PV_EPOCHS epochs (16 steps) with --eval_after_train on the training
+    scans; then a resume from the epoch-1 checkpoint, and cli/test.py on its
+    checkpoint. One FPS launch a step and a test batch."""
+    from modest_tpu_torch.cli import test as test_cli
+    from modest_tpu_torch.cli import train as train_cli
+
+    out = root / "pv_rcnn"
+    per_epoch = TRAIN_SCANS // TRAIN_BATCH
+    test_batches = -(-TRAIN_SCANS // TRAIN_BATCH)
+    counts = reset_fps_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train_cli.main(pv_train_argv(root, out, PV_EPOCHS, "--eval_after_train"),
+                           stage_times=True)
+    seconds = time.perf_counter() - t0
+    launches = dict(counts)
+    hist = state.history
+    if len(hist) != per_epoch * PV_EPOCHS:
+        fail(f"pv_rcnn train: {len(hist)} steps")
+    check_history(np, hist, "pv_rcnn train")
+    with open(out / "eval" / f"epoch_{PV_EPOCHS}" / "val" / "result.pkl", "rb") as f:
+        annos = pickle.load(f)
+    ids = (root / "ImageSets" / "train.txt").read_text().split()
+    check_result(np, annos, ids, "pv_rcnn eval after train")
+    want = {"fps_cluster_kernel": len(hist) + test_batches, "fps_warp_kernel": 0}
+    timed = hist[2:]
+    stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
+    emit({"phase": "pv_rcnn_train", "batch": TRAIN_BATCH, "steps": len(hist),
+          "epochs": PV_EPOCHS, "lr": PV_LR, "last_lr": state.optimizer.current_lr(),
+          "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
+          "scans_per_s": TRAIN_BATCH * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"]),
+          "timed_steps": len(timed),
+          "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[1]["end_s"]) / len(timed),
+          "data_wait_ms": sum(r["data_wait_ms"] for r in timed) / len(timed),
+          "forward_ms": sum(stage_ms[k] for k in state.model.stages), "stage_ms": stage_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "eval_frames": len(annos), "eval_detections": int(sum(len(a["score"]) for a in annos)),
+          "fps_kernel_launches": launches, "fps_launches_expected": want,
+          "cli_seconds": seconds, "card": card})
+    if launches != want:
+        fail(f"pv_rcnn train: {len(hist)} steps and {test_batches} test batches launched the "
+             f"fps kernels {launches} times, not {want}")
+
+    resumed_out = root / "pv_rcnn_resumed"
+    (resumed_out / "ckpt").mkdir(parents=True)
+    shutil.copy(out / "ckpt" / "checkpoint_epoch_1.pth", resumed_out / "ckpt")
+    resumed = train_cli.main(pv_train_argv(root, resumed_out, PV_EPOCHS))
+    first = resumed.history[0]
+    check_history(np, resumed.history, "pv_rcnn resumed train")
+    counts = reset_fps_counts()
+    annos, _ = test_cli.main(["--cfg_file", str(REPO / PV_CFG), "--ckpt_dir",
+                              str(resumed_out / "ckpt"), "--data_path", str(root),
+                              "--output_dir", str(resumed_out / "test"), "--batch_size",
+                              str(TRAIN_BATCH), "--set", "DATA_CONFIG.DATA_SPLIT.test", "train",
+                              "DATA_CONFIG.INFO_PATH.test", "[kitti_infos_train.pkl]"])
+    test_launches = dict(counts)
+    check_result(np, annos, ids, "pv_rcnn cli/test.py")
+    emit({"phase": "pv_rcnn_train_resume", "start_epoch": resumed.start_epoch,
+          "first_epoch": first["epoch"], "first_step": first["step"],
+          "steps": len(resumed.history), "test_frames": len(annos),
+          "test_fps_kernel_launches": test_launches, "card": card})
+    if (resumed.start_epoch, first["epoch"], first["step"], len(resumed.history)) != (
+            1, 1, per_epoch, per_epoch):
+        fail(f"pv_rcnn resume from epoch 1 restarted at epoch {first['epoch']}, "
+             f"step {first['step']}")
+    if test_launches != {"fps_cluster_kernel": test_batches, "fps_warp_kernel": 0}:
+        fail(f"pv_rcnn cli/test.py: {test_batches} batches launched {test_launches}")
+    return launches, len(hist), test_batches
+
+
+def phase_pv_rcnn(torch, np, api, build_network, dev, root, card):
+    """PV-RCNN on the grid phases' scans: forward, card vs CPU, training.
+    The FPS counts are set to 0 before each path and read after it."""
+    cfg = grid_config("pv_rcnn", root)
+    ds, batch = grid_batch(torch, cfg, dev)
+    model, forward_row = phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card)
+    phase_pv_card_vs_cpu(torch, np, api, build_network, cfg, ds, model, batch, card)
+    del model
+    torch.cuda.empty_cache()
+    train = phase_pv_train(torch, np, dev, root, card)
+    torch.cuda.empty_cache()
+    return forward_row, train
+
+
+def phase_prep(torch, np, dev, card):
+    """The dataset-preparation CLIs on tools/nu_scenes.py's drives, in a temp
+    dir: the SDK-free Lyft export, split_traintest, gather_historical_
+    traversals (PREP_PP_ORIGINS origins) and ransac_planes, then the PP CLI
+    on the card for PREP_PP_ORIGINS origins of the export. No module on the
+    way may load tqdm, PyYAML or PIL."""
+    from modest_tpu_torch.cli import pre_compute_pp_score
+    from modest_tpu_torch.ops.radius_count import radius_count_sorted_cuda as rc
+    from modest_tpu_torch.preprocessing import (converters, gather_historical_traversals,
+                                                ransac_planes, split_traintest)
+    from modest_tpu_torch.tools import nu_scenes
+    from modest_tpu_torch.utils.kitti_io import load_plane, load_velo_scan
+
+    before = set(sys.modules)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_prep_"))
+    try:
+        seconds = {}
+        t0 = time.perf_counter()
+        table_dir, track_list = nu_scenes.write_traversal_tables(tmp / "lyft", seed=0,
+                                                                 **PREP_DRIVES)
+        n_frames = sum(len(t) for t in track_list)
+        store = tmp / "kitti"
+        nu_scenes.write_kitti_images(store, n_frames)
+        with open(tmp / "tracks.pkl", "wb") as f:
+            pickle.dump(track_list, f)
+        seconds["write_tables"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        conv = converters.LyftToKittiConverter(store, tmp / "lyft", table_dir, use_sdk="auto")
+        conv.convert()
+        seconds["lyft_to_kitti"] = time.perf_counter() - t0
+        training = store / "training"
+        meta = store / "meta_data" / "lyft"
+        meta.mkdir(parents=True)
+        t0 = time.perf_counter()
+        split_traintest.main(["--data_root", str(store), "--track_list_file",
+                              str(tmp / "tracks.pkl"), "--save_root", str(meta)])
+        seconds["split_traintest"] = time.perf_counter() - t0
+        with open(meta / "fw70_2m_valid_train_idx_info.pkl", "rb") as f:
+            valid = pickle.load(f)
+        parts = -(-len(valid) // PREP_PP_ORIGINS)
+        t0 = time.perf_counter()
+        gather_historical_traversals.main([
+            "--data_root", str(training), "--track_list",
+            str(meta / "fw70_2m_train_track_list.pkl"), "--idx_info",
+            str(meta / "fw70_2m_valid_train_idx_info.pkl"), "--save_dir",
+            str(tmp / "historical"), "--total_part", str(parts)])
+        seconds["gather_historical_traversals"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ransac_planes.main(["--calib_dir", str(training / "calib"), "--lidar_dir",
+                            str(training / "velodyne"), "--planes_dir", str(training / "planes")])
+        seconds["ransac_planes"] = time.perf_counter() - t0
+        rc.launches = 0
+        t0 = time.perf_counter()
+        pre_compute_pp_score.main(pipeline_overrides(store, training, "device=cuda",
+                                                     f"total_part={parts}", "part=0"))
+        torch.cuda.synchronize()
+        seconds["pp_score"] = time.perf_counter() - t0
+        launches = rc.launches
+        origins = sorted(valid)[:PREP_PP_ORIGINS]
+        pp_dir = store / "intermediate_results/lyft_pp_score_fw70_2m_r0.3"
+        for gid in origins:
+            pp = np.load(pp_dir / f"{gid:06d}.npy")
+            n = load_velo_scan(training / "velodyne" / f"{gid:06d}.bin").shape[0]
+            if pp.shape != (n,) or not np.isfinite(pp).all() or pp.min() < -1e-6 \
+                    or pp.max() > 1 + 1e-6:
+                fail(f"prep: PP scores of origin {gid}: shape {pp.shape} for {n} points, or out "
+                     "of [0, 1]")
+        written = {sub: len(list((training / sub).iterdir()))
+                   for sub in ("velodyne", "calib", "oxts", "l2e", "label_2", "image_2",
+                               "planes")}
+        historical = len(list((tmp / "historical").iterdir()))
+        plane = load_plane(training / "planes" / "000000.txt")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded = sorted(m for m in ("tqdm", "yaml", "PIL") if m in set(sys.modules) - before)
+    emit({"phase": "prep", "frames": n_frames, "drives": len(track_list),
+          "table_reader": type(conv.lyft_ds).__name__, "valid_origins": len(valid),
+          "files": written, "historical_origins": historical, "plane": plane.tolist(),
+          "pp_origins": len(origins), "radius_count_launches": launches, "seconds": seconds,
+          "third_party_loaded": loaded, "card": card})
+    if any(v != n_frames for v in written.values()) or historical != len(origins):
+        fail(f"prep: files {written}, {historical} historical clouds for {n_frames} frames")
+    if launches != len(origins):
+        fail(f"prep: {len(origins)} PP origins launched the radius count {launches} times")
+    if loaded:
+        fail(f"prep: the port loaded {loaded}")
+    return launches
 
 
 def build_kernels(card):
@@ -2035,6 +2493,8 @@ def main() -> int:
         phase_train_overfit(torch, np, dev, tmp, card)
         phase_train_card_vs_cpu(torch, np, dev, tmp, card)
         phase_grid(torch, np, api, build_network, dev, tmp, card)
+        pv_row, (pv_train_launches, pv_steps, pv_test_batches) = phase_pv_rcnn(
+            torch, np, api, build_network, dev, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2057,6 +2517,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    prep_launches = phase_prep(torch, np, dev, card)
     knn_rows, knn_launches, knn_fallbacks = phase_knn(torch, dev, card)
     knn_kernel_rows = phase_knn_vs_plain(torch, np, dev, card)
     knn_path_rows = knn_kernel_rows[:len(knn_rows)]
@@ -2102,7 +2563,19 @@ def main() -> int:
                                           for stage in round_stages),
             "self_train_stages": list(round_stages),
             "self_train_shapes": "launches over cli/self_train.py's round 1: the train steps "
-                                 "and the train-split test batches, 3 per forward"})
+                                 "and the train-split test batches, 3 per forward",
+            "pv_rcnn_launches": pv_row["fps_kernel_launches"][kernel],
+            "pv_rcnn_forwards": PV_TIMED_ITERS,
+            "pv_rcnn_train_launches": pv_train_launches[kernel], "pv_rcnn_train_steps": pv_steps,
+            "pv_rcnn_test_batches": pv_test_batches,
+            **({stage: {key: fps_rows[stage][key] for key in (
+                "B", "N", "npoint", "cluster", "per_thread", "max_abs_err", "ms",
+                "kernel_device_ms", "us_per_step", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")} for stage in ("pv_keypoints", "train_pv_keypoints")}
+               if kernel == "fps_cluster_kernel" else {}),
+            "pv_rcnn_shapes": "keypoint FPS, one call per PV-RCNN forward (B=4) and train step "
+                              "(B=2) of 65536 points to 2048; launches over the timed forwards, "
+                              "then the train steps and the eval-after-train batches"})
     emit({"kernels": [*fps_kernels, {
         "name": "radius_count", "route": "cuda", "source": "modest_tpu_torch/csrc/radius_count.cu",
         "replaces": "modest_tpu/ops/pallas_radius_count.py:81",
@@ -2110,6 +2583,7 @@ def main() -> int:
         "mismatches": rc_row["mismatches"], "ms": rc_row["ms"], "plain_ms": rc_row["plain_ms"],
         "bound_ms": rc_row["bound_ms"], "bound_by": rc_row["bound_by"], "library_ms": None,
         "kernel_device_ms": rc_row["kernel_device_ms"], "chunk_tiles": rc_row["chunk_tiles"],
+        "prep_launches": prep_launches,
         "work_items": rc_row["work_items"],
         "shapes": f"one PP origin: {rc_row['queries']} queries, T={rc_row['T']}, "
                   f"M={rc_row['M']}; launches over {pp_row['origins_timed']} origins",

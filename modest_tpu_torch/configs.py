@@ -6,8 +6,9 @@ detector, 12288-point Lyft scans); ``POINTRCNN_DYNAMIC_OBJ_FULL`` is the
 whole file (``CLASS_NAMES``, ``DATA_CONFIG`` with its ``_BASE_CONFIG_``
 ``configs/datasets/lyft_dataset_dynamic_obj.yaml`` merged in, ``MODEL``,
 ``OPTIMIZATION``), which ``cli/train.py`` takes when ``--cfg_file`` names
-that file. ``POINTPILLAR_DYNAMIC_OBJ(_FULL)`` and ``SECOND_DYNAMIC_OBJ(_FULL)``
-are the grid detectors' files of the same directory, in the same forms. ``PIPELINE_*`` are
+that file. ``POINTPILLAR_DYNAMIC_OBJ(_FULL)``, ``SECOND_DYNAMIC_OBJ(_FULL)`` and
+``PV_RCNN_DYNAMIC_OBJ(_FULL)`` are the grid detectors' and PV-RCNN's files
+of the same directory, in the same forms. ``PIPELINE_*`` are
 ``configs/pipeline/{pp_score,generate_mask}.yaml`` and the
 ``data_paths/{fw70_2m,nusc}.yaml`` group, each exactly as PyYAML parses it;
 tests hold them equal.
@@ -313,11 +314,108 @@ SECOND_DYNAMIC_OBJ_FULL = {
     "OPTIMIZATION": GRID_OPTIMIZATION,
 }
 
+# PV-RCNN: configs/models/lyft_models/pv_rcnn_dynamic_obj.yaml, the SECOND file's
+# data and stage 1 with the keypoint set abstraction and the RoI-grid head
+# (pcdet's kitti_models/pv_rcnn.yaml heads), at the flagship's optimization
+
+
+def _sa(mlps, radii, nsamples, downsample=None):
+    layer = {} if downsample is None else {"DOWNSAMPLE_FACTOR": downsample}
+    return {**layer, "MLPS": mlps, "POOL_RADIUS": radii, "NSAMPLE": nsamples}
+
+
+def _pv_rcnn_model_config():
+    base = _grid_model_config("PVRCNN", 8)
+    return {
+        "NAME": "PVRCNN",
+        "VFE": {"NAME": "MeanVFE"},
+        "BACKBONE_3D": {"NAME": "VoxelBackBone8x"},
+        "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+        "BACKBONE_2D": SECOND_DYNAMIC_OBJ["BACKBONE_2D"],
+        "DENSE_HEAD": base["DENSE_HEAD"],
+        "PFE": {
+            "NAME": "VoxelSetAbstraction",
+            "POINT_SOURCE": "raw_points",
+            "NUM_KEYPOINTS": 2048,
+            "NUM_OUTPUT_FEATURES": 128,
+            "SAMPLE_METHOD": "FPS",
+            "FEATURES_SOURCE": ["bev", "x_conv1", "x_conv2", "x_conv3", "x_conv4", "raw_points"],
+            "SA_LAYER": {
+                "raw_points": _sa([[16, 16], [16, 16]], [0.4, 0.8], [16, 16]),
+                "x_conv1": _sa([[16, 16], [16, 16]], [0.4, 0.8], [16, 16], 1),
+                "x_conv2": _sa([[32, 32], [32, 32]], [0.8, 1.2], [16, 32], 2),
+                "x_conv3": _sa([[64, 64], [64, 64]], [1.2, 2.4], [16, 32], 4),
+                "x_conv4": _sa([[64, 64], [64, 64]], [2.4, 4.8], [16, 32], 8),
+            },
+        },
+        "POINT_HEAD": {
+            "NAME": "PointHeadSimple",
+            "CLS_FC": [256, 256],
+            "CLASS_AGNOSTIC": True,
+            "USE_POINT_FEATURES_BEFORE_FUSION": True,
+            "TARGET_CONFIG": {"GT_EXTRA_WIDTH": [0.2, 0.2, 0.2]},
+            "LOSS_CONFIG": {"LOSS_REG": "smooth-l1",
+                            "LOSS_WEIGHTS": {"point_cls_weight": 1.0}},
+        },
+        "ROI_HEAD": {
+            "NAME": "PVRCNNHead",
+            "CLASS_AGNOSTIC": True,
+            "SHARED_FC": [256, 256],
+            "CLS_FC": [256, 256],
+            "REG_FC": [256, 256],
+            "DP_RATIO": 0.3,
+            "NMS_CONFIG": {
+                "TRAIN": {"NMS_TYPE": "nms_gpu", "MULTI_CLASSES_NMS": False,
+                          "NMS_PRE_MAXSIZE": 9000, "NMS_POST_MAXSIZE": 512,
+                          "NMS_THRESH": 0.8},
+                "TEST": {"NMS_TYPE": "nms_gpu", "MULTI_CLASSES_NMS": False,
+                         "NMS_PRE_MAXSIZE": 1024, "NMS_POST_MAXSIZE": 100,
+                         "NMS_THRESH": 0.7},
+            },
+            "ROI_GRID_POOL": {"GRID_SIZE": 6, "MLPS": [[64, 64], [64, 64]],
+                              "POOL_RADIUS": [0.8, 1.6], "NSAMPLE": [16, 16],
+                              "POOL_METHOD": "max_pool"},
+            "TARGET_CONFIG": {
+                "BOX_CODER": "ResidualCoder",
+                "ROI_PER_IMAGE": 128,
+                "FG_RATIO": 0.5,
+                "SAMPLE_ROI_BY_EACH_CLASS": True,
+                "CLS_SCORE_TYPE": "roi_iou",
+                "CLS_FG_THRESH": 0.75,
+                "CLS_BG_THRESH": 0.25,
+                "CLS_BG_THRESH_LO": 0.1,
+                "HARD_BG_RATIO": 0.8,
+                "REG_FG_THRESH": 0.55,
+            },
+            "LOSS_CONFIG": {
+                "CLS_LOSS": "BinaryCrossEntropy",
+                "REG_LOSS": "smooth-l1",
+                "CORNER_LOSS_REGULARIZATION": True,
+                "LOSS_WEIGHTS": {"rcnn_cls_weight": 1.0, "rcnn_reg_weight": 1.0,
+                                 "rcnn_corner_weight": 1.0, "code_weights": [1.0] * 7},
+            },
+        },
+        "POST_PROCESSING": {**base["POST_PROCESSING"],
+                            "NMS_CONFIG": {**base["POST_PROCESSING"]["NMS_CONFIG"],
+                                           "NMS_THRESH": 0.1}},
+    }
+
+
+PV_RCNN_DYNAMIC_OBJ = _pv_rcnn_model_config()
+
+PV_RCNN_DYNAMIC_OBJ_FULL = {
+    "CLASS_NAMES": ["Dynamic"],
+    "DATA_CONFIG": SECOND_DYNAMIC_OBJ_FULL["DATA_CONFIG"],
+    "MODEL": PV_RCNN_DYNAMIC_OBJ,
+    "OPTIMIZATION": POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION,
+}
+
 # the YAML files (relative to the repository root) that ship as the dicts above
 SHIPPED_MODEL_CONFIGS = {
     "configs/models/lyft_models/pointrcnn_dynamic_obj.yaml": POINTRCNN_DYNAMIC_OBJ_FULL,
     "configs/models/lyft_models/pointpillar_dynamic_obj.yaml": POINTPILLAR_DYNAMIC_OBJ_FULL,
     "configs/models/lyft_models/second_dynamic_obj.yaml": SECOND_DYNAMIC_OBJ_FULL,
+    "configs/models/lyft_models/pv_rcnn_dynamic_obj.yaml": PV_RCNN_DYNAMIC_OBJ_FULL,
 }
 
 

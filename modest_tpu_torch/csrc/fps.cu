@@ -19,7 +19,14 @@
 //     block cluster of C CTAs per cloud (C from table_cluster_size(), by
 //     measurement). Each CTA owns a contiguous range of ceil(N / C) points,
 //     and each thread keeps x, y, z and the running distance of its P <= 8
-//     points in registers, so a step touches no memory per point. A step is
+//     points in registers, so a step touches no memory per point. Clouds
+//     past 32768 points (PV-RCNN's keypoints: 65536) take P = 16 in the same
+//     8 CTAs of at most 512 threads: the table of 128 winner slots and the
+//     per-step exchange stay as they are, and the scan a thread runs per
+//     step doubles; its 64 point registers fit the 128 that one 512-thread
+//     CTA per SM leaves a thread. (1024-thread CTAs at P = 8 would double
+//     the 128 slots that every warp scans per step and cap a thread at 64
+//     registers.) A step is
 //     a branch-free register scan, a warp argmax by redux.sync (max of the
 //     distance's bits, then min of the indices that hold it), each warp's
 //     winner (distance, index, x, y, z) stored into its slot of every CTA's
@@ -53,6 +60,7 @@ constexpr int kLargeCloud = 1024;     // N at and above which a cloud gets a clu
 constexpr int kTargetThreads = 128;   // cluster kernel: threads per CTA it aims at
 constexpr int kMaxThreads = 512;      // per CTA: at most 4096 points with P = 8
 constexpr int kMaxPerThread = 8;      // P: points a thread keeps in registers (clusters)
+constexpr int kWidePerThread = 16;    // P past kMaxThreads * kMaxPerThread points a CTA
 constexpr int kSmallMaxPerThread = 32;  // P of the small-cloud kernel: N < 1024
 constexpr int kMaxCluster = 8;        // the largest portable cluster size
 constexpr int kMaxSlots = kMaxCluster * kMaxThreads / 32;  // one per warp of a cluster
@@ -324,13 +332,17 @@ int table_cluster_size(int n) {
 
 // Points per thread and threads per CTA for a range of `chunk` points: the
 // fewest points per thread (1, 2, 4, 8) that keep a CTA at or under
-// kTargetThreads, else 8 points and more threads. The table keeps chunk at
-// or under kMaxThreads * kMaxPerThread for every N up to fps_max_points().
+// kTargetThreads, else 8 points and more threads, up to kMaxThreads (every
+// N <= 32768), else 16 points (N <= 65536 at the table's 8 CTAs).
 void cta_shape(int chunk, int* per_thread, int* threads) {
   for (int p = 1; p <= kMaxPerThread; p *= 2) {
     *per_thread = p;
     *threads = ((chunk + p - 1) / p + 31) / 32 * 32;
     if (*threads <= kTargetThreads) return;
+  }
+  if (*threads > kMaxThreads) {
+    *per_thread = kWidePerThread;
+    *threads = ((chunk + kWidePerThread - 1) / kWidePerThread + 31) / 32 * 32;
   }
 }
 
@@ -357,13 +369,27 @@ cudaError_t launch_cluster(const float* xyz, int* out, int batch, int n, int npo
 extern "C" {
 
 // Largest N one launch takes: the table's cluster of 8 CTAs of 512 threads
-// with 8 points each.
-int fps_max_points() { return kMaxCluster * kMaxThreads * kMaxPerThread; }
+// with 16 points each.
+int fps_max_points() { return kMaxCluster * kMaxThreads * kWidePerThread; }
 
 // The cluster size fps_launch takes for N; 0 below kLargeCloud (the warp
 // kernel).
 int fps_cluster_size(int n) {
   return n < kLargeCloud ? 0 : table_cluster_size(n);
+}
+
+// The points a thread keeps (P) in the launch fps_launch makes for N: the
+// cluster kernel's cta_shape, or the warp kernel's ceil(N / 32) rounded up
+// to a power of two.
+int fps_per_thread(int n) {
+  int per_thread = 1, threads = 0;
+  if (n >= kLargeCloud) {
+    const int csize = table_cluster_size(n);
+    cta_shape((n + csize - 1) / csize, &per_thread, &threads);
+  } else {
+    while (per_thread < (n + 31) / 32) per_thread *= 2;
+  }
+  return per_thread;
 }
 
 // xyz: (batch, n, 3) float32, contiguous, on the device; out: (batch, npoint)
@@ -386,7 +412,10 @@ int fps_launch(const float* xyz, int* out, int batch, int n, int npoint, const c
       case 1: e = launch_cluster<1>(xyz, out, batch, n, npoint, csize, threads, chunk, st); break;
       case 2: e = launch_cluster<2>(xyz, out, batch, n, npoint, csize, threads, chunk, st); break;
       case 4: e = launch_cluster<4>(xyz, out, batch, n, npoint, csize, threads, chunk, st); break;
-      default: e = launch_cluster<8>(xyz, out, batch, n, npoint, csize, threads, chunk, st);
+      case 8: e = launch_cluster<8>(xyz, out, batch, n, npoint, csize, threads, chunk, st); break;
+      default:
+        e = launch_cluster<kWidePerThread>(xyz, out, batch, n, npoint, csize, threads, chunk,
+                                           st);
     }
   } else {
     *kernel = "fps_warp_kernel";

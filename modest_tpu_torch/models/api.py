@@ -1,6 +1,7 @@
 """Model-family dispatch: forward, loss and post-processing — port of
-``modest_tpu/models/api.py`` for the detectors the port has: PointRCNN and
-the grid detectors (PointPillar, SECONDNet)."""
+``modest_tpu/models/api.py`` for the detectors the port has: PointRCNN, the
+grid detectors (PointPillar, SECONDNet) and PVRCNN. The two-stage heads
+(PointRCNN, PVRCNN) share the refined-box post-processing."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +9,7 @@ import torch
 from .pointrcnn import pointrcnn_loss
 from .pointrcnn import post_process as _pointrcnn_post_process
 
-PORTED = ("PointRCNN", "PointPillar", "SECONDNet")
+PORTED = ("PointRCNN", "PointPillar", "SECONDNet", "PVRCNN")
 
 
 def is_grid_model(model_cfg) -> bool:
@@ -25,8 +26,8 @@ def apply_train(model, model_cfg, points, gt_boxes, roi_draws=None, on_stage=Non
     """Train-mode forward of ``model`` (put in train mode) on ``points``
     (B, N, 3+C) and zero-padded ``gt_boxes`` (B, M, 8), with autograd; the
     batch norms update their running statistics as a side effect.
-    ``roi_draws`` are PointRCNN's RoI-sampler draws; a grid model draws
-    none."""
+    ``roi_draws`` are the RoI sampler's draws of PointRCNN and PVRCNN; a
+    grid model draws none."""
     _check_ported(model_cfg)
     model.train()
     if is_grid_model(model_cfg):
@@ -41,6 +42,10 @@ def compute_loss(out, gt_boxes, model_cfg, num_class: int = 1):
         from .grid_detectors import grid_detector_loss
 
         return grid_detector_loss(out, model_cfg, num_class)
+    if model_cfg.NAME == "PVRCNN":
+        from .pv_rcnn import pvrcnn_loss
+
+        return pvrcnn_loss(out, gt_boxes, model_cfg, num_class)
     return pointrcnn_loss(out, gt_boxes, model_cfg, num_class)
 
 

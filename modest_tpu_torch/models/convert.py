@@ -1,10 +1,12 @@
 """Carry weights into the port: from the JAX package's detectors, and from
 pcdet checkpoints.
 
-``state_dict_from_jax(params, batch_stats)`` (PointRCNN) and
+``state_dict_from_jax(params, batch_stats)`` (PointRCNN),
 ``grid_state_dict_from_jax(params, batch_stats, model_cfg)`` (PointPillar,
-SECONDNet) take the flax param and batch-stat trees (nested mappings of
-arrays) and return the port's ``state_dict``. ``state_dict_from_pcdet``
+SECONDNet) and ``pvrcnn_state_dict_from_jax(params, batch_stats, model_cfg)``
+(PVRCNN; the JAX package has no pcdet route for it, nor has the port) take
+the flax param and batch-stat trees (nested mappings of arrays) and return
+the port's ``state_dict``. ``state_dict_from_pcdet``
 brings a pcdet ``model_state`` to the port's layouts. The port's keys are
 pcdet's keys, so the layout rules are those of a pcdet checkpoint:
 
@@ -216,6 +218,30 @@ def grid_state_dict_from_jax(params, batch_stats, model_cfg):
             sd[f"dense_head.{name}.weight"] = _conv2d(head[ours]["kernel"])
             sd[f"dense_head.{name}.bias"] = head[ours]["bias"]
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def pvrcnn_state_dict_from_jax(params, batch_stats, model_cfg):
+    """JAX ``PVRCNN`` (params, batch_stats) → the port's ``state_dict``: stage
+    1 as SECOND's, each VSA source's and the RoI-grid pool's per-radius
+    ``SharedMLP_i`` → ``.i``, the fusion and shared-FC stacks, and the PKW
+    and RCNN ``FCHead``s."""
+    P, S = _plain(params), _plain(batch_stats)
+    sd = dict(grid_state_dict_from_jax(params, batch_stats, model_cfg))
+
+    def sources(jax_name, port_name):
+        for i in _numbered(P[jax_name], "SharedMLP"):
+            sd.update(_prefixed(f"{port_name}.{i}", mlp_state_from_jax(
+                P[jax_name][f"SharedMLP_{i}"], S.get(jax_name, {}).get(f"SharedMLP_{i}"))))
+
+    for name in model_cfg.PFE.FEATURES_SOURCE:
+        if name != "bev":
+            sources(f"vsa_{name}", f"vsa.{name}")
+    sources("roi_grid_pool", "roi_grid_pool")
+    for name in ("vsa_fusion", "roi_shared_fc"):
+        sd.update(_prefixed(name, mlp_state_from_jax(P[name], S.get(name))))
+    for name in ("pkw_head", "rcnn_cls", "rcnn_reg"):
+        sd.update(_prefixed(name, _fc_state(P, S, name)))
+    return sd
 
 
 def spconv_layout(model_state) -> str:

@@ -275,7 +275,7 @@ def _refuse_unported(cfg):
         raise NotImplementedError("only the 7-dim residual box coder is ported")
     if cfg.POST_PROCESSING.NMS_CONFIG.get("MULTI_CLASSES_NMS", False):
         raise NotImplementedError("multi-class NMS is not ported")
-    if cfg.NAME == "SECONDNet":
+    if cfg.NAME in ("SECONDNet", "PVRCNN"):
         name = cfg.get("BACKBONE_3D", {}).get("NAME", "VoxelBackBone8x")
         if name != "VoxelBackBone8x":
             raise NotImplementedError(f"sparse backbone {name} is not ported")
@@ -320,6 +320,7 @@ class GridDetector(nn.Module):
                 nz = (nz + 2 * pad - 3) // 2 + 1
             bev_channels = 128 * ((nz - 3) // 2 + 1)
             self.stages = ("voxelize", "backbone_3d", "backbone_2d", "dense_head")
+        self.num_bev_features = bev_channels
         self.backbone_2d = BaseBEVBackbone(cfg.BACKBONE_2D, bev_channels)
         self.dense_head = AnchorHeadSingle(
             self.backbone_2d.num_bev_features, num_class, na, self.box_coder.code_size,

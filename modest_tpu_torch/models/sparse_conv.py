@@ -180,14 +180,23 @@ def height_compress(x, keys, valid, shape_zyx):
     return dense.permute(0, 1, 4, 2, 3).reshape(b, nz * c, ny, nx)
 
 
+# each scale's stride against the input voxel grid
+BACKBONE_STRIDES = {"x_conv1": 1, "x_conv2": 2, "x_conv3": 4, "x_conv4": 8}
+
+
 class VoxelBackBone8x(nn.Module):
     """spconv VoxelBackBone8x (reference spconv_backbone.py:68-180) on the
     gather-scatter convs. Input: each scan's active voxels of the (nz + 1,
     ny, nx) grid with their mean features; output: the dense BEV map
-    (B, 2·128, ny/8, nx/8) after ``conv_out`` and height compression."""
+    (B, 2·128, ny/8, nx/8) after ``conv_out`` and height compression. With
+    ``return_multiscale`` it returns (BEV map, scales): ``scales`` maps
+    x_conv1..x_conv4 to that stage's (feats, coords zyx, valid, keys), the
+    sources of PV-RCNN's voxel set abstraction (strides
+    ``BACKBONE_STRIDES``)."""
 
-    def __init__(self, in_channels: int = 4):
+    def __init__(self, in_channels: int = 4, return_multiscale: bool = False):
         super().__init__()
+        self.return_multiscale = return_multiscale
 
         def subm(cin, cout):
             return SparseBlock(SubMConv3d(cin, cout), cout)
@@ -213,6 +222,7 @@ class VoxelBackBone8x(nn.Module):
         rows = neighbor_index(keys, valid, coords, shape_zyx, OFFSETS3)
         x = self.conv_input(feats, valid, rows, valid)
         x = self.conv1[0](x, valid, rows, valid)
+        scales = {"x_conv1": (x, coords, valid, keys)}
         s = shape_zyx
         for name, stage in (("conv2", self.conv2), ("conv3", self.conv3), ("conv4", self.conv4)):
             conv = stage[0][0]
@@ -225,6 +235,7 @@ class VoxelBackBone8x(nn.Module):
             rows = neighbor_index(keys, valid, coords, s, OFFSETS3)
             for block in stage[1:]:
                 x = block(x, valid, rows, valid)
+            scales[f"x_{name}"] = (x, coords, valid, keys)
         conv = self.conv_out[0]
         s_out = down_shape(s, conv.stride, conv.padding, conv.kernel)
         if record:
@@ -234,7 +245,8 @@ class VoxelBackBone8x(nn.Module):
         if record:
             counts["conv_out"] = valid.sum(1)
             self.active_counts = counts
-        return height_compress(x, keys, valid, s_out)
+        bev = height_compress(x, keys, valid, s_out)
+        return (bev, scales) if self.return_multiscale else bev
 
 
 def kernel_sites_z3(coords, valid, out_shape_zyx):

@@ -26,6 +26,8 @@ def _lib():
     lib.fps_max_points.restype = ctypes.c_int
     lib.fps_cluster_size.argtypes = [ctypes.c_int]
     lib.fps_cluster_size.restype = ctypes.c_int
+    lib.fps_per_thread.argtypes = [ctypes.c_int]
+    lib.fps_per_thread.restype = ctypes.c_int
     lib.fps_error_string.argtypes = [ctypes.c_int]
     lib.fps_error_string.restype = ctypes.c_char_p
     return lib
@@ -55,6 +57,12 @@ def cluster_size(n: int) -> int:
     """The thread-block cluster size ``csrc/fps.cu`` takes for an N-point
     cloud (0: N < 1024, the warp kernel). Builds the library."""
     return _lib().fps_cluster_size(n)
+
+
+def per_thread(n: int) -> int:
+    """The points a thread keeps in registers in ``csrc/fps.cu``'s launch for
+    an N-point cloud (P). Builds the library."""
+    return _lib().fps_per_thread(n)
 
 
 def furthest_point_sample_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:

@@ -1,10 +1,10 @@
 """Train state and one optimizer step — port of ``modest_tpu/train/state.py``.
 
 A step is: forward in train mode, loss, backward, gradient clipping and the
-update (``train/optim.py``). PointRCNN's RoI sampler draws at step ``s``
-from a ``torch.Generator`` seeded from (seed, s), as JAX folds the step into
-its "sampler" key, so a resumed run draws as the uninterrupted one would; a
-grid detector draws nothing.
+update (``train/optim.py``). The RoI sampler of PointRCNN and PVRCNN draws
+at step ``s`` from a ``torch.Generator`` seeded from (seed, s), as JAX folds
+the step into its "sampler" key, so a resumed run draws as the
+uninterrupted one would; a grid detector draws nothing.
 """
 from __future__ import annotations
 

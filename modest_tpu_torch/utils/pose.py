@@ -22,6 +22,20 @@ def euler_xyz_to_matrix(angles) -> np.ndarray:
     return Rz @ Ry @ Rx
 
 
+def matrix_to_euler_xyz(R: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`euler_xyz_to_matrix` (extrinsic xyz)."""
+    sy = np.sqrt(R[0, 0] ** 2 + R[1, 0] ** 2)
+    if sy > 1e-8:
+        a = np.arctan2(R[2, 1], R[2, 2])
+        b = np.arctan2(-R[2, 0], sy)
+        c = np.arctan2(R[1, 0], R[0, 0])
+    else:  # gimbal lock
+        a = np.arctan2(-R[1, 2], R[1, 1])
+        b = np.arctan2(-R[2, 0], sy)
+        c = 0.0
+    return np.array([a, b, c])
+
+
 def pose_from_oxts_line(vals) -> np.ndarray:
     """oxts/*.txt line = [x y z rx ry rz] → 4x4 ego pose (float32)."""
     vals = np.asarray(vals, dtype=np.float64)
