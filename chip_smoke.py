@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine paths, each at full size from fixed seeds:
+Eleven paths, each at full size from fixed seeds:
 
 * the flagship detector's eval forward plus post-processing (PointRCNN,
   configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
@@ -34,6 +34,14 @@ Nine paths, each at full size from fixed seeds:
   at B = 4 (keypoint FPS of 2048 of 65536 points a scan), and cli/train.py
   for 16 steps at B = 2 with an evaluation after training, a resume and
   cli/test.py on its checkpoint;
+* the two-stage voxel detectors SECOND-IoU, Voxel R-CNN and Part-A2
+  (configs/models/lyft_models/{second_iou,voxel_rcnn,part_a2}_dynamic_obj.yaml)
+  at full width on the same scans: their eval forward plus post-processing
+  at B = 4, cli/train.py for 8 steps at each config's batch and
+  cli/test.py on its checkpoint;
+* the nuScenes-Boston PointRCNN
+  (configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml, 6144
+  points a scan): cli/train.py for 4 steps at B = 2 and cli/test.py;
 * the dataset-preparation CLIs on a synthetic nuScenes-schema set of three
   drives (tools/nu_scenes.py, written to a temporary directory): the
   SDK-free Lyft export to KITTI, split_traintest, gather_historical_
@@ -52,10 +60,13 @@ Phases, each printing one JSON line:
    at the small-cloud kernel's register edges (N = 1, 33, 513, 1023), at
    PV-RCNN's keypoint sampling (65536 → 2048 points at B = 4 and 2, also
    on duplicates and a 1 m grid) and at the edges of the cluster kernel's
-   16-point range (N = 32768, 32769, 65535; indices must be equal), with
-   event and profiler times, the cluster size, the points a thread and the
-   time per step; a cloud of N <= 32768 must launch as the table had it
-   before the 16-point range;
+   16-point range (N = 32768, 32769, 65535), in the 32-point range past
+   65536 points (Waymo's PV-RCNN keypoints, 131072 → 2048 at B = 2; 98304
+   at B = 4; N = 65537, 131071; duplicates at 131072) and at the
+   nuScenes-Boston backbone's shapes (6144 → 4096 → 1024 → 256 → 64 at
+   B = 2 and 4); indices must be equal; with event and profiler times, the
+   cluster size, the points a thread and the time per step; a cloud of
+   N <= 65536 must launch as the table had it before the 32-point range;
 3. run the forward + post_process on 4 synthetic scans (the bench.py scene
    recipe) and check the output, the FPS launch count and the stage times;
 4. compare the card's final boxes on one scan with the port's own CPU
@@ -92,7 +103,16 @@ Phases, each printing one JSON line:
    RoIs handed to the CPU; pv_rcnn_train: every loss finite, scans/s, stage
    split, the eval-after-train result, one FPS launch a step and a test
    batch; pv_rcnn_train_resume: restarts at epoch 1, then cli/test.py);
-4d. the preparation CLIs (prep: every file written for every frame, PP
+4d. the two-stage detectors, each of SECOND-IoU, Voxel R-CNN and Part-A2
+   (two_stage_forward: scans/s over timed forwards at B = 4, stage ms by
+   CUDA events, peak memory; two_stage_card_vs_cpu: one scan's detections
+   1:1 >= 98% or stage by stage with the card's RoIs and voxel-query
+   indices handed to the CPU; two_stage_train: 8 steps of cli/train.py,
+   every loss finite, then cli/test.py on the training scans); no FPS
+   launch (two_stage_kernels); then nuScenes-Boston's PointRCNN
+   (nuscenes_boston: 4 train steps and cli/test.py from the shipped dict,
+   3 + 3 FPS launches a step and a test batch, no PyYAML loaded);
+4e. the preparation CLIs (prep: every file written for every frame, PP
    finite in [0, 1], one radius-count launch an origin, and no tqdm,
    PyYAML or PIL loaded on the way);
 5. run the PP-score CLI on the card: origins/s, radius-count launches per
@@ -216,8 +236,28 @@ FPS_PV_SHAPES = [
     ("n_32768", BATCH, 32768, PV_KEYPOINTS), ("n_32769", BATCH, 32769, PV_KEYPOINTS),
     ("n_65535", BATCH, 65535, PV_KEYPOINTS),
 ]
+# the cluster kernel's 32-point range (points in shared memory) past 65536
+# points: Waymo's PV-RCNN keypoints (configs/models/waymo_models/pv_rcnn.yaml,
+# 2048 of 131072 points) at its B = 2, a cloud of 98304 at B = 4, the range's
+# edges N = 65537 and 131071, and duplicates in different cluster ranks
+WIDE_POINTS = 131072
+FPS_WIDE_SHAPES = [
+    ("waymo_keypoints", TRAIN_BATCH, WIDE_POINTS, PV_KEYPOINTS),
+    ("n_98304", BATCH, 98304, PV_KEYPOINTS),
+    ("n_65537", TRAIN_BATCH, 65537, PV_KEYPOINTS),
+    ("n_131071", TRAIN_BATCH, 131071, PV_KEYPOINTS),
+    ("wide_dup_ranks", TRAIN_BATCH, WIDE_POINTS, PV_KEYPOINTS),
+]
+# nuScenes-Boston's PointRCNN (6144 points a scan): its backbone levels at the
+# config's B = 2 and at B = 4; its RoI tower has the flagship's RoI shapes
+NUSC_POINTS = 6144
+FPS_NUSC_SHAPES = [
+    (f"nusc{b}_sa{i + 1}", b, n, npoint) for b in (TRAIN_BATCH, BATCH)
+    for i, (n, npoint) in enumerate(((NUSC_POINTS, 4096), (4096, 1024), (1024, 256),
+                                     (256, 64)))
+]
 FPS_SHAPES = (FPS_PATH_SHAPES + FPS_EXTRA_SHAPES + FPS_TRAIN_SHAPES + FPS_ROUND_SHAPES
-              + FPS_PV_SHAPES)
+              + FPS_PV_SHAPES + FPS_WIDE_SHAPES + FPS_NUSC_SHAPES)
 # the small-cloud kernel's stages of the path
 FPS_SMALL_STAGES = ("backbone_sa4", "roi_sa1", "roi_sa2")
 FPS_TRAIN_SMALL_STAGES = ("train_sa4", "train_roi_sa1", "train_roi_sa2")
@@ -313,6 +353,25 @@ PV_CFG = "configs/models/lyft_models/pv_rcnn_dynamic_obj.yaml"
 PV_TIMED_ITERS = 4
 PV_EPOCHS = 2
 PV_LR = 1.15e-3
+# the two-stage voxel detectors on the grid phases' scans: TWO_STAGE_TIMED_ITERS
+# timed eval forwards at B = 4 each; cli/train.py for 8 steps at the config's
+# batch (SECOND-IoU 4: 2 epochs; Voxel R-CNN and Part-A2 2: 1 epoch), the
+# one-cycle's peak lowered to the highest rate of the config's first 2 (of
+# 60, at 0.003) or first 1 (of 60, at 0.01) epochs, as for the grid
+# detectors (the focal-loss NaN, ROADMAP.md Queue 3); then cli/test.py on
+# its checkpoint. None of them runs FPS.
+TWO_STAGE_CFGS = {"second_iou": "configs/models/lyft_models/second_iou_dynamic_obj.yaml",
+                  "voxel_rcnn": "configs/models/lyft_models/voxel_rcnn_dynamic_obj.yaml",
+                  "part_a2": "configs/models/lyft_models/part_a2_dynamic_obj.yaml"}
+TWO_STAGE_TIMED_ITERS = 3
+TWO_STAGE_TRAIN = {"second_iou": (2, 3.46e-4), "voxel_rcnn": (1, 1.04e-3),
+                   "part_a2": (1, 1.04e-3)}
+# nuScenes-Boston's PointRCNN (6144 points a scan) on the first 8 training
+# scans at the config's B = 2: cli/train.py for one epoch of 4 steps at
+# ROUND_LR (the highest rate of the config's first epoch: 0.01 over 80
+# epochs), then cli/test.py on its checkpoint, from the shipped dict
+NUSC_CFG = "configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml"
+NUSC_SCANS = 8
 # the dataset-preparation CLIs on tools/nu_scenes.py's drives: 3 drives of 40
 # sweeps 2 m apart (~27k points a sweep), the PP CLI on the card for 2 origins
 PREP_DRIVES = {"traversals": 3, "frames": 40, "spacing": 2.0, "n_ground": 48000,
@@ -369,10 +428,10 @@ def fps_bound(b: int, n: int, npoint: int):
 
 
 def legacy_launch(n: int):
-    """(cluster, P) of ``csrc/fps.cu``'s launch table for N <= 32768, which
-    the 16-point range past it must leave as it is: the cluster by N (none
+    """(cluster, P) of ``csrc/fps.cu``'s launch table for N <= 65536, which
+    the 32-point range past it must leave as it is: the cluster by N (none
     below 1024), then the fewest points a thread (1, 2, 4, 8) that keep a
-    CTA at 128 threads or fewer, else 8."""
+    CTA at 128 threads or fewer, else 8 up to 32768 points and 16 past."""
     def ceil_div(a, b):
         return -(-a // b)
 
@@ -386,7 +445,7 @@ def legacy_launch(n: int):
     for p in (1, 2, 4, 8):
         if ceil_div(ceil_div(chunk, p), 32) * 32 <= 128:
             return c, p
-    return c, 8
+    return c, 8 if n <= 32768 else 16
 
 
 def fps_inputs(torch, dev, scenes):
@@ -399,11 +458,22 @@ def fps_inputs(torch, dev, scenes):
     gen = torch.Generator(device="cpu").manual_seed(1)
     xyz = torch.from_numpy(scenes[..., :3]).to(dev).contiguous()
     pv = torch.from_numpy(bench_scans(BATCH, PV_POINTS, seed=2)[..., :3]).to(dev).contiguous()
+    wide = torch.from_numpy(bench_scans(BATCH, WIDE_POINTS, seed=3)[..., :3]).to(dev)
+    nusc = {b: torch.from_numpy(bench_scans(b, NUSC_POINTS, seed=4)[..., :3]).to(dev)
+            for b in (TRAIN_BATCH, BATCH)}
     inputs = {}
     train_xyz = xyz[:TRAIN_BATCH]
     for stage, b, n, npoint in FPS_SHAPES:
         sa1 = inputs.get("backbone_sa1")
-        if stage in ("pv_keypoints", "train_pv_keypoints") or stage.startswith("n_"):
+        if stage in ("waymo_keypoints", "n_98304", "n_65537", "n_131071"):
+            inputs[stage] = wide[:b, :n].contiguous()
+        elif stage == "wide_dup_ranks":
+            inputs[stage] = torch.cat([wide[:b, :n // 2]] * 2, dim=1).contiguous()
+        elif stage.startswith("nusc"):  # the backbone levels chain FPS, as the flagship's
+            inputs[stage] = nusc[b].contiguous()
+            idx = furthest_point_sample_plain(inputs[stage], npoint).long()
+            nusc[b] = torch.gather(nusc[b], 1, idx[..., None].expand(-1, -1, 3))
+        elif stage in ("pv_keypoints", "train_pv_keypoints") or stage.startswith("n_"):
             inputs[stage] = pv[:b, :n].contiguous()
         elif stage == "pv_dup_ranks":
             inputs[stage] = torch.cat([pv[:, :n // 2], pv[:, :n // 2]], dim=1).contiguous()
@@ -460,7 +530,7 @@ def phase_fps(torch, inputs, card):
         emit(row)
         if mismatches:
             fail(f"fps kernel disagrees with its plain version at {stage}: {mismatches} indices")
-        if n <= 32768 and launch != legacy_launch(n):
+        if n <= PV_POINTS and launch != legacy_launch(n):
             fail(f"fps at N = {n} launches (cluster, P) = {launch}, not {legacy_launch(n)}")
         rows[stage] = row
     return rows
@@ -881,7 +951,7 @@ def grid_config(name, root):
     test split the training scans (no augmentation, 65536 points a scan)."""
     from modest_tpu_torch.cli.train import load_model_config
 
-    cfg = load_model_config(REPO / {**GRID_CFGS, "pv_rcnn": PV_CFG}[name])
+    cfg = load_model_config(REPO / {**GRID_CFGS, **TWO_STAGE_CFGS, "pv_rcnn": PV_CFG}[name])
     cfg.DATA_CONFIG.DATA_PATH = str(root)
     cfg.DATA_CONFIG.DATA_SPLIT.test = "train"
     cfg.DATA_CONFIG.INFO_PATH.test = ["kitti_infos_train.pkl"]
@@ -1395,6 +1465,308 @@ def phase_pv_rcnn(torch, np, api, build_network, dev, root, card):
     return forward_row, train
 
 
+def _decisions_differ(a, b) -> int:
+    """How many of two runs' discrete choices differ: a voxel query's (idx,
+    empty) slot by slot, RoI-aware pooling's (scan, RoI, point, cell) tuples
+    as sets."""
+    import torch
+
+    if len(a) == 2:
+        return int((a[0] != b[0]).sum())
+    rows = [set(map(tuple, torch.stack(x, dim=-1).tolist())) for x in (a, b)]
+    return len(rows[0] ^ rows[1])
+
+
+def two_stage_forward_chain(torch, np, card_model, cpu_model, model_cfg, scan):
+    """``forward_chain`` for the two-stage voxel detectors: the eval forward
+    on ``scan`` (1, N, C) on the card and on the CPU, then stage by stage
+    with the card's decisions handed to the CPU: the dense head's logits
+    and box residuals (``dense_tol_used``); the CPU's proposal layer on the
+    card's dense outputs against the card's RoIs
+    (``proposals_given_card_dense``, 1:1); the CPU's RoI head on the card's
+    RoIs and the card's discrete choices (Voxel R-CNN's voxel-query slots,
+    Part-A2's RoI-aware cells) against the card's scores and boxes
+    (``rcnn_tol_used``; ``decisions_differ`` counts the CPU's own choices
+    that differed there); the CPU's post-processing of the card's RoI-head
+    outputs (``finals_given_card_rcnn``). Left to its own decisions the CPU
+    may order its RoIs otherwise among all but tied scores
+    (``rois_same_order``); its own RoIs differ from the card's by the dense
+    head's rounding (``own_rois_max_abs_diff``), which moves the RoI grids,
+    so a choice a rounding away from a boundary may go the other way
+    (``own_decisions_differ``, where the RoIs keep the card's order) and
+    the RoI head's outputs part (``own_rcnn_tol_used``), and the final NMS
+    at IoU 0.1 may then keep another box among all but tied scores. Returns
+    (row, card's final boxes, CPU's)."""
+    import contextlib
+    from unittest import mock
+
+    from modest_tpu_torch.models import api, grid_detectors, part_a2, voxel_rcnn
+
+    def used(got, want, keys):
+        return max(float(((got[k] - want[k]).abs() / (atol + FORWARD_RTOL * want[k].abs())).max())
+                   for k, atol in zip(keys, (MATCH_SCORE, MATCH_SIZE)))
+
+    choices = ((voxel_rcnn, "voxel_query"), (part_a2, "roiaware_cells"))
+
+    def patched(wrap):
+        stack = contextlib.ExitStack()
+        for module, name in choices:
+            stack.enter_context(mock.patch.object(module, name, wrap(getattr(module, name))))
+        return stack
+
+    def recorder(into):
+        def wrap(real):
+            def recording(*args):
+                result = real(*args)
+                into.append(tuple(t.cpu() for t in result))
+                return result
+            return recording
+        return wrap
+
+    card_choices, own_choices = [], []
+    dev = next(card_model.parameters()).device
+    with patched(recorder(card_choices)):
+        out = api.apply_eval(card_model, model_cfg, scan.to(dev))
+    got = {k: v.cpu() for k, v in api.post_process(out, model_cfg).items() if v is not None}
+    card = {k: v.cpu() for k, v in out.items() if torch.is_tensor(v)}
+    with patched(recorder(own_choices)):
+        cpu = api.apply_eval(cpu_model, model_cfg, scan)
+    want = api.post_process(cpu, model_cfg)
+    valid = card["roi_valid"][0]
+    same_valid = bool((valid == cpu["roi_valid"][0]).all())
+    rois_diff = float((card["rois"][0][valid] - cpu["rois"][0][valid]).abs().max()) \
+        if same_valid else None
+    same_order = same_valid and rois_diff <= MATCH_SIZE
+    own_differ = (sum(_decisions_differ(a, b) for a, b in zip(own_choices, card_choices))
+                  if same_order else None)
+    with torch.inference_mode():
+        bcls, bbox = cpu_model.generate_predicted_boxes(card["cls_preds"], card["box_preds"],
+                                                        card["dir_cls_preds"])
+    nms = model_cfg.ROI_HEAD.NMS_CONFIG.TEST
+    rois, roi_scores, _, roi_valid = grid_detectors.proposal_layer(
+        bbox, bcls.reshape(1, -1, cpu_model.num_class), nms_pre=int(nms.NMS_PRE_MAXSIZE),
+        nms_post=int(nms.NMS_POST_MAXSIZE), nms_thresh=float(nms.NMS_THRESH))
+    forced = tuple(card[k] for k in ("rois", "roi_scores", "roi_labels", "roi_valid"))
+    replay, differ = iter(card_choices), [0]
+
+    def replaying(real):
+        def choose(*args):
+            theirs = next(replay)
+            differ[0] += _decisions_differ(real(*args), theirs)
+            return theirs
+        return choose
+
+    with mock.patch.object(grid_detectors, "proposal_layer", lambda *a, **k: forced), \
+            patched(replaying):
+        given = api.apply_eval(cpu_model, model_cfg, scan)
+    if next(replay, None) is not None:
+        fail("two-stage card vs CPU: the CPU made fewer choices than the card")
+    row = {
+        "dense_tol_used": used(card, cpu, ("cls_preds", "box_preds")),
+        "proposals_given_card_dense": match_rois(
+            np, card, {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid}),
+        "choices": len(card_choices), "decisions_differ": differ[0],
+        "rcnn_tol_used": used(card, given, ("batch_cls_preds", "batch_box_preds")),
+        "finals_given_card_rcnn": match_finals(np, got, api.post_process(card, model_cfg))[
+            "match_frac"],
+        "proposals_card_vs_cpu": match_rois(np, card, cpu), "rois_same_order": same_order,
+        "own_rois_max_abs_diff": rois_diff, "own_decisions_differ": own_differ,
+        "own_rcnn_tol_used": used(card, cpu, ("batch_cls_preds", "batch_box_preds"))
+        if same_order else None,
+        "finals_given_card_rois": match_finals(np, got, api.post_process(given, model_cfg))[
+            "match_frac"]}
+    return row, got, want
+
+
+def phase_two_stage_forward(torch, np, api, build_network, name, cfg, ds, batch, card):
+    """One two-stage detector's eval forward + post-process at full width,
+    B = 4 scans of 65536 points: TWO_STAGE_TIMED_ITERS timed forwards after
+    a warm-up (scans/s, stage ms by CUDA events, peak memory, kept boxes),
+    then one scan card vs CPU (1:1 >= MIN_BOX_MATCH, or stage by stage by
+    ``two_stage_forward_chain``)."""
+    dev = batch["points"].device
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=0, dataset=ds)
+    calibrate_grid_model(torch, api, model, cfg.MODEL, batch)
+    points = batch["points"]
+    detections = check_final(torch, run_path(api, model, cfg.MODEL, points), GRID_BATCH,
+                             f"{name} forward on the card")
+    events = []
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((stage, ev))
+
+    stage_ms = {stage: 0.0 for stage in (*model.stages, "post_nms")}
+    forward_ms = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TWO_STAGE_TIMED_ITERS):
+        t_it = time.perf_counter()
+        events.clear()
+        mark("start")
+        final = run_path(api, model, cfg.MODEL, points, on_stage=mark)
+        mark("post_nms")
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t_it) * 1e3)
+        for (_, a), (stage, b) in zip(events, events[1:]):
+            stage_ms[stage] += a.elapsed_time(b) / TWO_STAGE_TIMED_ITERS
+    wall = time.perf_counter() - t0
+    forward_ms.sort()
+    check_final(torch, final, GRID_BATCH, f"{name} timed forward on the card")
+    emit({"phase": "two_stage_forward", "model": name, "batch": GRID_BATCH,
+          "points_per_scan": int(points.shape[1]), "grid_size": [int(v) for v in ds.grid_size],
+          "detections": detections, "kept_per_scan": final["valid"].sum(1).tolist(),
+          "stage_ms": stage_ms, "forward_ms_median": forward_ms[len(forward_ms) // 2],
+          "forward_ms_max": forward_ms[-1], "timed_forwards": TWO_STAGE_TIMED_ITERS,
+          "scans_per_s": GRID_BATCH * TWO_STAGE_TIMED_ITERS / wall,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "card": card})
+
+    cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device="cpu", dataset=ds)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    chain, got, want = two_stage_forward_chain(torch, np, model, cpu_model, cfg.MODEL,
+                                               points[:1].cpu())
+    match = match_finals(np, got, want)
+    emit({"phase": "two_stage_card_vs_cpu", "model": name, **match, **chain,
+          "chain_s": time.perf_counter() - t0, "card": card})
+    # end to end the finals must match unless the CPU's own RoI-head inputs
+    # (its RoIs, its choices) already differ from the card's
+    check_chain(chain, match["match_frac"], match["card_detections"] + match["cpu_detections"],
+                f"{name} card vs CPU", stage1=("dense_tol_used", "proposals_given_card_dense"),
+                parted=not chain["rois_same_order"] or bool(chain["own_rois_max_abs_diff"])
+                or bool(chain["own_decisions_differ"]))
+
+
+def phase_two_stage_train(torch, np, dev, root, name, card):
+    """cli/train.py on one two-stage config at full width and its batch for 8
+    steps (TWO_STAGE_TRAIN: epochs and the lowered peak rate), every loss
+    finite; then cli/test.py on its checkpoint over the training scans."""
+    from modest_tpu_torch.cli import test as test_cli
+    from modest_tpu_torch.cli import train as train_cli
+
+    epochs, lr = TWO_STAGE_TRAIN[name]
+    out = root / f"two_stage_{name}"
+    split = ["DATA_CONFIG.DATA_SPLIT.test", "train", "DATA_CONFIG.INFO_PATH.test",
+             "[kitti_infos_train.pkl]"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train_cli.main(["--cfg_file", str(REPO / TWO_STAGE_CFGS[name]), "--data_path",
+                            str(root), "--epochs", str(epochs), "--fix_random_seed",
+                            "--output_dir", str(out), "--set", "OPTIMIZATION.LR", str(lr)],
+                           stage_times=True)
+    seconds = time.perf_counter() - t0
+    hist = state.history
+    batch = int(train_cli.load_model_config(REPO / TWO_STAGE_CFGS[name]).OPTIMIZATION
+                .BATCH_SIZE_PER_GPU)
+    if len(hist) != 8:
+        fail(f"{name} train: {len(hist)} steps, not 8")
+    check_history(np, hist, f"{name} train")
+    timed = hist[2:]
+    stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
+    train_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    t0 = time.perf_counter()
+    annos, _ = test_cli.main(["--cfg_file", str(REPO / TWO_STAGE_CFGS[name]), "--ckpt_dir",
+                              str(out / "ckpt"), "--data_path", str(root), "--output_dir",
+                              str(out / "test"), "--set", *split])
+    test_s = time.perf_counter() - t0
+    ids = (root / "ImageSets" / "train.txt").read_text().split()
+    check_result(np, annos, ids, f"{name} cli/test.py")
+    emit({"phase": "two_stage_train", "model": name, "batch": batch, "steps": len(hist),
+          "epochs": epochs, "lr": lr, "last_lr": state.optimizer.current_lr(),
+          "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
+          "scans_per_s": batch * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"]),
+          "timed_steps": len(timed),
+          "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[1]["end_s"]) / len(timed),
+          "data_wait_ms": sum(r["data_wait_ms"] for r in timed) / len(timed),
+          "forward_ms": sum(stage_ms[k] for k in state.model.stages), "stage_ms": stage_ms,
+          "peak_mem_gb": train_peak, "cli_seconds": seconds, "test_seconds": test_s,
+          "test_frames": len(annos),
+          "test_detections": int(sum(len(a["score"]) for a in annos)), "card": card})
+
+
+def phase_two_stage(torch, np, api, build_network, dev, root, card):
+    """SECOND-IoU, Voxel R-CNN and Part-A2: forward, card vs CPU, training
+    and cli/test.py. They run no hand kernel (the JAX package runs them
+    outside Pallas): the FPS counts, set to 0 before them, must read 0."""
+    counts = reset_fps_counts()
+    t0 = time.perf_counter()
+    for name in TWO_STAGE_CFGS:
+        cfg = grid_config(name, root)
+        ds, batch = grid_batch(torch, cfg, dev)
+        phase_two_stage_forward(torch, np, api, build_network, name, cfg, ds, batch, card)
+        torch.cuda.empty_cache()
+        phase_two_stage_train(torch, np, dev, root, name, card)
+        torch.cuda.empty_cache()
+    emit({"phase": "two_stage_kernels", "fps_kernel_launches": dict(counts),
+          "seconds": time.perf_counter() - t0, "card": card})
+    if any(counts.values()):
+        fail(f"the two-stage detectors launched hand kernels {dict(counts)}")
+
+
+def phase_nuscenes_boston(torch, np, dev, root, card):
+    """The nuScenes-Boston PointRCNN config from its shipped dict (PyYAML not
+    loaded): cli/train.py for one epoch of 4 steps at B = 2 on the first
+    NUSC_SCANS training scans, sampled to 6144 points, then cli/test.py on
+    its checkpoint. FPS launches 3 + 3 per step and test batch, at the
+    shapes ``fps_vs_plain`` holds as nusc2_*."""
+    from modest_tpu_torch.cli import test as test_cli
+    from modest_tpu_torch.cli import train as train_cli
+
+    before = set(sys.modules)
+    with open(root / "kitti_infos_train.pkl", "rb") as f:
+        infos = pickle.load(f)[:NUSC_SCANS]
+    with open(root / "kitti_infos_nusc.pkl", "wb") as f:
+        pickle.dump(infos, f)
+    ids = [info["point_cloud"]["lidar_idx"] for info in infos]
+    split = ["DATA_CONFIG.INFO_PATH.train", "[kitti_infos_nusc.pkl]",
+             "DATA_CONFIG.DATA_SPLIT.test", "train", "DATA_CONFIG.INFO_PATH.test",
+             "[kitti_infos_nusc.pkl]"]
+    out = root / "nuscenes_boston"
+    counts = reset_fps_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train_cli.main(["--cfg_file", str(REPO / NUSC_CFG), "--data_path", str(root),
+                            "--epochs", "1", "--fix_random_seed", "--output_dir", str(out),
+                            "--set", "OPTIMIZATION.LR", str(ROUND_LR), *split],
+                           stage_times=True)
+    train_s = time.perf_counter() - t0
+    train_launches = dict(counts)
+    hist = state.history
+    check_history(np, hist, "nuscenes_boston train")
+    counts = reset_fps_counts()
+    t0 = time.perf_counter()
+    annos, _ = test_cli.main(["--cfg_file", str(REPO / NUSC_CFG), "--ckpt_dir",
+                              str(out / "ckpt"), "--data_path", str(root), "--output_dir",
+                              str(out / "test"), "--set", *split[2:]])
+    test_s = time.perf_counter() - t0
+    test_launches = dict(counts)
+    check_result(np, annos, ids, "nuscenes_boston cli/test.py")
+    batch = int(train_cli.load_model_config(REPO / NUSC_CFG).OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    test_batches = -(-len(ids) // batch)
+    loaded = sorted(m for m in ("yaml",) if m in set(sys.modules) - before)
+    emit({"phase": "nuscenes_boston", "points_per_scan": NUSC_POINTS, "steps": len(hist),
+          "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
+          "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[0]["end_s"]) / max(len(hist) - 1, 1),
+          "train_seconds": train_s, "test_seconds": test_s, "test_frames": len(annos),
+          "test_detections": int(sum(len(a["score"]) for a in annos)),
+          "fps_kernel_launches": train_launches, "test_fps_kernel_launches": test_launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "modules_loaded": loaded,
+          "batch": batch, "card": card})
+    if len(hist) != NUSC_SCANS // batch:
+        fail(f"nuscenes_boston train: {len(hist)} steps")
+    if loaded:
+        fail(f"nuscenes_boston loaded {loaded}")
+    want = {"fps_cluster_kernel": 3 * len(hist), "fps_warp_kernel": 3 * len(hist)}
+    if train_launches != want:
+        fail(f"nuscenes_boston train: fps launches {train_launches}, not {want}")
+    want = {"fps_cluster_kernel": 3 * test_batches, "fps_warp_kernel": 3 * test_batches}
+    if test_launches != want:
+        fail(f"nuscenes_boston cli/test.py: fps launches {test_launches}, not {want}")
+    return train_launches, len(hist), test_launches, test_batches
+
+
 def phase_prep(torch, np, dev, card):
     """The dataset-preparation CLIs on tools/nu_scenes.py's drives, in a temp
     dir: the SDK-free Lyft export, split_traintest, gather_historical_
@@ -1497,7 +1869,8 @@ def build_kernels(card):
         for name, lib, seconds in pool.map(one, KERNEL_SOURCES):
             emit({"phase": "build", "kernel": name, "seconds": seconds,
                   "ptxas": [ln for ln in lib.with_suffix(".log").read_text().splitlines()
-                            if "registers" in ln or "spill" in ln], "card": card})
+                            if "registers" in ln or "spill" in ln or "entry function" in ln],
+                  "card": card})
 
 
 def bound(ops: float, nbytes: float):
@@ -2495,6 +2868,9 @@ def main() -> int:
         phase_grid(torch, np, api, build_network, dev, tmp, card)
         pv_row, (pv_train_launches, pv_steps, pv_test_batches) = phase_pv_rcnn(
             torch, np, api, build_network, dev, tmp, card)
+        phase_two_stage(torch, np, api, build_network, dev, tmp, card)
+        nusc_train_launches, nusc_steps, nusc_test_launches, nusc_test_batches = \
+            phase_nuscenes_boston(torch, np, dev, tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2525,12 +2901,17 @@ def main() -> int:
     gather_rows = phase_gather_vs_plain(torch, np, dev, card)
 
     fps_kernels = []
-    for kernel, replaces, stages, train_stages, round_stages in (
+    row_keys = ("B", "N", "npoint", "cluster", "per_thread", "max_abs_err", "ms",
+                "kernel_device_ms", "us_per_step", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+    for kernel, replaces, stages, train_stages, round_stages, nusc_stages in (
             ("fps_cluster_kernel", "modest_tpu/ops/pallas_fps.py:146",
              ("backbone_sa1", "backbone_sa2", "backbone_sa3"), ("train_sa1", "train_sa2",
-                                                                 "train_sa3"), ()),
+                                                                 "train_sa3"), (),
+             ("nusc2_sa1", "nusc2_sa2", "nusc2_sa3")),
             ("fps_warp_kernel", "modest_tpu/ops/pallas_fps.py:157", FPS_SMALL_STAGES,
-             FPS_TRAIN_SMALL_STAGES, tuple(stage for stage, *_ in FPS_ROUND_SHAPES))):
+             FPS_TRAIN_SMALL_STAGES, tuple(stage for stage, *_ in FPS_ROUND_SHAPES),
+             ("nusc2_sa4",))):
         path = [fps_rows[stage] for stage in stages]
         train_path = [fps_rows[stage] for stage in train_stages]
         # round 0 tests at B = 4 (the path's rows), trains as the train rows; round 1
@@ -2568,14 +2949,23 @@ def main() -> int:
             "pv_rcnn_forwards": PV_TIMED_ITERS,
             "pv_rcnn_train_launches": pv_train_launches[kernel], "pv_rcnn_train_steps": pv_steps,
             "pv_rcnn_test_batches": pv_test_batches,
-            **({stage: {key: fps_rows[stage][key] for key in (
-                "B", "N", "npoint", "cluster", "per_thread", "max_abs_err", "ms",
-                "kernel_device_ms", "us_per_step", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")} for stage in ("pv_keypoints", "train_pv_keypoints")}
+            **({stage: {key: fps_rows[stage][key] for key in row_keys}
+                for stage in ("pv_keypoints", "train_pv_keypoints", "waymo_keypoints",
+                              "n_98304")}
                if kernel == "fps_cluster_kernel" else {}),
             "pv_rcnn_shapes": "keypoint FPS, one call per PV-RCNN forward (B=4) and train step "
                               "(B=2) of 65536 points to 2048; launches over the timed forwards, "
-                              "then the train steps and the eval-after-train batches"})
+                              "then the train steps and the eval-after-train batches; "
+                              "waymo_keypoints (2, 131072 -> 2048) and n_98304 (4, 98304 -> "
+                              "2048): the 32-point range past 65536, on no path yet",
+            "nuscenes_boston_train_launches": nusc_train_launches[kernel],
+            "nuscenes_boston_train_steps": nusc_steps,
+            "nuscenes_boston_test_launches": nusc_test_launches[kernel],
+            "nuscenes_boston_test_batches": nusc_test_batches,
+            "nuscenes_boston": {stage: {key: fps_rows[stage][key] for key in row_keys}
+                                for stage in nusc_stages},
+            "nuscenes_boston_shapes": "the 6144-point backbone's calls at the config's B=2 "
+                                      "(its RoI tower: train_roi_* and round_roi_*)"})
     emit({"kernels": [*fps_kernels, {
         "name": "radius_count", "route": "cuda", "source": "modest_tpu_torch/csrc/radius_count.cu",
         "replaces": "modest_tpu/ops/pallas_radius_count.py:81",

@@ -7,9 +7,9 @@ Usage:
       [--merge_all_iters_to_one_epoch] [--output_dir DIR] [--set KEY VALUE ...]
 
 Runs on the card unless ``--device cpu``; without CUDA the default raises.
-PointRCNN, PointPillars and SECOND train (``pointrcnn_dynamic_obj.yaml``,
-``pointpillar_dynamic_obj.yaml``, ``second_dynamic_obj.yaml`` of
-``configs/models/lyft_models/``). When ``--cfg_file`` names a config that ships as a dict
+Every detector config of ``configs/models/lyft_models/`` trains (PointRCNN,
+PointPillars, SECOND, PV-RCNN, SECOND-IoU, Voxel R-CNN, Part-A2), and
+``configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml``. When ``--cfg_file`` names a config that ships as a dict
 (``configs.SHIPPED_MODEL_CONFIGS``) no YAML parser is needed; any other file
 is read with PyYAML. One process on one device: multi-process training
 (``--launcher``, ``--num_devices`` > 1) is not ported and raises. A run

@@ -8,7 +8,10 @@ whole file (``CLASS_NAMES``, ``DATA_CONFIG`` with its ``_BASE_CONFIG_``
 ``OPTIMIZATION``), which ``cli/train.py`` takes when ``--cfg_file`` names
 that file. ``POINTPILLAR_DYNAMIC_OBJ(_FULL)``, ``SECOND_DYNAMIC_OBJ(_FULL)`` and
 ``PV_RCNN_DYNAMIC_OBJ(_FULL)`` are the grid detectors' and PV-RCNN's files
-of the same directory, in the same forms. ``PIPELINE_*`` are
+of the same directory, in the same forms, as are
+``{SECOND_IOU,VOXEL_RCNN,PART_A2}_DYNAMIC_OBJ(_FULL)``;
+``NUSCENES_BOSTON_POINTRCNN_DYNAMIC_OBJ_FULL`` is
+``configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml`` whole. ``PIPELINE_*`` are
 ``configs/pipeline/{pp_score,generate_mask}.yaml`` and the
 ``data_paths/{fw70_2m,nusc}.yaml`` group, each exactly as PyYAML parses it;
 tests hold them equal.
@@ -410,12 +413,133 @@ PV_RCNN_DYNAMIC_OBJ_FULL = {
     "OPTIMIZATION": POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION,
 }
 
+# The two-stage heads on the SECOND base: configs/models/lyft_models/
+# {second_iou,voxel_rcnn,part_a2}_dynamic_obj.yaml, each with SECOND's data
+# section; SECOND-IoU trains at SECOND's optimization, the other two at the
+# flagship's
+
+
+def _rcnn_target_and_loss():
+    return {
+        "TARGET_CONFIG": PV_RCNN_DYNAMIC_OBJ["ROI_HEAD"]["TARGET_CONFIG"],
+        "LOSS_CONFIG": PV_RCNN_DYNAMIC_OBJ["ROI_HEAD"]["LOSS_CONFIG"],
+    }
+
+
+def _two_stage_model_config(name: str, backbone_3d: str, **heads):
+    post = PV_RCNN_DYNAMIC_OBJ["POST_PROCESSING"] if name != "SECONDNetIoU" \
+        else SECOND_DYNAMIC_OBJ["POST_PROCESSING"]
+    return {
+        "NAME": name,
+        "VFE": {"NAME": "MeanVFE"},
+        "BACKBONE_3D": {"NAME": backbone_3d},
+        "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+        "BACKBONE_2D": SECOND_DYNAMIC_OBJ["BACKBONE_2D"],
+        "DENSE_HEAD": SECOND_DYNAMIC_OBJ["DENSE_HEAD"],
+        **heads,
+        "POST_PROCESSING": post,
+    }
+
+
+def _nms(pre_train: int, pre_test: int, **keys):
+    return {"TRAIN": {**keys, "NMS_PRE_MAXSIZE": pre_train, "NMS_POST_MAXSIZE": 512,
+                      "NMS_THRESH": 0.8},
+            "TEST": {**keys, "NMS_PRE_MAXSIZE": pre_test, "NMS_POST_MAXSIZE": 100,
+                     "NMS_THRESH": 0.7}}
+
+
+_NMS_KEYS = {"NMS_TYPE": "nms_gpu", "MULTI_CLASSES_NMS": False}
+
+SECOND_IOU_DYNAMIC_OBJ = _two_stage_model_config(
+    "SECONDNetIoU", "VoxelBackBone8x",
+    ROI_HEAD={"NAME": "SECONDHead", "CLASS_AGNOSTIC": True, "GRID_SIZE": 7,
+              "SHARED_FC": [256, 256], "IOU_FC": [256, 256], "NMS_CONFIG": _nms(9000, 1024),
+              "LOSS_CONFIG": {"LOSS_WEIGHTS": {"rcnn_iou_weight": 1.0}}},
+)
+
+
+def _voxel_pool(radius: float):
+    return {"MLPS": [[32, 32]], "QUERY_RANGES": [[4, 4, 4]], "POOL_RADIUS": [radius],
+            "NSAMPLE": [16], "POOL_METHOD": "max_pool"}
+
+
+VOXEL_RCNN_DYNAMIC_OBJ = _two_stage_model_config(
+    "VoxelRCNN", "VoxelBackBone8x",
+    ROI_HEAD={"NAME": "VoxelRCNNHead", "CLASS_AGNOSTIC": True, "SHARED_FC": [256, 256],
+              "CLS_FC": [256, 256], "REG_FC": [256, 256], "DP_RATIO": 0.3,
+              "NMS_CONFIG": _nms(9000, 1024, **_NMS_KEYS),
+              "ROI_GRID_POOL": {"GRID_SIZE": 6,
+                                "FEATURES_SOURCE": ["x_conv2", "x_conv3", "x_conv4"],
+                                "POOL_LAYERS": {"x_conv2": _voxel_pool(0.4),
+                                                "x_conv3": _voxel_pool(0.8),
+                                                "x_conv4": _voxel_pool(1.6)}},
+              **_rcnn_target_and_loss()},
+)
+
+PART_A2_DYNAMIC_OBJ = _two_stage_model_config(
+    "PartA2", "UNetV2",
+    POINT_HEAD={"NAME": "PointIntraPartOffsetHead", "CLS_FC": [128], "PART_FC": [128],
+                "CLASS_AGNOSTIC": True,
+                "LOSS_CONFIG": {"LOSS_WEIGHTS": {"point_cls_weight": 1.0,
+                                                 "point_part_weight": 1.0}}},
+    ROI_HEAD={"NAME": "PartA2FCHead", "CLASS_AGNOSTIC": True, "SHARED_FC": [256, 256],
+              "CLS_FC": [256, 256], "REG_FC": [256, 256], "DP_RATIO": 0.3,
+              "NMS_CONFIG": _nms(9000, 1024, **_NMS_KEYS),
+              "ROI_AWARE_POOL": {"POOL_SIZE": 12, "NUM_FEATURES": 128,
+                                 "MAX_POINTS_PER_VOXEL": 128},
+              "CONV_TOWER": {"NUM_FILTERS": [128, 128, 128], "STRIDES": [1, 2, 2]},
+              **_rcnn_target_and_loss()},
+)
+
+
+def _second_based(model, optimization):
+    return {"CLASS_NAMES": ["Dynamic"], "DATA_CONFIG": SECOND_DYNAMIC_OBJ_FULL["DATA_CONFIG"],
+            "MODEL": model, "OPTIMIZATION": optimization}
+
+
+SECOND_IOU_DYNAMIC_OBJ_FULL = _second_based(SECOND_IOU_DYNAMIC_OBJ, GRID_OPTIMIZATION)
+VOXEL_RCNN_DYNAMIC_OBJ_FULL = _second_based(VOXEL_RCNN_DYNAMIC_OBJ,
+                                            POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION)
+PART_A2_DYNAMIC_OBJ_FULL = _second_based(PART_A2_DYNAMIC_OBJ, POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION)
+
+# nuScenes-Boston, the paper's second dataset:
+# configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml is the
+# flagship's model at 6144 points a scan and 80 epochs, on its base
+# configs/datasets/nuscenes_boston_dynamic_obj.yaml (the Lyft base with its own
+# data path and the gt database's min-point filter by Car and Pedestrian)
+NUSCENES_BOSTON_NUM_POINTS = 6144
+
+
+def _nuscenes_boston_data_config():
+    import copy
+
+    data = copy.deepcopy(POINTRCNN_DYNAMIC_OBJ_DATA_CONFIG)
+    data["DATA_PATH"] = "data/nuscenes_boston"
+    data["DATA_AUGMENTOR"]["AUG_CONFIG_LIST"][0]["PREPARE"]["filter_by_min_points"] = [
+        "Car:5", "Pedestrian:5"]
+    data["DATA_PROCESSOR"][1]["NUM_POINTS"] = {"train": NUSCENES_BOSTON_NUM_POINTS,
+                                               "test": NUSCENES_BOSTON_NUM_POINTS}
+    return data
+
+
+NUSCENES_BOSTON_POINTRCNN_DYNAMIC_OBJ_FULL = {
+    "CLASS_NAMES": ["Dynamic"],
+    "DATA_CONFIG": _nuscenes_boston_data_config(),
+    "MODEL": POINTRCNN_DYNAMIC_OBJ,
+    "OPTIMIZATION": {**POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION, "NUM_EPOCHS": 80},
+}
+
 # the YAML files (relative to the repository root) that ship as the dicts above
 SHIPPED_MODEL_CONFIGS = {
     "configs/models/lyft_models/pointrcnn_dynamic_obj.yaml": POINTRCNN_DYNAMIC_OBJ_FULL,
     "configs/models/lyft_models/pointpillar_dynamic_obj.yaml": POINTPILLAR_DYNAMIC_OBJ_FULL,
     "configs/models/lyft_models/second_dynamic_obj.yaml": SECOND_DYNAMIC_OBJ_FULL,
     "configs/models/lyft_models/pv_rcnn_dynamic_obj.yaml": PV_RCNN_DYNAMIC_OBJ_FULL,
+    "configs/models/lyft_models/second_iou_dynamic_obj.yaml": SECOND_IOU_DYNAMIC_OBJ_FULL,
+    "configs/models/lyft_models/voxel_rcnn_dynamic_obj.yaml": VOXEL_RCNN_DYNAMIC_OBJ_FULL,
+    "configs/models/lyft_models/part_a2_dynamic_obj.yaml": PART_A2_DYNAMIC_OBJ_FULL,
+    "configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml":
+        NUSCENES_BOSTON_POINTRCNN_DYNAMIC_OBJ_FULL,
 }
 
 

@@ -26,7 +26,12 @@
 //     step doubles; its 64 point registers fit the 128 that one 512-thread
 //     CTA per SM leaves a thread. (1024-thread CTAs at P = 8 would double
 //     the 128 slots that every warp scans per step and cap a thread at 64
-//     registers.) A step is
+//     registers.) Clouds past 65536 points (Waymo's PV-RCNN: 131072) take
+//     P = 32 in the same 8 CTAs: 32 points' x, y, z would spill past those
+//     128 registers, so the CTA's points sit in dynamic shared memory
+//     (three float arrays, up to 16384 points = 196,608 bytes, read
+//     conflict-free since thread i reads word i + k * threads) and only the
+//     32 running distances stay in registers. A step is
 //     a branch-free register scan, a warp argmax by redux.sync (max of the
 //     distance's bits, then min of the indices that hold it), each warp's
 //     winner (distance, index, x, y, z) stored into its slot of every CTA's
@@ -61,6 +66,7 @@ constexpr int kTargetThreads = 128;   // cluster kernel: threads per CTA it aims
 constexpr int kMaxThreads = 512;      // per CTA: at most 4096 points with P = 8
 constexpr int kMaxPerThread = 8;      // P: points a thread keeps in registers (clusters)
 constexpr int kWidePerThread = 16;    // P past kMaxThreads * kMaxPerThread points a CTA
+constexpr int kSharedPerThread = 32;  // P past kMaxThreads * kWidePerThread: points in smem
 constexpr int kSmallMaxPerThread = 32;  // P of the small-cloud kernel: N < 1024
 constexpr int kMaxCluster = 8;        // the largest portable cluster size
 constexpr int kMaxSlots = kMaxCluster * kMaxThreads / 32;  // one per warp of a cluster
@@ -216,13 +222,16 @@ fps_warp_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int
 // needs the winner of step s + 1, which needs every warp's candidate of step
 // s + 1, which a warp sends only after it has read step s's table.
 // (One CTA per SM is enough: the 1 lets a thread take up to 128 registers,
-// which P = 8 needs to hold its points without spilling.)
-template <int P>
+// which P = 8 needs to hold its points without spilling.) With kShared the
+// points' x, y, z live in dynamic shared memory, 3 * threads * P floats:
+// thread i's point k at word i + k * threads of each array.
+template <int P, bool kShared>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 fps_cluster_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoint,
                    int chunk) {
   __shared__ Candidate table[2][kMaxSlots];
   __shared__ unsigned long long full[2];
+  extern __shared__ float cta_points[];
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -240,14 +249,25 @@ fps_cluster_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, 
   const int end = min(n, (rank + 1) * chunk);
   // Points past the range are masked: distance -1 (fminf keeps it there), so
   // they never win, and the scan below needs no branch.
-  float px[P], py[P], pz[P], pd[P];
+  constexpr int R = kShared ? 1 : P;  // coordinates a thread keeps in registers
+  float px[R], py[R], pz[R], pd[P];
+  float* sx = cta_points;
+  float* sy = cta_points + stride * P;
+  float* sz = cta_points + 2 * stride * P;
 #pragma unroll
   for (int k = 0; k < P; ++k) {
     const bool mine = first + k * stride < end;
     const int j = mine ? first + k * stride : 0;
-    px[k] = p[3 * j];
-    py[k] = p[3 * j + 1];
-    pz[k] = p[3 * j + 2];
+    if constexpr (kShared) {
+      const int l = threadIdx.x + k * stride;  // only this thread reads word l
+      sx[l] = p[3 * j];
+      sy[l] = p[3 * j + 1];
+      sz[l] = p[3 * j + 2];
+    } else {
+      px[k] = p[3 * j];
+      py[k] = p[3 * j + 1];
+      pz[k] = p[3 * j + 2];
+    }
     pd[k] = mine ? 1e10f : -1.0f;
   }
   float lx = p[0], ly = p[1], lz = p[2];
@@ -271,17 +291,35 @@ fps_cluster_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, 
 
     int key = INT_MIN, best = 0;
     float bx = 0.0f, by = 0.0f, bz = 0.0f;
+    if constexpr (kShared) {
 #pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const float d = fminf(pd[k], dist2(px[k], py[k], pz[k], lx, ly, lz));
-      pd[k] = d;
-      const int kd = __float_as_int(d);
-      if (kd > key) {  // indices rise with k: strict > keeps the lowest among equals
-        key = kd;
-        best = k;
-        bx = px[k];
-        by = py[k];
-        bz = pz[k];
+      for (int k = 0; k < P; ++k) {
+        const int l = threadIdx.x + k * stride;
+        const float d = fminf(pd[k], dist2(sx[l], sy[l], sz[l], lx, ly, lz));
+        pd[k] = d;
+        const int kd = __float_as_int(d);
+        if (kd > key) {  // indices rise with k: strict > keeps the lowest among equals
+          key = kd;
+          best = k;
+        }
+      }
+      const int l = threadIdx.x + best * stride;
+      bx = sx[l];
+      by = sy[l];
+      bz = sz[l];
+    } else {
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const float d = fminf(pd[k], dist2(px[k], py[k], pz[k], lx, ly, lz));
+        pd[k] = d;
+        const int kd = __float_as_int(d);
+        if (kd > key) {  // indices rise with k: strict > keeps the lowest among equals
+          key = kd;
+          best = k;
+          bx = px[k];
+          by = py[k];
+          bz = pz[k];
+        }
       }
     }
     int idx = key >= 0 ? first + best * stride : INT_MAX;  // a masked point never wins
@@ -333,26 +371,33 @@ int table_cluster_size(int n) {
 // Points per thread and threads per CTA for a range of `chunk` points: the
 // fewest points per thread (1, 2, 4, 8) that keep a CTA at or under
 // kTargetThreads, else 8 points and more threads, up to kMaxThreads (every
-// N <= 32768), else 16 points (N <= 65536 at the table's 8 CTAs).
+// N <= 32768), else 16 points (N <= 65536 at the table's 8 CTAs), else 32
+// points in shared memory (N <= 131072).
 void cta_shape(int chunk, int* per_thread, int* threads) {
   for (int p = 1; p <= kMaxPerThread; p *= 2) {
     *per_thread = p;
     *threads = ((chunk + p - 1) / p + 31) / 32 * 32;
     if (*threads <= kTargetThreads) return;
   }
-  if (*threads > kMaxThreads) {
-    *per_thread = kWidePerThread;
-    *threads = ((chunk + kWidePerThread - 1) / kWidePerThread + 31) / 32 * 32;
+  for (int p = kWidePerThread; p <= kSharedPerThread && *threads > kMaxThreads; p *= 2) {
+    *per_thread = p;
+    *threads = ((chunk + p - 1) / p + 31) / 32 * 32;
   }
 }
 
-template <int P>
+template <int P, bool kShared = false>
 cudaError_t launch_cluster(const float* xyz, int* out, int batch, int n, int npoint, int csize,
                            int threads, int chunk, cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(batch * csize);
   cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = kShared ? 3 * threads * P * sizeof(float) : 0;
+  if (kShared) {
+    const cudaError_t e = cudaFuncSetAttribute(fps_cluster_kernel<P, kShared>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(cfg.dynamicSmemBytes));
+    if (e != cudaSuccess) return e;
+  }
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -361,7 +406,8 @@ cudaError_t launch_cluster(const float* xyz, int* out, int batch, int n, int npo
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, fps_cluster_kernel<P>, xyz, out, n, npoint, chunk);
+  return cudaLaunchKernelEx(&cfg, fps_cluster_kernel<P, kShared>, xyz, out, n, npoint,
+                            chunk);
 }
 
 }  // namespace
@@ -369,8 +415,8 @@ cudaError_t launch_cluster(const float* xyz, int* out, int batch, int n, int npo
 extern "C" {
 
 // Largest N one launch takes: the table's cluster of 8 CTAs of 512 threads
-// with 16 points each.
-int fps_max_points() { return kMaxCluster * kMaxThreads * kWidePerThread; }
+// with 32 points each.
+int fps_max_points() { return kMaxCluster * kMaxThreads * kSharedPerThread; }
 
 // The cluster size fps_launch takes for N; 0 below kLargeCloud (the warp
 // kernel).
@@ -413,9 +459,13 @@ int fps_launch(const float* xyz, int* out, int batch, int n, int npoint, const c
       case 2: e = launch_cluster<2>(xyz, out, batch, n, npoint, csize, threads, chunk, st); break;
       case 4: e = launch_cluster<4>(xyz, out, batch, n, npoint, csize, threads, chunk, st); break;
       case 8: e = launch_cluster<8>(xyz, out, batch, n, npoint, csize, threads, chunk, st); break;
-      default:
+      case kWidePerThread:
         e = launch_cluster<kWidePerThread>(xyz, out, batch, n, npoint, csize, threads, chunk,
                                            st);
+        break;
+      default:
+        e = launch_cluster<kSharedPerThread, true>(xyz, out, batch, n, npoint, csize, threads,
+                                                   chunk, st);
     }
   } else {
     *kernel = "fps_warp_kernel";

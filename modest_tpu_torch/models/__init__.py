@@ -7,14 +7,38 @@ from ..utils.config import Config
 from .layers import init_parameters
 from .pointrcnn import PointRCNN
 
-GRID_MODELS = ("PointPillar", "SECONDNet", "PVRCNN")
+GRID_MODELS = ("PointPillar", "SECONDNet", "PVRCNN", "SECONDNetIoU", "SECONDIoU", "VoxelRCNN",
+               "PartA2", "PartA2Net")
+
+
+def _grid_class(name: str):
+    if name == "PVRCNN":
+        from .pv_rcnn import PVRCNN
+
+        return PVRCNN
+    if name in ("SECONDNetIoU", "SECONDIoU"):
+        from .second_iou import SECONDIoU
+
+        return SECONDIoU
+    if name == "VoxelRCNN":
+        from .voxel_rcnn import VoxelRCNN
+
+        return VoxelRCNN
+    if name in ("PartA2", "PartA2Net"):
+        from .part_a2 import PartA2
+
+        return PartA2
+    from .grid_detectors import GridDetector
+
+    return GridDetector
 
 
 def build_network(model_cfg, num_class: int, device="cuda", *, seed: int = 0, dataset=None):
     """Build a detector in eval mode on ``device``, with weights drawn from a
     ``torch.Generator`` seeded with ``seed``; load trained weights with
-    ``load_state_dict``. The grid detectors (PointPillar, SECONDNet) and
-    PVRCNN take the data geometry from ``dataset`` (its ``point_cloud_range``,
+    ``load_state_dict``. The voxel and pillar detectors (``GRID_MODELS``:
+    PointPillar, SECONDNet, PVRCNN, SECONDNetIoU, VoxelRCNN, PartA2) take
+    the data geometry from ``dataset`` (its ``point_cloud_range``,
     ``voxel_size`` and ``grid_size``, as the dataset classes record them).
     A CUDA device must exist unless the caller asks for the CPU: nothing
     falls back quietly."""
@@ -22,9 +46,12 @@ def build_network(model_cfg, num_class: int, device="cuda", *, seed: int = 0, da
     name = cfg.NAME
     backbone = cfg.get("BACKBONE_3D", {}).get("NAME", "")
     grid = name in GRID_MODELS
+    if (name, backbone) == ("PointRCNN", "UNetV2"):
+        raise NotImplementedError("modest_tpu_torch does not port the anchor-free Part-A2 "
+                                  "(PartA2Free: NAME PointRCNN with the UNetV2 backbone)")
     if not grid and (name, backbone) != ("PointRCNN", "PointNet2MSG"):
         raise NotImplementedError(f"modest_tpu_torch ports PointRCNN (PointNet2MSG backbone), "
-                                  f"PointPillar, SECONDNet and PVRCNN, not {name} / {backbone}")
+                                  f"{', '.join(GRID_MODELS)}, not {name} / {backbone}")
     if grid and getattr(dataset, "grid_size", None) is None:
         raise ValueError(f"{name} needs the data geometry: pass dataset= with "
                          "point_cloud_range, voxel_size and grid_size")
@@ -32,10 +59,7 @@ def build_network(model_cfg, num_class: int, device="cuda", *, seed: int = 0, da
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     if grid:
-        from .grid_detectors import GridDetector
-        from .pv_rcnn import PVRCNN
-
-        model = (PVRCNN if name == "PVRCNN" else GridDetector)(
+        model = _grid_class(name)(
             cfg, num_class=num_class,
             point_cloud_range=dataset.point_cloud_range, voxel_size=dataset.voxel_size,
             grid_size=dataset.grid_size)

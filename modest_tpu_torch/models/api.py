@@ -1,7 +1,8 @@
 """Model-family dispatch: forward, loss and post-processing — port of
 ``modest_tpu/models/api.py`` for the detectors the port has: PointRCNN, the
-grid detectors (PointPillar, SECONDNet) and PVRCNN. The two-stage heads
-(PointRCNN, PVRCNN) share the refined-box post-processing."""
+grid detectors (PointPillar, SECONDNet), PVRCNN, SECONDNetIoU, VoxelRCNN
+and PartA2. The two-stage heads share the refined-box post-processing
+(SECOND-IoU's "refined" boxes are its RoIs, scored by its IoU branch)."""
 from __future__ import annotations
 
 import torch
@@ -9,11 +10,18 @@ import torch
 from .pointrcnn import pointrcnn_loss
 from .pointrcnn import post_process as _pointrcnn_post_process
 
-PORTED = ("PointRCNN", "PointPillar", "SECONDNet", "PVRCNN")
+PORTED = ("PointRCNN", "PointPillar", "SECONDNet", "PVRCNN", "SECONDNetIoU", "SECONDIoU",
+          "VoxelRCNN", "PartA2", "PartA2Net")
+# the detectors whose train forward samples RoIs (and takes ``roi_draws``)
+SAMPLES_ROIS = ("PointRCNN", "PVRCNN", "VoxelRCNN", "PartA2", "PartA2Net")
 
 
 def is_grid_model(model_cfg) -> bool:
     return model_cfg.NAME in ("SECONDNet", "PointPillar")
+
+
+def samples_rois(model_cfg) -> bool:
+    return model_cfg.NAME in SAMPLES_ROIS
 
 
 def _check_ported(model_cfg):
@@ -26,11 +34,11 @@ def apply_train(model, model_cfg, points, gt_boxes, roi_draws=None, on_stage=Non
     """Train-mode forward of ``model`` (put in train mode) on ``points``
     (B, N, 3+C) and zero-padded ``gt_boxes`` (B, M, 8), with autograd; the
     batch norms update their running statistics as a side effect.
-    ``roi_draws`` are the RoI sampler's draws of PointRCNN and PVRCNN; a
-    grid model draws none."""
+    ``roi_draws`` are the RoI sampler's draws of the detectors that sample
+    RoIs (``SAMPLES_ROIS``); the others draw none."""
     _check_ported(model_cfg)
     model.train()
-    if is_grid_model(model_cfg):
+    if not samples_rois(model_cfg):
         return model(points, gt_boxes, on_stage=on_stage)
     return model(points, gt_boxes, roi_draws=roi_draws, on_stage=on_stage)
 
@@ -46,6 +54,18 @@ def compute_loss(out, gt_boxes, model_cfg, num_class: int = 1):
         from .pv_rcnn import pvrcnn_loss
 
         return pvrcnn_loss(out, gt_boxes, model_cfg, num_class)
+    if model_cfg.NAME == "VoxelRCNN":
+        from .voxel_rcnn import voxelrcnn_loss
+
+        return voxelrcnn_loss(out, gt_boxes, model_cfg, num_class)
+    if model_cfg.NAME in ("PartA2", "PartA2Net"):
+        from .part_a2 import parta2_loss
+
+        return parta2_loss(out, gt_boxes, model_cfg, num_class)
+    if model_cfg.NAME in ("SECONDNetIoU", "SECONDIoU"):
+        from .second_iou import second_iou_loss
+
+        return second_iou_loss(out, gt_boxes, model_cfg, num_class)
     return pointrcnn_loss(out, gt_boxes, model_cfg, num_class)
 
 

@@ -3,8 +3,9 @@ pcdet checkpoints.
 
 ``state_dict_from_jax(params, batch_stats)`` (PointRCNN),
 ``grid_state_dict_from_jax(params, batch_stats, model_cfg)`` (PointPillar,
-SECONDNet) and ``pvrcnn_state_dict_from_jax(params, batch_stats, model_cfg)``
-(PVRCNN; the JAX package has no pcdet route for it, nor has the port) take
+SECONDNet), ``pvrcnn_state_dict_from_jax``, ``second_iou_state_dict_from_jax``,
+``voxelrcnn_state_dict_from_jax`` and ``parta2_state_dict_from_jax`` (same
+arguments; the JAX package has no pcdet route for these, nor has the port) take
 the flax param and batch-stat trees (nested mappings of arrays) and return
 the port's ``state_dict``. ``state_dict_from_pcdet``
 brings a pcdet ``model_state`` to the port's layouts. The port's keys are
@@ -20,6 +21,8 @@ pcdet's keys, so the layout rules are those of a pcdet checkpoint:
   kh, kw); a flax ``ConvTranspose`` kernel (kh, kw, in, out) becomes
   ``nn.ConvTranspose2d.weight`` (in, out, kh, kw) flipped in space, since
   flax's transposed conv does not flip its kernel and torch's does;
+- a flax ``Conv`` 3-D kernel (kd, kh, kw, in, out) is ``nn.Conv3d.weight``
+  (out, in, kd, kh, kw);
 - a flax sparse kernel (kvol·in, out) is the port's (kz, ky, kx, in, out),
   spconv 1.x's layout; spconv 2.x stores (out, kz, ky, kx, in);
 - SECOND's dense BEV map orders its channels z·C + c, as the JAX package's
@@ -242,6 +245,77 @@ def pvrcnn_state_dict_from_jax(params, batch_stats, model_cfg):
     for name in ("pkw_head", "rcnn_cls", "rcnn_reg"):
         sd.update(_prefixed(name, _fc_state(P, S, name)))
     return sd
+
+
+def second_iou_state_dict_from_jax(params, batch_stats, model_cfg):
+    """JAX ``SECONDIoU`` (params, batch_stats) → the port's ``state_dict``:
+    stage 1 as SECOND's, then ``iou_mlp`` and the ``iou_head`` ``FCHead``."""
+    P, S = _plain(params), _plain(batch_stats)
+    sd = dict(grid_state_dict_from_jax(params, batch_stats, model_cfg))
+    sd.update(_prefixed("iou_mlp", mlp_state_from_jax(P["iou_mlp"], S.get("iou_mlp"))))
+    sd.update(_prefixed("iou_head", _fc_state(P, S, "iou_head")))
+    return sd
+
+
+def _rcnn_heads(P, S):
+    sd = _prefixed("roi_shared_fc", mlp_state_from_jax(P["roi_shared_fc"], S.get("roi_shared_fc")))
+    for name in ("rcnn_cls", "rcnn_reg"):
+        sd.update(_prefixed(name, _fc_state(P, S, name)))
+    return sd
+
+
+def voxelrcnn_state_dict_from_jax(params, batch_stats, model_cfg):
+    """JAX ``VoxelRCNN`` (params, batch_stats) → the port's ``state_dict``:
+    stage 1 as SECOND's, each scale's ``pool_<scale>`` per-radius
+    ``SharedMLP_i`` → ``grid_pools.<scale>.i``, and the shared-FC and RCNN
+    heads."""
+    P, S = _plain(params), _plain(batch_stats)
+    sd = dict(grid_state_dict_from_jax(params, batch_stats, model_cfg))
+    for name in model_cfg.ROI_HEAD.ROI_GRID_POOL.FEATURES_SOURCE:
+        pool, stats = P[f"pool_{name}"], S.get(f"pool_{name}", {})
+        for i in _numbered(pool, "SharedMLP"):
+            sd.update(_prefixed(f"grid_pools.{name}.{i}", mlp_state_from_jax(
+                pool[f"SharedMLP_{i}"], stats.get(f"SharedMLP_{i}"))))
+    sd.update(_rcnn_heads(P, S))
+    return sd
+
+
+def unet_state_from_jax(params, stats):
+    """flax ``SparseUNet`` → the port's ``SparseUNet`` entries: the encoder as
+    ``VoxelBackBone8x``'s, each ``up<k>_inv`` (27, in, out) and
+    ``up<k>_merge`` (27·in, out) kernel → ``up<k>.inv`` and ``up<k>.merge``
+    (3, 3, 3, in, out), with their batch norms."""
+    P, S = _plain(params), _plain(stats)
+    sd = _sparse_state_from_jax(P, S)
+    for k in (4, 3, 2):
+        for part in ("inv", "merge"):
+            kernel = P[f"up{k}_{part}"]["kernel"]
+            sd[f"up{k}.{part}.0.weight"] = kernel.reshape(3, 3, 3, -1, kernel.shape[-1])
+            sd.update(_bn_entries(f"up{k}.{part}.1", P[f"up{k}_{part}_bn"],
+                                  S[f"up{k}_{part}_bn"]))
+    return sd
+
+
+def parta2_state_dict_from_jax(params, batch_stats, model_cfg):
+    """JAX ``PartA2`` (params, batch_stats) → the port's ``state_dict``:
+    stage 1 as SECOND's, the UNet by ``unet_state_from_jax``; the point
+    heads, ``pool_proj``; each ``tower_conv<i>`` (3, 3, 3, in, out) kernel →
+    ``conv_tower.<i>.conv.weight`` (out, in, 3, 3, 3) and its bias, each
+    ``tower_bn<i>`` → ``conv_tower.<i>.bn``; the shared-FC and RCNN heads."""
+    P, S = _plain(params), _plain(batch_stats)
+    sd = dict(grid_state_dict_from_jax(params, batch_stats, model_cfg))
+    sd.update(_prefixed("backbone_3d", unet_state_from_jax(P["backbone_3d"], S["backbone_3d"])))
+    for name in ("seg_head", "part_head"):
+        sd.update(_prefixed(name, _fc_state(P, S, name)))
+    sd.update(_prefixed("pool_proj", mlp_state_from_jax(P["pool_proj"], S.get("pool_proj"))))
+    for i in range(len(model_cfg.ROI_HEAD.CONV_TOWER.NUM_FILTERS)):
+        conv = P[f"tower_conv{i}"]
+        sd[f"conv_tower.{i}.conv.weight"] = np.ascontiguousarray(
+            conv["kernel"].transpose(4, 3, 0, 1, 2))
+        sd[f"conv_tower.{i}.conv.bias"] = conv["bias"]
+        sd.update(_bn_entries(f"conv_tower.{i}.bn", P[f"tower_bn{i}"], S[f"tower_bn{i}"]))
+    sd.update(_rcnn_heads(P, S))
+    return {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
 def spconv_layout(model_state) -> str:

@@ -32,6 +32,7 @@ from ..utils.config import Config
 from .box_coders import ResidualCoder
 from .layers import BatchNorm2d, Conv2d, MaskedBatchNorm
 from .losses import sigmoid_focal_loss, weighted_smooth_l1
+from .roi_head import canonical_transform_gt, proposal_layer, sample_rois_for_rcnn, sampler_draws
 from .voxelize import pillar_stats, point_voxel_coords, scatter_max_bev, voxelize_sparse
 
 MAX_VOXELS = 16000  # the JAX GridDetector's default, used in train and eval alike
@@ -261,6 +262,10 @@ class AnchorHeadSingle(nn.Module):
         return cls, box, dir_cls
 
 
+# the sparse backbone each voxel detector takes (VoxelBackBone8x where unlisted)
+SPARSE_BACKBONES = {"PartA2": "UNetV2", "PartA2Net": "UNetV2"}
+
+
 def _refuse_unported(cfg):
     head = cfg.DENSE_HEAD
     if head.get("NAME", "AnchorHeadSingle") != "AnchorHeadSingle" \
@@ -275,10 +280,10 @@ def _refuse_unported(cfg):
         raise NotImplementedError("only the 7-dim residual box coder is ported")
     if cfg.POST_PROCESSING.NMS_CONFIG.get("MULTI_CLASSES_NMS", False):
         raise NotImplementedError("multi-class NMS is not ported")
-    if cfg.NAME in ("SECONDNet", "PVRCNN"):
+    if cfg.NAME != "PointPillar":
         name = cfg.get("BACKBONE_3D", {}).get("NAME", "VoxelBackBone8x")
-        if name != "VoxelBackBone8x":
-            raise NotImplementedError(f"sparse backbone {name} is not ported")
+        if name != SPARSE_BACKBONES.get(cfg.NAME, "VoxelBackBone8x"):
+            raise NotImplementedError(f"sparse backbone {name} is not ported for {cfg.NAME}")
 
 
 class GridDetector(nn.Module):
@@ -312,9 +317,10 @@ class GridDetector(nn.Module):
             bev_channels = self.vfe.num_bev_features
             self.stages = ("vfe", "backbone_2d", "dense_head")
         else:
-            from .sparse_conv import VoxelBackBone8x
+            from .sparse_conv import SparseUNet, VoxelBackBone8x
 
-            self.backbone_3d = VoxelBackBone8x(num_point_features)
+            unet = SPARSE_BACKBONES.get(cfg.NAME) == "UNetV2"
+            self.backbone_3d = (SparseUNet if unet else VoxelBackBone8x)(num_point_features)
             nz = gs[2] + 1  # z padded like spconv
             for pad in (1, 1, 0):  # conv2/3/4 (kernel 3, stride 2), then conv_out
                 nz = (nz + 2 * pad - 3) // 2 + 1
@@ -377,6 +383,71 @@ class GridDetector(nn.Module):
             heading = dir_rot + dir_offset + period * dir_labels.to(boxes.dtype)
             boxes = torch.cat([boxes[..., :6], heading[..., None]], dim=-1)
         return cls_preds, boxes
+
+
+class TwoStageGridDetector(GridDetector):
+    """SECOND's stage 1 and its proposals, the base of the two-stage voxel
+    detectors (SECOND-IoU, Voxel R-CNN, Part-A2): ``stage_one`` runs the
+    voxelization, the sparse backbone, the BEV backbone, the anchor head and
+    the proposal layer (``ROI_HEAD.NMS_CONFIG``, TRAIN or TEST by the mode),
+    and in train mode the anchor targets."""
+
+    STAGE_ONE = ("voxelize", "backbone_3d", "backbone_2d", "dense_head", "proposal")
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.backbone_3d.return_multiscale = True
+
+    def stage_one(self, points, gt_boxes, mark, max_voxels: int):
+        """Returns (out, voxels (coords, feats, valid, keys), the sparse
+        backbone's output after the BEV map, the BEV backbone's map, the
+        proposals (rois, roi_scores, roi_labels, roi_valid))."""
+        if self.training and gt_boxes is None:
+            raise ValueError(f"{self.model_cfg.NAME}: train mode needs gt_boxes; call .eval() "
+                             "for the eval forward")
+        gs = self.grid_size
+        coords, valid = point_voxel_coords(points, self.point_cloud_range, self.voxel_size, gs)
+        voxels = voxelize_sparse(points, valid, coords, max_voxels, *gs)
+        mark("voxelize")
+        vc, vf, vv, vk = voxels
+        bev, extra = self.backbone_3d(vf, vc, vk, vv, (gs[2] + 1, gs[1], gs[0]))
+        mark("backbone_3d")
+        bev2d = self.backbone_2d(bev)
+        mark("backbone_2d")
+        cls_preds, box_preds, dir_preds = self.dense_head(bev2d)
+        batch_cls, batch_box = self.generate_predicted_boxes(cls_preds, box_preds, dir_preds)
+        mark("dense_head")
+        out = {"cls_preds": cls_preds, "box_preds": box_preds, "dir_cls_preds": dir_preds,
+               "anchors": self.anchors}
+        nms_cfg = self.model_cfg.ROI_HEAD.NMS_CONFIG["TRAIN" if self.training else "TEST"]
+        proposals = proposal_layer(
+            batch_box, batch_cls.reshape(points.shape[0], -1, self.num_class),
+            nms_pre=int(nms_cfg.NMS_PRE_MAXSIZE), nms_post=int(nms_cfg.NMS_POST_MAXSIZE),
+            nms_thresh=float(nms_cfg.NMS_THRESH))
+        if self.training:
+            labels, reg_targets, _ = assign_anchor_targets(
+                self.anchors, gt_boxes, self.box_coder, self.matched_thr, self.unmatched_thr)
+            out["box_cls_labels"] = labels
+            out["box_reg_targets"] = reg_targets
+        mark("proposal")
+        return out, voxels, extra, bev2d, proposals
+
+    def sample_rois(self, out, proposals, gt_boxes, roi_draws):
+        """Train mode: the RoI sampler's RoIs and their targets (in
+        ``out["roi_targets"]``); ``roi_draws`` from the global generator when
+        None. Returns (rois, roi_scores, roi_labels, roi_valid)."""
+        rois, roi_scores, roi_labels, _ = proposals
+        tcfg = self.model_cfg.ROI_HEAD.TARGET_CONFIG
+        if roi_draws is None:
+            roi_draws = sampler_draws(rois.shape[0], rois.shape[1], int(tcfg.ROI_PER_IMAGE),
+                                      rois.device)
+        targets = sample_rois_for_rcnn(rois, roi_scores, roi_labels, gt_boxes, tcfg, roi_draws)
+        rois = targets["rois"]
+        targets["gt_of_rois_src"] = targets["gt_of_rois"]
+        targets["gt_of_rois_ct"] = canonical_transform_gt(rois, targets["gt_of_rois"])
+        out["roi_targets"] = targets
+        return (rois, targets["roi_scores"], targets["roi_labels"],
+                torch.ones(rois.shape[:2], dtype=torch.bool, device=rois.device))
 
 
 def grid_detector_loss(out, cfg, num_class: int = 1):

@@ -132,6 +132,21 @@ class BatchNorm2d(nn.BatchNorm2d):
         return _flax_train_norm(self, x, (0, 2, 3), (1, -1, 1, 1))
 
 
+class BatchNorm3d(nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` that trains as flax's ``nn.BatchNorm(momentum=0.9,
+    epsilon=1e-5)`` does over a channel-last volume (Part-A2's RoI conv
+    tower): statistics over (N, D, H, W), the fast biased variance, r ← 0.9 r
+    + 0.1 · batch. Eval mode is ``nn.BatchNorm3d``'s; the keys are its keys."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        return _flax_train_norm(self, x, (0, 2, 3, 4), (1, -1, 1, 1, 1))
+
+
 class MaskedBatchNorm(nn.BatchNorm1d):
     """Batch norm over the masked rows of a padded batch — port of
     ``MaskedBatchNorm`` in ``modest_tpu/models/layers.py``.

@@ -265,3 +265,103 @@ def kernel_sites_z3(coords, valid, out_shape_zyx):
         cands.append(torch.where(ok, o * ny * nx + coords[..., 1] * nx + coords[..., 2], big))
     keys = torch.cat(cands, dim=1)
     return (_unique_sorted(keys, big, keys.shape[1]) < big).sum(1)
+
+
+def backbone_scale_shapes(grid_size):
+    """(nz, ny, nx) of each VoxelBackBone8x scale for a dataset grid_size
+    (nx, ny, nz), as the forward's downsampling chain makes them; heads that
+    address a scale's voxel keys (``voxel_query``) need them."""
+    s1 = (grid_size[2] + 1, grid_size[1], grid_size[0])  # z padded like spconv
+    s2 = down_shape(s1, (2, 2, 2), (1, 1, 1))
+    s3 = down_shape(s2, (2, 2, 2), (1, 1, 1))
+    s4 = down_shape(s3, (2, 2, 2), (0, 1, 1))
+    return {"x_conv1": s1, "x_conv2": s2, "x_conv3": s3, "x_conv4": s4}
+
+
+class SparseInverseConv3d(nn.Module):
+    """Inverse (transposed) sparse conv from a coarse scale onto the known
+    fine active set (reference spconv.SparseInverseConv3d in spconv_unet.py).
+
+    A fine voxel f takes from every coarse voxel c whose kernel-3 window at
+    ``stride`` and ``padding`` covers it, through the tap f − (s·c − p) ∈
+    [0, 2]³: at most 2 candidates per dim, 8 in all, each at its own tap. So
+    each candidate's coarse row is written into its tap's slot of a (Vf, 27)
+    rulebook, and one embedding gather and one (Vf, 27·Cin) × (27·Cin, Cout)
+    product make the output (the JAX package indexes a (Vf, Cin, Cout)
+    weight per candidate instead)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride=(2, 2, 2),
+                 padding=(1, 1, 1)):
+        super().__init__()
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.weight = nn.Parameter(torch.empty(3, 3, 3, in_channels, out_channels))
+        self.fan_in = 27 * in_channels
+
+    def rulebook(self, coarse_keys, coarse_valid, coarse_shape_zyx, fine_coords):
+        """(B, Vf, 27) rows of the coarse table flattened to (B·Vc) rows (B·Vc:
+        the zero row) feeding each fine voxel's taps."""
+        b, vc = coarse_keys.shape
+        dev = fine_coords.device
+        stride = torch.tensor(self.stride, device=dev)
+        padding = torch.tensor(self.padding, device=dev)
+        zero_row = b * vc
+        hi = torch.div(fine_coords + padding, stride, rounding_mode="floor")
+        rows = torch.full((*fine_coords.shape[:2], 27), zero_row, dtype=torch.int64,
+                          device=dev)
+        base = vc * torch.arange(b, device=dev)[:, None]
+        for dz in (0, 1):
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    c = hi - torch.tensor([dz, dy, dx], device=dev)
+                    tap = fine_coords - (c * stride - padding)
+                    ok = ((tap >= 0) & (tap <= 2)).all(-1)
+                    key, inb = flat_key(c, coarse_shape_zyx)
+                    idx = torch.searchsorted(coarse_keys, key).clamp_max(vc - 1)
+                    hit = (ok & inb & (coarse_keys.gather(1, idx) == key)
+                           & coarse_valid.gather(1, idx))
+                    tap_id = ((tap[..., 0] * 3 + tap[..., 1]) * 3 + tap[..., 2]).clamp(0, 26)
+                    # only hits write, and a voxel's hits sit at distinct taps
+                    rows = rows.scatter_reduce(2, tap_id[..., None],
+                                               torch.where(hit, idx + base, zero_row)[..., None],
+                                               "amin")
+        return rows
+
+    def forward(self, coarse_feats, coarse_keys, coarse_valid, coarse_shape_zyx, fine_coords,
+                fine_valid):
+        rows = self.rulebook(coarse_keys, coarse_valid, coarse_shape_zyx, fine_coords)
+        return _contract(gather_rows(coarse_feats, rows), self.weight, fine_valid)
+
+
+class SparseUNet(VoxelBackBone8x):
+    """UNetV2 sparse encoder-decoder (reference backbones_3d/spconv_unet.py),
+    as the JAX package's ``SparseUNet``: the VoxelBackBone8x encoder with its
+    ``conv_out`` BEV map for the RPN, then back up by inverse convs, each
+    merged with its scale's encoder features by a SubM conv: ``up4`` (x_conv4
+    → x_conv3, 64), ``up3`` (→ x_conv2, 32), ``up2`` (→ x_conv1, 16).
+    Returns (BEV map, (B, V, 16) features on the input voxels). Each ``up``
+    holds ``inv`` and ``merge``, each a [conv → MaskedBatchNorm → ReLU]."""
+
+    UP = (("up4", "x_conv4", "x_conv3", (0, 1, 1), 64, 64),
+          ("up3", "x_conv3", "x_conv2", (1, 1, 1), 64, 32),
+          ("up2", "x_conv2", "x_conv1", (1, 1, 1), 32, 16))
+
+    def __init__(self, in_channels: int = 4):
+        super().__init__(in_channels, return_multiscale=True)
+        for name, _, _, padding, cin, cout in self.UP:
+            self.add_module(name, nn.ModuleDict({
+                "inv": SparseBlock(SparseInverseConv3d(cin, cout, (2, 2, 2), padding), cout),
+                "merge": SparseBlock(SubMConv3d(2 * cout, cout), cout)}))
+
+    def forward(self, feats, coords, keys, valid, shape_zyx):
+        bev, scales = super().forward(feats, coords, keys, valid, shape_zyx)
+        gs = (shape_zyx[2], shape_zyx[1], shape_zyx[0] - 1)
+        shapes = backbone_scale_shapes(gs)
+        u = scales["x_conv4"][0]
+        for name, coarse, fine, _, _, _ in self.UP:
+            up = getattr(self, name)
+            _, _, cvalid, ckeys = scales[coarse]
+            lateral, fcoords, fvalid, fkeys = scales[fine]
+            x = up["inv"](u, fvalid, ckeys, cvalid, shapes[coarse], fcoords, fvalid)
+            rows = neighbor_index(fkeys, fvalid, fcoords, shapes[fine], OFFSETS3)
+            u = up["merge"](torch.cat([x, lateral], dim=-1), fvalid, rows, fvalid)
+        return bev, u

@@ -1,10 +1,12 @@
 """Train state and one optimizer step — port of ``modest_tpu/train/state.py``.
 
 A step is: forward in train mode, loss, backward, gradient clipping and the
-update (``train/optim.py``). The RoI sampler of PointRCNN and PVRCNN draws
+update (``train/optim.py``). The RoI sampler of the detectors that sample RoIs
+(``models/api.py::SAMPLES_ROIS``: PointRCNN, PVRCNN, VoxelRCNN, PartA2) draws
 at step ``s`` from a ``torch.Generator`` seeded from (seed, s), as JAX folds
 the step into its "sampler" key, so a resumed run draws as the
-uninterrupted one would; a grid detector draws nothing.
+uninterrupted one would; the others (the grid detectors, SECOND-IoU) draw
+nothing.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ def train_step(state: TrainState, model_cfg, points, gt_boxes, *, seed: int = 66
     ``STEP_STAGES`` (a grid detector's forward marks its own ``stages``)."""
     mark = on_stage or (lambda name: None)
     model = state.model
-    if roi_draws is None and not model_api.is_grid_model(model_cfg):
+    if roi_draws is None and model_api.samples_rois(model_cfg):
         roi_draws = step_roi_draws(model_cfg, points.shape[0], state.step, seed, points.device)
     for p in model.parameters():
         p.grad = None

@@ -126,6 +126,47 @@ def test_grid_dicts_equal_the_jax_loaders_yaml(name, section):
     assert configs.SHIPPED_MODEL_CONFIGS[yaml] is full
 
 
+NUSCENES_BOSTON_YAML = "configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml"
+
+
+@pytest.mark.parametrize("section", ["CLASS_NAMES", "DATA_CONFIG", "MODEL", "OPTIMIZATION"])
+def test_nuscenes_boston_dicts_equal_the_jax_loaders_yaml(section):
+    """configs.py ships the nuScenes-Boston PointRCNN file whole, its
+    _BASE_CONFIG_ dataset file merged in, as modest_tpu.utils.config reads
+    it: the flagship's model at 6144 points a scan and 80 epochs."""
+    from modest_tpu.utils.config import cfg_from_yaml_file as j_cfg_from_yaml_file
+    from modest_tpu_torch import configs
+
+    full = configs.NUSCENES_BOSTON_POINTRCNN_DYNAMIC_OBJ_FULL
+    want = j_cfg_from_yaml_file(NUSCENES_BOSTON_YAML).to_dict()
+    assert list(want) == list(full)
+    assert _same(full[section], want[section])
+    assert configs.SHIPPED_MODEL_CONFIGS[NUSCENES_BOSTON_YAML] is full
+    assert full["MODEL"] is configs.POINTRCNN_DYNAMIC_OBJ
+    assert full["DATA_CONFIG"]["DATA_PROCESSOR"][1]["NUM_POINTS"] == {"train": 6144,
+                                                                      "test": 6144}
+
+
+def test_nuscenes_boston_dataset_base_equals_its_yaml():
+    """Every key of configs/datasets/nuscenes_boston_dynamic_obj.yaml, as
+    PyYAML reads it, is the shipped DATA_CONFIG's; the model file's
+    DATA_PROCESSOR replaces the base's."""
+    import yaml
+
+    from modest_tpu_torch.configs import NUSCENES_BOSTON_POINTRCNN_DYNAMIC_OBJ_FULL as full
+
+    with open("configs/datasets/nuscenes_boston_dynamic_obj.yaml") as f:
+        base = yaml.safe_load(f)
+    data = full["DATA_CONFIG"]
+    assert list(base) == list(data)
+    for key in base:
+        if key != "DATA_PROCESSOR":
+            assert _same(data[key], base[key]), key
+    # the model file keeps the base's steps and adds its 6144-point sampling
+    assert [p for p in data["DATA_PROCESSOR"] if p["NAME"] != "sample_points"] \
+        == base["DATA_PROCESSOR"]
+
+
 @pytest.mark.parametrize("pairs", [
     ["OPTIMIZATION.LR", "0.002", "OPTIMIZATION.NUM_EPOCHS", "5"],
     ["DATA_CONFIG.FOV_POINTS_ONLY", "0", "CLASS_NAMES", "[Car,Pedestrian]"],
