@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven paths, each at full size from fixed seeds:
+Twelve paths, each at full size from fixed seeds:
 
 * the flagship detector's eval forward plus post-processing (PointRCNN,
   configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
@@ -39,6 +39,14 @@ Eleven paths, each at full size from fixed seeds:
   at full width on the same scans: their eval forward plus post-processing
   at B = 4, cli/train.py for 8 steps at each config's batch and
   cli/test.py on its checkpoint;
+* KITTI's ten 3-class detector configs (configs/models/kitti_models:
+  PointRCNN, PointRCNN-IoU, SECOND, PointPillars, SECOND multi-head, PV-RCNN,
+  SECOND-IoU, Part-A2, the anchor-free Part-A2, Voxel R-CNN Car) at full
+  width on synthetic scans of Cars, Pedestrians and Cyclists: their eval
+  forward plus post-processing at B = 4, and cli/train.py for 8 steps of
+  five of them; the nuScenes CBGS grouped heads
+  (configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml) at their
+  geometry: eval forward plus multi-class NMS at B = 4 and a train forward;
 * the nuScenes-Boston PointRCNN
   (configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml, 6144
   points a scan): cli/train.py for 4 steps at B = 2 and cli/test.py;
@@ -64,7 +72,8 @@ Phases, each printing one JSON line:
    65536 points (Waymo's PV-RCNN keypoints, 131072 → 2048 at B = 2; 98304
    at B = 4; N = 65537, 131071; duplicates at 131072) and at the
    nuScenes-Boston backbone's shapes (6144 → 4096 → 1024 → 256 → 64 at
-   B = 2 and 4); indices must be equal; with event and profiler times, the
+   B = 2 and 4) and KITTI PointRCNN's SA1 (16384 → 4096 at B = 4 and 2);
+   indices must be equal; with event and profiler times, the
    cluster size, the points a thread and the time per step; a cloud of
    N <= 65536 must launch as the table had it before the 32-point range;
 3. run the forward + post_process on 4 synthetic scans (the bench.py scene
@@ -112,6 +121,21 @@ Phases, each printing one JSON line:
    launch (two_stage_kernels); then nuScenes-Boston's PointRCNN
    (nuscenes_boston: 4 train steps and cli/test.py from the shipped dict,
    3 + 3 FPS launches a step and a test batch, no PyYAML loaded);
+4d'. KITTI's 3-class configs on 16 synthetic scans of Cars, Pedestrians and
+   Cyclists (kitti_dataset, with the 3-class gt database): every model's
+   timed eval forwards at B = 4 (kitti_forward: scans/s, stage ms, peak
+   memory, the route, FPS launches 3 + 3 a PointRCNN forward and 1 a
+   PV-RCNN one, none elsewhere), card vs CPU for the routes this slice
+   added (SECOND's grouped head and second_multihead as grid_card_vs_cpu,
+   PV-RCNN's as pv_rcnn_card_vs_cpu, PointRCNN and PartA2_free as
+   kitti_card_vs_cpu: forward_chain with the card's RoI-aware cells handed
+   to the CPU), and 8 steps of cli/train.py for PointRCNN, SECOND,
+   second_multihead, PV-RCNN and PartA2_free (kitti_train: every loss
+   finite, the FPS launches the steps take); then the CBGS grouped heads at
+   their nuScenes geometry on 5-feature scans (cbgs_forward: the timed
+   forwards with 10 × 83 multi-class NMS slots a scan, one train forward's
+   finite losses; grid_card_vs_cpu, its dense outputs within the chain's
+   limits and the CPU's multi-class NMS of the card's dense outputs 1:1);
 4e. the preparation CLIs (prep: every file written for every frame, PP
    finite in [0, 1], one radius-count launch an origin, and no tqdm,
    PyYAML or PIL loaded on the way);
@@ -166,6 +190,7 @@ numpy and the repository's modest_tpu_torch package, nothing else.
 from __future__ import annotations
 
 import json
+import math
 import pickle
 import shutil
 import subprocess
@@ -256,8 +281,13 @@ FPS_NUSC_SHAPES = [
     for i, (n, npoint) in enumerate(((NUSC_POINTS, 4096), (4096, 1024), (1024, 256),
                                      (256, 64)))
 ]
+# KITTI's PointRCNN (16384 points a scan): its SA1 at B = 4 and at the config's
+# B = 2; its other levels and its RoI tower have the flagship's shapes
+KITTI_POINTS = 16384
+FPS_KITTI_SHAPES = [("kitti_sa1", BATCH, KITTI_POINTS, 4096),
+                    ("train_kitti_sa1", TRAIN_BATCH, KITTI_POINTS, 4096)]
 FPS_SHAPES = (FPS_PATH_SHAPES + FPS_EXTRA_SHAPES + FPS_TRAIN_SHAPES + FPS_ROUND_SHAPES
-              + FPS_PV_SHAPES + FPS_WIDE_SHAPES + FPS_NUSC_SHAPES)
+              + FPS_PV_SHAPES + FPS_WIDE_SHAPES + FPS_NUSC_SHAPES + FPS_KITTI_SHAPES)
 # the small-cloud kernel's stages of the path
 FPS_SMALL_STAGES = ("backbone_sa4", "roi_sa1", "roi_sa2")
 FPS_TRAIN_SMALL_STAGES = ("train_sa4", "train_roi_sa1", "train_roi_sa2")
@@ -372,6 +402,26 @@ TWO_STAGE_TRAIN = {"second_iou": (2, 3.46e-4), "voxel_rcnn": (1, 1.04e-3),
 # epochs), then cli/test.py on its checkpoint, from the shipped dict
 NUSC_CFG = "configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml"
 NUSC_SCANS = 8
+# KITTI's 3-class configs (configs/models/kitti_models, shipped as dicts) on
+# KITTI_SCANS synthetic scans of Car, Pedestrian and Cyclist objects
+# (tools/synth_kitti.py kitti_classes) at full width: per model
+# KITTI_TIMED_ITERS timed eval forwards at B = 4 (16384 points a scan for
+# PointRCNN, 65536 for the voxel models), and for KITTI_TRAIN's models
+# cli/train.py for 8 steps at the config's batch, its one-cycle peaking at the
+# highest rate the config's first epochs of 80 reach (the focal-loss NaN,
+# ROADMAP.md Queue 3). FPS launches a forward and a train step, by model
+KITTI_CFG = "configs/models/kitti_models/{}.yaml"
+KITTI_SCANS = 16
+KITTI_TIMED_ITERS = 5
+KITTI_TRAIN = ("pointrcnn", "second", "second_multihead", "pv_rcnn", "PartA2_free")
+KITTI_EVAL_ONLY = ("pointpillar", "second_iou", "PartA2", "pointrcnn_iou", "voxel_rcnn_car")
+KITTI_FPS = {"pointrcnn": (3, 3), "pointrcnn_iou": (3, 3), "pv_rcnn": (1, 0)}
+# nuScenes CBGS heads (configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml,
+# the MODEL sections shipped as dicts, the nuScenes dataset not ported) at the
+# geometry their files record, on CBGS_SCANS synthetic 5-feature scans of
+# CBGS_POINTS points with CBGS_OBJECTS boxes of the 10 classes (velocity set)
+CBGS_MODELS = ("cbgs_second_multihead", "cbgs_pp_multihead")
+CBGS_SCANS, CBGS_POINTS, CBGS_OBJECTS = 4, 65536, 24
 # the dataset-preparation CLIs on tools/nu_scenes.py's drives: 3 drives of 40
 # sweeps 2 m apart (~27k points a sweep), the PP CLI on the card for 2 origins
 PREP_DRIVES = {"traversals": 3, "frames": 40, "spacing": 2.0, "n_ground": 48000,
@@ -461,6 +511,7 @@ def fps_inputs(torch, dev, scenes):
     wide = torch.from_numpy(bench_scans(BATCH, WIDE_POINTS, seed=3)[..., :3]).to(dev)
     nusc = {b: torch.from_numpy(bench_scans(b, NUSC_POINTS, seed=4)[..., :3]).to(dev)
             for b in (TRAIN_BATCH, BATCH)}
+    kitti = torch.from_numpy(bench_scans(BATCH, KITTI_POINTS, seed=5)[..., :3]).to(dev)
     inputs = {}
     train_xyz = xyz[:TRAIN_BATCH]
     for stage, b, n, npoint in FPS_SHAPES:
@@ -469,6 +520,8 @@ def fps_inputs(torch, dev, scenes):
             inputs[stage] = wide[:b, :n].contiguous()
         elif stage == "wide_dup_ranks":
             inputs[stage] = torch.cat([wide[:b, :n // 2]] * 2, dim=1).contiguous()
+        elif stage in ("kitti_sa1", "train_kitti_sa1"):
+            inputs[stage] = kitti[:b].contiguous()
         elif stage.startswith("nusc"):  # the backbone levels chain FPS, as the flagship's
             inputs[stage] = nusc[b].contiguous()
             idx = furthest_point_sample_plain(inputs[stage], npoint).long()
@@ -563,6 +616,48 @@ def check_final(torch, final, b: int, where: str) -> int:
     if count == 0:
         fail(f"{where}: no detections")
     return count
+
+
+def timed_forwards(torch, api, model, cfg, points, iters, where):
+    """``iters`` timed eval forwards + post-processing after one warm-up:
+    scans/s, stage ms by CUDA events, peak memory, kept boxes; every run's
+    boxes finite. Returns (row, the last final boxes)."""
+    from modest_tpu_torch.models.pointrcnn import STAGES
+
+    b, dev = points.shape[0], points.device
+    detections = check_final(torch, run_path(api, model, cfg, points), b, f"{where} forward")
+    events = []
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((stage, ev))
+
+    stage_ms = {stage: 0.0 for stage in (*getattr(model, "stages", STAGES), "post_nms")}
+    forward_ms = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        t_it = time.perf_counter()
+        events.clear()
+        mark("start")
+        final = run_path(api, model, cfg, points, on_stage=mark)
+        mark("post_nms")
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t_it) * 1e3)
+        for (_, a), (stage, b_ev) in zip(events, events[1:]):
+            stage_ms[stage] += a.elapsed_time(b_ev) / iters
+    wall = time.perf_counter() - t0
+    forward_ms.sort()
+    check_final(torch, final, b, f"{where} timed forward")
+    return {"batch": b, "points_per_scan": int(points.shape[1]), "detections": detections,
+            "kept_per_scan": final["valid"].sum(1).tolist(),
+            "labels_kept": sorted({int(v) for v in final["labels"][final["valid"]].tolist()}),
+            "stage_ms": stage_ms, "forward_ms_median": forward_ms[len(forward_ms) // 2],
+            "forward_ms_max": forward_ms[-1], "timed_forwards": iters,
+            "scans_per_s": b * iters / wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}, final
 
 
 def phase_forward(torch, dev, api, model, cfg, scenes, card):
@@ -681,7 +776,7 @@ def match_rois(np, got, want) -> float:
     return len(match_1to1(np, gb, gs, wb, ws)) / max(len(gb), len(wb), 1)
 
 
-def forward_chain(torch, np, card_model, cpu_model, model_cfg, scan):
+def forward_chain(torch, np, card_model, cpu_model, model_cfg, scan, module=None, choices=()):
     """PointRCNN's eval forward on ``scan`` (1, N, C) on the card and on the
     CPU, and stage by stage with the card's decisions handed to the CPU:
     the point logits and decoded boxes (``point_tol_used``: the largest
@@ -696,7 +791,16 @@ def forward_chain(torch, np, card_model, cpu_model, model_cfg, scan):
     box where a decision's alternatives lie closer than the two devices'
     rounding: after a few training steps the scores are all but tied.
     ``proposals_card_vs_cpu`` and ``finals_given_card_rois`` say whether
-    that happened. Returns (row, card's final boxes, CPU's), on the CPU."""
+    that happened. ``choices`` lists (module, name) of functions whose
+    discrete choices the CPU is handed the card's of in that run, the point
+    stage included (``decisions_differ`` counts the CPU's own that
+    differed): KITTI's PointRCNN hands over its ball queries
+    (``ops/pointnet2.py::ball_query_from_dist2``: membership at d² ≈ r²
+    follows each device's rounding of the matmul distances), the
+    anchor-free Part-A2 its RoI-aware cells, and takes ``module`` its own
+    (where its ``proposal_layer`` is looked up). Returns (row, card's final
+    boxes, CPU's), on the CPU."""
+    import contextlib
     from unittest import mock
 
     from modest_tpu_torch.models import api, pointrcnn
@@ -706,8 +810,31 @@ def forward_chain(torch, np, card_model, cpu_model, model_cfg, scan):
         return max(float(((got[k] - want[k]).abs() / (atol + FORWARD_RTOL * want[k].abs())).max())
                    for k, atol in zip(keys, (MATCH_SCORE, MATCH_SIZE)))
 
+    def patched(wrap):
+        stack = contextlib.ExitStack()
+        for owner, name in choices:
+            stack.enter_context(mock.patch.object(owner, name, wrap(getattr(owner, name))))
+        return stack
+
+    card_choices, replay, differ = [], None, [0]
+
+    def recording(real):
+        def record(*args):
+            result = real(*args)
+            card_choices.append(tuple(t.cpu() for t in result))
+            return result
+        return record
+
+    def replaying(real):
+        def choose(*args):
+            theirs = next(replay)
+            differ[0] += _decisions_differ(real(*args), theirs)
+            return theirs
+        return choose
+
     dev = next(card_model.parameters()).device
-    out = api.apply_eval(card_model, model_cfg, scan.to(dev))
+    with patched(recording):
+        out = api.apply_eval(card_model, model_cfg, scan.to(dev))
     got = {k: v.cpu() for k, v in api.post_process(out, model_cfg).items() if v is not None}
     card = {k: v.cpu() for k, v in out.items()}
     cpu = api.apply_eval(cpu_model, model_cfg, scan)
@@ -717,10 +844,12 @@ def forward_chain(torch, np, card_model, cpu_model, model_cfg, scan):
         card["point_boxes_decoded"], card["point_cls_preds"], nms_pre=int(nms.NMS_PRE_MAXSIZE),
         nms_post=int(nms.NMS_POST_MAXSIZE), nms_thresh=float(nms.NMS_THRESH))
     forced = tuple(card[k] for k in ("rois", "roi_scores", "roi_labels", "roi_valid"))
-    with mock.patch.object(pointrcnn, "proposal_layer", lambda *a, **k: forced):
+    replay = iter(card_choices)
+    with mock.patch.object(module or pointrcnn, "proposal_layer", lambda *a, **k: forced), \
+            patched(replaying):
         given = api.apply_eval(cpu_model, model_cfg, scan)
     row = {
-        "point_tol_used": used(card, cpu, ("point_cls_preds", "point_boxes_decoded")),
+        "point_tol_used": used(card, given, ("point_cls_preds", "point_boxes_decoded")),
         "proposals_given_card_points": match_rois(
             np, card, {"rois": rois, "roi_scores": roi_scores, "roi_valid": roi_valid}),
         "rcnn_tol_used": used(card, given, ("batch_cls_preds", "batch_box_preds")),
@@ -728,7 +857,8 @@ def forward_chain(torch, np, card_model, cpu_model, model_cfg, scan):
             "match_frac"],
         "proposals_card_vs_cpu": match_rois(np, card, cpu),
         "finals_given_card_rois": match_finals(np, got, api.post_process(given, model_cfg))[
-            "match_frac"]}
+            "match_frac"],
+        **({"choices": len(card_choices), "decisions_differ": differ[0]} if choices else {})}
     return row, got, want
 
 
@@ -973,8 +1103,9 @@ def grid_batch(torch, cfg, dev):
 def calibrate_grid_model(torch, api, model, cfg, batch):
     """Random weights made to score like a detector: every batch norm's
     running statistics from one train-mode pass over ``batch`` (momentum 1),
-    then the class head's bias moved so that an empty BEV cell (a scene with
-    no point in range) scores GRID_EMPTY_LOGIT per anchor channel."""
+    then each class head's (``*conv_cls``) bias moved so that an empty BEV
+    cell (a scene with no point in range) scores GRID_EMPTY_LOGIT per anchor
+    channel; a model without one (a point head) keeps its bias."""
     bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
     momenta = [m.momentum for m in bns]
     for m in bns:
@@ -983,11 +1114,15 @@ def calibrate_grid_model(torch, api, model, cfg, batch):
         api.apply_train(model, cfg, batch["points"], batch["gt_boxes"])
     for m, momentum in zip(bns, momenta):
         m.momentum = momentum
-    empty = torch.full_like(batch["points"][:1], -1e4)
-    head = model.dense_head.conv_cls
-    logits = api.apply_eval(model, cfg, empty)["cls_preds"][0].reshape(-1, head.out_channels)
+    heads = [m for name, m in model.named_modules() if name.endswith("conv_cls")]
+    logits = []
+    hooks = [head.register_forward_hook(lambda m, i, out: logits.append(out)) for head in heads]
+    api.apply_eval(model, cfg, torch.full_like(batch["points"][:1], -1e4))
+    for hook in hooks:
+        hook.remove()
     with torch.no_grad():
-        head.bias -= logits.median(dim=0).values - GRID_EMPTY_LOGIT
+        for head, out in zip(heads, logits):  # (1, channels, H, W) a head
+            head.bias -= out[0].flatten(1).median(dim=1).values - GRID_EMPTY_LOGIT
     model.eval()
 
 
@@ -1002,43 +1137,10 @@ def phase_grid_forward(torch, np, api, build_network, name, cfg, ds, batch, card
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=0, dataset=ds)
     calibrate_grid_model(torch, api, model, cfg.MODEL, batch)
     points = batch["points"]
-    final = run_path(api, model, cfg.MODEL, points)
-    torch.cuda.synchronize()
-    detections = check_final(torch, final, GRID_BATCH, f"{name} forward on the card")
-
-    events = []
-
-    def mark(stage):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((stage, ev))
-
-    stage_ms = {stage: 0.0 for stage in (*model.stages, "post_nms")}
-    forward_ms = []
-    torch.cuda.reset_peak_memory_stats(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(GRID_TIMED_ITERS):
-        t_it = time.perf_counter()
-        events.clear()
-        mark("start")
-        final = run_path(api, model, cfg.MODEL, points, on_stage=mark)
-        mark("post_nms")
-        torch.cuda.synchronize()
-        forward_ms.append((time.perf_counter() - t_it) * 1e3)
-        for (_, a), (stage, b) in zip(events, events[1:]):
-            stage_ms[stage] += a.elapsed_time(b) / GRID_TIMED_ITERS
-    wall = time.perf_counter() - t0
-    forward_ms.sort()
-    check_final(torch, final, GRID_BATCH, f"{name} timed forward on the card")
-    row = {"phase": "grid_forward", "model": name, "batch": GRID_BATCH,
-           "points_per_scan": int(points.shape[1]), "grid_size": [int(v) for v in ds.grid_size],
-           "anchors": int(model.anchors.shape[0]), "detections": detections,
-           "kept_per_scan": final["valid"].sum(1).tolist(),
-           "stage_ms": stage_ms, "forward_ms_median": forward_ms[len(forward_ms) // 2],
-           "forward_ms_max": forward_ms[-1], "timed_forwards": GRID_TIMED_ITERS,
-           "scans_per_s": GRID_BATCH * GRID_TIMED_ITERS / wall,
-           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "card": card}
+    timed, _ = timed_forwards(torch, api, model, cfg.MODEL, points, GRID_TIMED_ITERS,
+                              f"{name} on the card")
+    row = {"phase": "grid_forward", "model": name, "grid_size": [int(v) for v in ds.grid_size],
+           "anchors": int(model.anchors.shape[0]), **timed, "card": card}
     if name == "second":
         in_range, occupied, kept, dropped = voxel_counts(
             points, model.point_cloud_range, model.voxel_size, model.grid_size,
@@ -1055,11 +1157,56 @@ def phase_grid_forward(torch, np, api, build_network, name, cfg, ds, batch, card
     return model
 
 
+def grid_forward_chain(torch, np, api, card_model, cpu_model, model_cfg, scan):
+    """A grid detector's eval forward and post-processing of ``scan`` (1, N,
+    C) on the card and on the CPU, and stage by stage: the dense class,
+    box and direction outputs card vs CPU (``dense_tol_used``: the largest
+    |card - CPU| over its limit, MATCH_SCORE for logits or MATCH_SIZE for box
+    residuals + FORWARD_RTOL * |CPU|, as ``forward_chain``'s); the card's
+    post-processing (its NMS, or ``multi_classes_nms``) against the CPU's on
+    a CPU copy of the same dense outputs (``finals_given_card_dense``, 1:1);
+    the CPU's post-processing of its own dense outputs against that of the
+    card's (``cpu_finals_own_dense``: below 1 where the CPU's own rounding
+    made its NMS keep other boxes, a decision of its own that parted).
+    Returns (row, the card's final boxes, the CPU's own), on the CPU."""
+    dev = next(card_model.parameters()).device
+    out = api.apply_eval(card_model, model_cfg, scan.to(dev))
+    got = {k: v.cpu() for k, v in api.post_process(out, model_cfg).items() if v is not None}
+    card = {k: v.cpu() for k, v in out.items() if torch.is_tensor(v)}
+    cpu = api.apply_eval(cpu_model, model_cfg, scan.cpu())
+    want = api.post_process(cpu, model_cfg)
+    given = api.post_process(card, model_cfg)
+    limits = (("cls_preds", MATCH_SCORE), ("box_preds", MATCH_SIZE), ("dir_cls_preds", MATCH_SCORE))
+    row = {"dense_tol_used": max(
+               float(((card[k] - cpu[k]).abs() / (atol + FORWARD_RTOL * cpu[k].abs())).max())
+               for k, atol in limits if k in card),
+           "finals_given_card_dense": match_finals(np, got, given)["match_frac"],
+           "cpu_finals_own_dense": match_finals(np, given, want)["match_frac"]}
+    return row, got, want
+
+
+def check_grid_chain(chain, match_frac, detections, where):
+    """Fails unless the dense outputs lie within the chain's limits, the
+    card's post-processing keeps the CPU's boxes on the same dense outputs
+    (>= MIN_BOX_MATCH), and the end-to-end detections match 1:1 (>=
+    MIN_BOX_MATCH) or part only where the CPU's own dense outputs made its
+    post-processing keep other boxes (``cpu_finals_own_dense`` < 1)."""
+    if detections == 0:
+        fail(f"{where}: no detection on either device")
+    if not chain["dense_tol_used"] <= 1.0 or chain["finals_given_card_dense"] < MIN_BOX_MATCH:
+        fail(f"{where}: with the card's dense outputs the CPU parts from the card: "
+             f"dense_tol_used {chain['dense_tol_used']}, finals_given_card_dense "
+             f"{chain['finals_given_card_dense']} (limits 1 and {MIN_BOX_MATCH})")
+    if match_frac < MIN_BOX_MATCH and chain["cpu_finals_own_dense"] >= 1.0:
+        fail(f"{where}: {match_frac:.4f} of the final boxes match 1:1 (< {MIN_BOX_MATCH}), yet "
+             "the CPU's post-processing keeps the same boxes of its own dense outputs")
+
+
 def phase_grid_card_vs_cpu(torch, np, api, build_network, name, cfg, ds, model, batch, card):
-    """The same weights on the card and on the CPU: one scan's detections
-    1:1 (>= MIN_BOX_MATCH), the batch's voxel (pillar) keys, coords and
-    validity bit-equal, and one train-mode forward's losses on that scan
-    within TRAIN_LOSS_RTOL."""
+    """The same weights on the card and on the CPU: one scan's detections by
+    ``grid_forward_chain`` and ``check_grid_chain``, the batch's voxel
+    (pillar) keys, coords and validity bit-equal, and one train-mode
+    forward's losses on that scan within TRAIN_LOSS_RTOL."""
     from modest_tpu_torch.models.grid_detectors import MAX_VOXELS
     from modest_tpu_torch.models.voxelize import pillar_stats, point_voxel_coords, voxelize_sparse
 
@@ -1068,16 +1215,16 @@ def phase_grid_card_vs_cpu(torch, np, api, build_network, name, cfg, ds, model, 
     cpu_model.load_state_dict(state)
     scan = batch["points"][:1]
     t0 = time.perf_counter()
-    want = run_path(api, cpu_model, cfg.MODEL, scan.cpu())
-    cpu_s = time.perf_counter() - t0
-    match = match_finals(np, run_path(api, model, cfg.MODEL, scan), want)
+    chain, got, want = grid_forward_chain(torch, np, api, model, cpu_model, cfg.MODEL, scan)
+    chain_s = time.perf_counter() - t0
+    match = match_finals(np, got, want)
 
     def voxels(points):
         """(keys, coords, flags) and the mean features of SECOND's voxels or
         the pillars, on the CPU."""
         coords, inside = point_voxel_coords(points, model.point_cloud_range, model.voxel_size,
                                             model.grid_size)
-        if name == "second":
+        if model.model_cfg.NAME == "SECONDNet":
             vc, vf, vv, vk = voxelize_sparse(points, inside, coords, MAX_VOXELS,
                                              *model.grid_size)
             return [vk.cpu(), vc.cpu(), vv.cpu()], vf.cpu()
@@ -1099,14 +1246,14 @@ def phase_grid_card_vs_cpu(torch, np, api, build_network, name, cfg, ds, model, 
         m.eval()
     loss_err = {k: abs(losses["card"][k] - losses["cpu"][k]) / max(abs(losses["cpu"][k]), 1e-12)
                 for k in losses["cpu"]}
-    emit({"phase": "grid_card_vs_cpu", "model": name, **match, "key_mismatches": key_mismatch,
+    emit({"phase": "grid_card_vs_cpu", "model": name, **match, **chain,
+          "key_mismatches": key_mismatch,
           "voxel_feature_max_abs_err": feat_err,
           "card_losses": losses["card"], "cpu_losses": losses["cpu"],
-          "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL, "cpu_forward_s": cpu_s,
+          "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL, "chain_s": chain_s,
           "card": card})
-    if match["card_detections"] + match["cpu_detections"] == 0 \
-            or match["match_frac"] < MIN_BOX_MATCH:
-        fail(f"{name} card vs CPU: {match['matched']} final boxes match (< {MIN_BOX_MATCH})")
+    check_grid_chain(chain, match["match_frac"], match["card_detections"] + match["cpu_detections"],
+                     f"{name} card vs CPU")
     if key_mismatch:
         fail(f"{name} card vs CPU: {key_mismatch} voxel keys, coords or flags differ")
     if max(loss_err.values()) > TRAIN_LOSS_RTOL:
@@ -1588,40 +1735,10 @@ def phase_two_stage_forward(torch, np, api, build_network, name, cfg, ds, batch,
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=0, dataset=ds)
     calibrate_grid_model(torch, api, model, cfg.MODEL, batch)
     points = batch["points"]
-    detections = check_final(torch, run_path(api, model, cfg.MODEL, points), GRID_BATCH,
-                             f"{name} forward on the card")
-    events = []
-
-    def mark(stage):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((stage, ev))
-
-    stage_ms = {stage: 0.0 for stage in (*model.stages, "post_nms")}
-    forward_ms = []
-    torch.cuda.reset_peak_memory_stats(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TWO_STAGE_TIMED_ITERS):
-        t_it = time.perf_counter()
-        events.clear()
-        mark("start")
-        final = run_path(api, model, cfg.MODEL, points, on_stage=mark)
-        mark("post_nms")
-        torch.cuda.synchronize()
-        forward_ms.append((time.perf_counter() - t_it) * 1e3)
-        for (_, a), (stage, b) in zip(events, events[1:]):
-            stage_ms[stage] += a.elapsed_time(b) / TWO_STAGE_TIMED_ITERS
-    wall = time.perf_counter() - t0
-    forward_ms.sort()
-    check_final(torch, final, GRID_BATCH, f"{name} timed forward on the card")
-    emit({"phase": "two_stage_forward", "model": name, "batch": GRID_BATCH,
-          "points_per_scan": int(points.shape[1]), "grid_size": [int(v) for v in ds.grid_size],
-          "detections": detections, "kept_per_scan": final["valid"].sum(1).tolist(),
-          "stage_ms": stage_ms, "forward_ms_median": forward_ms[len(forward_ms) // 2],
-          "forward_ms_max": forward_ms[-1], "timed_forwards": TWO_STAGE_TIMED_ITERS,
-          "scans_per_s": GRID_BATCH * TWO_STAGE_TIMED_ITERS / wall,
-          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "card": card})
+    timed, _ = timed_forwards(torch, api, model, cfg.MODEL, points, TWO_STAGE_TIMED_ITERS,
+                              f"{name} on the card")
+    emit({"phase": "two_stage_forward", "model": name,
+          "grid_size": [int(v) for v in ds.grid_size], **timed, "card": card})
 
     cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device="cpu", dataset=ds)
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
@@ -1765,6 +1882,268 @@ def phase_nuscenes_boston(torch, np, dev, root, card):
     if test_launches != want:
         fail(f"nuscenes_boston cli/test.py: fps launches {test_launches}, not {want}")
     return train_launches, len(hist), test_launches, test_batches
+
+
+def one_cycle_early_lr(opt, epochs: int) -> float:
+    """The rate the config's one-cycle reaches after its first ``epochs``
+    epochs (of NUM_EPOCHS): it warms from LR / DIV_FACTOR to LR by a cosine
+    over PCT_START of the epochs; a smoke that trains ``epochs`` squeezed
+    into its steps peaks there."""
+    warm = float(opt.PCT_START) * int(opt.NUM_EPOCHS)
+    lo = float(opt.LR) / float(opt.DIV_FACTOR)
+    return lo + (float(opt.LR) - lo) * (1 - math.cos(math.pi * min(epochs / warm, 1.0))) / 2
+
+
+def phase_kitti_dataset(root, card):
+    """KITTI_SCANS synthetic scans of Car, Pedestrian and Cyclist objects at
+    KITTI's sizes (tools/synth_kitti.py ``kitti_classes``), their infos and
+    the 3-class gt database."""
+    import numpy as np
+
+    from modest_tpu_torch.configs import KITTI_CLASS_NAMES, KITTI_CONFIGS
+    from modest_tpu_torch.data.kitti_dataset import create_kitti_infos
+    from modest_tpu_torch.tools.synth_kitti import make_dataset
+    from modest_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    boxes = make_dataset(root, n_train=KITTI_SCANS, n_val=0, seed=0, full_density=True,
+                         kitti_classes=True)
+    create_kitti_infos(Config(KITTI_CONFIGS["second"]).DATA_CONFIG, KITTI_CLASS_NAMES, root,
+                       root, if_val=False)
+    with open(root / "kitti_dbinfos_train.pkl", "rb") as f:
+        db = pickle.load(f)
+    emit({"phase": "kitti_dataset", "scans": KITTI_SCANS,
+          "objects": sum(len(b) for b in boxes.values()),
+          "gt_database_objects": {k: len(v) for k, v in db.items()},
+          "seconds": time.perf_counter() - t0, "card": card})
+    if set(db) != set(KITTI_CLASS_NAMES):
+        fail(f"kitti dataset: the gt database holds {sorted(db)}")
+
+
+def kitti_config(stem, root):
+    """A KITTI config (its shipped dict) on the synthetic set, its test split
+    the training scans."""
+    from modest_tpu_torch.cli.train import load_model_config
+
+    cfg = load_model_config(REPO / KITTI_CFG.format(stem))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    cfg.DATA_CONFIG.DATA_SPLIT.test = "train"
+    cfg.DATA_CONFIG.INFO_PATH.test = ["kitti_infos_train.pkl"]
+    return cfg
+
+
+def expected_fps(stem, runs: int) -> dict:
+    cluster, warp = KITTI_FPS.get(stem, (0, 0))
+    return {"fps_cluster_kernel": cluster * runs, "fps_warp_kernel": warp * runs}
+
+
+def phase_kitti_forward(torch, np, api, build_network, stem, root, dev, card):
+    """One KITTI model at full width, B = 4 of the synthetic scans: the
+    timed eval forwards (``timed_forwards``) with their FPS launches, then
+    for the routes this slice ports one scan card vs CPU: PointRCNN and
+    PartA2_free by ``forward_chain``, PV-RCNN by ``pv_forward_chain``,
+    SECOND and its multi-head config by ``phase_grid_card_vs_cpu``."""
+    from modest_tpu_torch.models import part_a2
+    from modest_tpu_torch.ops import pointnet2 as p2
+
+    cfg = kitti_config(stem, root)
+    ds, batch = grid_batch(torch, cfg, dev)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=0, dataset=ds)
+    if cfg.MODEL.NAME == "PointRCNN":
+        # the point heads' random statistics as the flagship's. With the batch's
+        # own (calibrate_grid_model) one channel of SA1's first batch norm reads
+        # a variance of 0 on these scans (|mean| / std 1.6e4, gain 1/sqrt(eps)):
+        # float32 on either device then parts from float64 as far as the two
+        # part from each other, past the chain's limits, with every ball query
+        # alike (tools/train_probe.py bn_gap, PERF.md §6)
+        randomise_bn(torch, model, seed=0)
+    else:
+        calibrate_grid_model(torch, api, model, cfg.MODEL, batch)
+    counts = reset_fps_counts()
+    row, _ = timed_forwards(torch, api, model, cfg.MODEL, batch["points"], KITTI_TIMED_ITERS,
+                            f"kitti {stem}")
+    launches = dict(counts)
+    route = ("grouped head" if getattr(model, "use_multihead", False) else
+             "anchor-free" if stem == "PartA2_free" else
+             "point" if cfg.MODEL.NAME == "PointRCNN" else "one head")
+    emit({"phase": "kitti_forward", "model": stem, "route": route,
+          "classes": list(cfg.CLASS_NAMES), "anchors": int(getattr(model, "anchors",
+                                                                      torch.zeros(0)).shape[0]),
+          **row, "fps_kernel_launches": launches, "card": card})
+    want = expected_fps(stem, KITTI_TIMED_ITERS + 1)
+    if launches != want:
+        fail(f"kitti {stem}: {KITTI_TIMED_ITERS + 1} forwards launched fps {launches}, not {want}")
+    if stem in ("second", "second_multihead"):
+        phase_grid_card_vs_cpu(torch, np, api, build_network, f"kitti_{stem}", cfg, ds, model,
+                               batch, card)
+    elif stem == "pv_rcnn":
+        phase_pv_card_vs_cpu(torch, np, api, build_network, cfg, ds, model, batch, card)
+    elif stem in ("pointrcnn", "PartA2_free"):
+        cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device="cpu", dataset=ds)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        free = stem == "PartA2_free"
+        t0 = time.perf_counter()
+        chain, got, want_final = forward_chain(
+            torch, np, model, cpu_model, cfg.MODEL, batch["points"][:1].cpu(),
+            module=part_a2 if free else None,
+            choices=((part_a2, "roiaware_cells"),) if free else ((p2, "ball_query_from_dist2"),))
+        match = match_finals(np, got, want_final)
+        emit({"phase": "kitti_card_vs_cpu", "model": stem, **match, **chain,
+              "chain_s": time.perf_counter() - t0, "card": card})
+        check_chain(chain, match["match_frac"],
+                    match["card_detections"] + match["cpu_detections"],
+                    f"kitti {stem} card vs CPU", parted=bool(chain.get("decisions_differ")))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_kitti_train(torch, np, dev, root, stem, card):
+    """cli/train.py on one KITTI config at full width and its batch for 8
+    steps over the synthetic scans, peaking at ``one_cycle_early_lr`` of the
+    smoke's epochs: every loss finite, the FPS launches 8 steps take."""
+    from modest_tpu_torch.cli import train as train_cli
+
+    cfg = kitti_config(stem, root)
+    batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    epochs = 8 * batch // KITTI_SCANS
+    lr = one_cycle_early_lr(cfg.OPTIMIZATION, epochs)
+    counts = reset_fps_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train_cli.main(["--cfg_file", str(REPO / KITTI_CFG.format(stem)), "--data_path",
+                            str(root), "--epochs", str(epochs), "--fix_random_seed",
+                            "--output_dir", str(root / f"kitti_{stem}"),
+                            "--set", "OPTIMIZATION.LR", str(lr)], stage_times=True)
+    seconds = time.perf_counter() - t0
+    launches = dict(counts)
+    hist = state.history
+    if len(hist) != 8:
+        fail(f"kitti {stem} train: {len(hist)} steps, not 8")
+    check_history(np, hist, f"kitti {stem} train")
+    timed = hist[2:]
+    stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
+    emit({"phase": "kitti_train", "model": stem, "batch": batch, "steps": len(hist),
+          "epochs": epochs, "lr": lr, "losses": [{"step": r["step"], **r["metrics"]}
+                                                 for r in hist],
+          "scans_per_s": batch * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"]),
+          "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[1]["end_s"]) / len(timed),
+          "data_wait_ms": sum(r["data_wait_ms"] for r in timed) / len(timed),
+          "stage_ms": stage_ms, "fps_kernel_launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "cli_seconds": seconds,
+          "card": card})
+    want = expected_fps(stem, len(hist))
+    if launches != want:
+        fail(f"kitti {stem} train: fps launches {launches}, not {want}")
+    return launches
+
+
+def cbgs_batch(torch, np, dev):
+    """CBGS_SCANS synthetic nuScenes-like scans in the CBGS range: a ground
+    plane, CBGS_OBJECTS boxes of the 10 classes at their anchor sizes with
+    points on them, 5 features (x, y, z, intensity, time lag); gt boxes
+    (B, M, 10): the box, its velocity, its class."""
+    from modest_tpu_torch.configs import CBGS_POINT_CLOUD_RANGE, _cbgs_anchors
+
+    rng = np.random.RandomState(7)
+    anchors = _cbgs_anchors(8)
+    pcr = np.asarray(CBGS_POINT_CLOUD_RANGE)
+    points = np.zeros((CBGS_SCANS, CBGS_POINTS, 5), np.float32)
+    gt = np.zeros((CBGS_SCANS, CBGS_OBJECTS, 10), np.float32)
+    per_obj = CBGS_POINTS // (2 * CBGS_OBJECTS)
+    for s in range(CBGS_SCANS):
+        n_ground = CBGS_POINTS - per_obj * CBGS_OBJECTS
+        points[s, :n_ground, :2] = rng.uniform(pcr[:2] + 1, pcr[3:5] - 1, (n_ground, 2))
+        points[s, :n_ground, 2] = -1.8 + rng.randn(n_ground) * 0.05
+        for j in range(CBGS_OBJECTS):
+            cls = rng.randint(len(anchors))
+            a = anchors[cls]
+            size = np.asarray(a["anchor_sizes"][0]) * rng.uniform(0.9, 1.1, 3)
+            centre = [*rng.uniform(pcr[:2] + 5, pcr[3:5] - 5),
+                      a["anchor_bottom_heights"][0] + size[2] / 2]
+            yaw = rng.uniform(-np.pi, np.pi)
+            gt[s, j] = [*centre, *size, yaw, *rng.uniform(-3, 3, 2), cls + 1]
+            local = rng.uniform(-0.5, 0.5, (per_obj, 3)) * size
+            c, si = np.cos(yaw), np.sin(yaw)
+            rot = np.array([[c, -si, 0], [si, c, 0], [0, 0, 1.0]])
+            sl = slice(n_ground + j * per_obj, n_ground + (j + 1) * per_obj)
+            points[s, sl, :3] = local @ rot.T + centre
+        points[s, :, 3] = rng.rand(CBGS_POINTS)
+        points[s, :, 4] = rng.randint(0, 10, CBGS_POINTS) * 0.05
+    return {"points": torch.from_numpy(points).to(dev), "gt_boxes": torch.from_numpy(gt).to(dev)}
+
+
+def phase_cbgs(torch, np, api, build_network, dev, card):
+    """The CBGS grouped heads at their nuScenes geometry (10 classes in 6
+    groups, the 9-code (cos, sin) coder, SECOND's on VoxelResBackBone8x):
+    KITTI_TIMED_ITERS timed eval forwards + multi-class post-processing at
+    B = 4 (10 × NMS_POST_MAXSIZE slots a scan), one train forward and its
+    losses, then card vs CPU as the grid detectors (``phase_grid_card_vs_cpu``:
+    the card's ``multi_classes_nms`` held against the CPU's on the card's
+    dense outputs)."""
+    import types
+
+    from modest_tpu_torch import configs
+    from modest_tpu_torch.utils.config import Config
+
+    batch = cbgs_batch(torch, np, dev)
+    counts = reset_fps_counts()
+    for stem in CBGS_MODELS:
+        vs, gs = configs.CBGS_GEOMETRY[stem]
+        ds = types.SimpleNamespace(point_cloud_range=configs.CBGS_POINT_CLOUD_RANGE,
+                                   voxel_size=vs, grid_size=gs,
+                                   class_names=configs.CBGS_CLASS_NAMES,
+                                   num_point_features=configs.CBGS_NUM_POINT_FEATURES)
+        cfg = Config({"CLASS_NAMES": configs.CBGS_CLASS_NAMES,
+                      "MODEL": getattr(configs, stem.upper())})
+        model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=0, dataset=ds)
+        calibrate_grid_model(torch, api, model, cfg.MODEL, batch)
+        row, final = timed_forwards(torch, api, model, cfg.MODEL, batch["points"],
+                                    KITTI_TIMED_ITERS, stem)
+        out = api.apply_train(model, cfg.MODEL, batch["points"], batch["gt_boxes"])
+        _, metrics = api.compute_loss(out, batch["gt_boxes"], cfg.MODEL, len(cfg.CLASS_NAMES))
+        losses = {k: v.item() for k, v in metrics.items()}
+        labels = out["box_cls_labels"]
+        model.eval()
+        if not all(math.isfinite(v) for v in losses.values()):
+            fail(f"{stem}: non-finite train losses {losses}")
+        nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+        slots = len(cfg.CLASS_NAMES) * int(nms.NMS_POST_MAXSIZE)
+        if final["boxes"].shape[1:] != (slots, 9):
+            fail(f"{stem}: final boxes {tuple(final['boxes'].shape)}, not (B, {slots}, 9)")
+        emit({"phase": "cbgs_forward", "model": stem, "grid_size": gs,
+              "anchors": int(model.anchors.shape[0]), "slots_per_scan": slots, **row,
+              "train_losses": losses, "train_labels_by_class": torch.bincount(
+                  labels.clamp_min(0).flatten(), minlength=len(cfg.CLASS_NAMES) + 1).tolist(),
+              "card": card})
+        phase_grid_card_vs_cpu(torch, np, api, build_network, stem, cfg, ds, model, batch, card)
+        del model, out
+        torch.cuda.empty_cache()
+    if any(counts.values()):
+        fail(f"the CBGS heads launched hand kernels {dict(counts)}")
+
+
+def phase_kitti(torch, np, api, build_network, dev, card):
+    """KITTI's 3-class configs and the CBGS heads: the dataset, every KITTI
+    model's forward (card vs CPU for the new routes), 8 train steps of
+    KITTI_TRAIN's, the CBGS phase. Returns the FPS launches by model of the
+    forwards and of the trainings."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_kitti_"))
+    forward_launches, train_launches = {}, {}
+    t0 = time.perf_counter()
+    try:
+        phase_kitti_dataset(tmp, card)
+        for stem in (*KITTI_TRAIN, *KITTI_EVAL_ONLY):
+            forward_launches[stem] = phase_kitti_forward(torch, np, api, build_network, stem,
+                                                         tmp, dev, card)
+            if stem in KITTI_TRAIN:
+                train_launches[stem] = phase_kitti_train(torch, np, dev, tmp, stem, card)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_cbgs(torch, np, api, build_network, dev, card)
+    emit({"phase": "kitti_cbgs_seconds", "seconds": time.perf_counter() - t0, "card": card})
+    return forward_launches, train_launches
 
 
 def phase_prep(torch, np, dev, card):
@@ -2874,6 +3253,8 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    kitti_forward_launches, kitti_train_launches = phase_kitti(torch, np, api, build_network,
+                                                               dev, card)
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
     try:
@@ -2965,7 +3346,21 @@ def main() -> int:
             "nuscenes_boston": {stage: {key: fps_rows[stage][key] for key in row_keys}
                                 for stage in nusc_stages},
             "nuscenes_boston_shapes": "the 6144-point backbone's calls at the config's B=2 "
-                                      "(its RoI tower: train_roi_* and round_roi_*)"})
+                                      "(its RoI tower: train_roi_* and round_roi_*)",
+            "kitti_launches": {stem: n[kernel] for stem, n in kitti_forward_launches.items()
+                               if n[kernel]},
+            "kitti_forwards": KITTI_TIMED_ITERS + 1,
+            "kitti_train_launches": {stem: n[kernel] for stem, n in kitti_train_launches.items()
+                                     if n[kernel]},
+            "kitti_train_steps": 8,
+            **({"kitti": {stage: {key: fps_rows[stage][key] for key in row_keys}
+                          for stage in ("kitti_sa1", "train_kitti_sa1")}}
+               if kernel == "fps_cluster_kernel" else {}),
+            "kitti_shapes": "KITTI PointRCNN (16384 points: SA1 kitti_sa1 at B=4, "
+                            "train_kitti_sa1 at B=2; its other levels and RoI tower the "
+                            "flagship's shapes) and KITTI PV-RCNN's keypoints (pv_keypoints, "
+                            "train_pv_keypoints); launches over each model's timed forwards "
+                            "and 8 train steps"})
     emit({"kernels": [*fps_kernels, {
         "name": "radius_count", "route": "cuda", "source": "modest_tpu_torch/csrc/radius_count.cu",
         "replaces": "modest_tpu/ops/pallas_radius_count.py:81",

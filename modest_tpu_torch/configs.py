@@ -11,7 +11,11 @@ that file. ``POINTPILLAR_DYNAMIC_OBJ(_FULL)``, ``SECOND_DYNAMIC_OBJ(_FULL)`` and
 of the same directory, in the same forms, as are
 ``{SECOND_IOU,VOXEL_RCNN,PART_A2}_DYNAMIC_OBJ(_FULL)``;
 ``NUSCENES_BOSTON_POINTRCNN_DYNAMIC_OBJ_FULL`` is
-``configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml`` whole. ``PIPELINE_*`` are
+``configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml`` whole.
+``KITTI_<NAME>`` is the ``MODEL`` section of
+``configs/models/kitti_models/<name>.yaml`` (``KITTI_CONFIGS`` the ten whole
+files), ``CBGS_{SECOND,PP}_MULTIHEAD`` the ``MODEL`` sections of
+``configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml``. ``PIPELINE_*`` are
 ``configs/pipeline/{pp_score,generate_mask}.yaml`` and the
 ``data_paths/{fw70_2m,nusc}.yaml`` group, each exactly as PyYAML parses it;
 tests hold them equal.
@@ -529,6 +533,243 @@ NUSCENES_BOSTON_POINTRCNN_DYNAMIC_OBJ_FULL = {
     "OPTIMIZATION": {**POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION, "NUM_EPOCHS": 80},
 }
 
+# ---------------------------------------------------------------------------
+# KITTI, the reference's benchmark: configs/models/kitti_models/<name>.yaml on
+# configs/datasets/kitti_dataset.yaml, whole in KITTI_CONFIGS. Three classes
+# (voxel_rcnn_car: Car), KITTI's range [0, -40, -3, 70.4, 40, 1] (PointPillars'
+# cut to its pillar grid). Every model section but the multi-head SECOND's and
+# PartA2_free's is the Lyft file's with KITTI's anchors; the optimizations
+# differ from the flagship's only in batch, rate and epochs.
+# ---------------------------------------------------------------------------
+
+KITTI_CLASS_NAMES = ["Car", "Pedestrian", "Cyclist"]
+KITTI_NUM_POINTS = 16384  # the point-based detectors' sample (kitti_models/pointrcnn.yaml)
+
+KITTI_DATA_BASE = {
+    "DATASET": "KittiDataset", "DATA_PATH": "data/kitti",
+    "POINT_CLOUD_RANGE": [0, -40, -3, 70.4, 40, 1],
+    "DATA_SPLIT": {"train": "train", "test": "val"},
+    "INFO_PATH": {"train": ["kitti_infos_train.pkl"], "test": ["kitti_infos_val.pkl"]},
+    "GET_ITEM_LIST": ["points"], "FOV_POINTS_ONLY": True, "CONSTANT_REFLEX": 100.0,
+    "DATA_AUGMENTOR": {
+        "DISABLE_AUG_LIST": ["placeholder"],
+        "AUG_CONFIG_LIST": [
+            {
+                "NAME": "gt_sampling", "USE_ROAD_PLANE": True,
+                "DB_INFO_PATH": ["kitti_dbinfos_train.pkl"],
+                "PREPARE": {"filter_by_min_points": ["Car:5", "Pedestrian:5", "Cyclist:5"],
+                            "filter_by_difficulty": [-1]},
+                "SAMPLE_GROUPS": ["Car:20", "Pedestrian:15", "Cyclist:15"],
+                "NUM_POINT_FEATURES": 4, "DATABASE_WITH_FAKELIDAR": False,
+                "REMOVE_EXTRA_WIDTH": [0.0, 0.0, 0.0], "LIMIT_WHOLE_SCENE": True,
+            },
+            {"NAME": "random_world_flip", "ALONG_AXIS_LIST": ["x"]},
+            {"NAME": "random_world_rotation", "WORLD_ROT_ANGLE": [-0.78539816, 0.78539816]},
+            {"NAME": "random_world_scaling", "WORLD_SCALE_RANGE": [0.95, 1.05]},
+        ],
+    },
+    "POINT_FEATURE_ENCODING": {
+        "encoding_type": "absolute_coordinates_encoding",
+        "used_feature_list": ["x", "y", "z", "intensity"],
+        "src_feature_list": ["x", "y", "z", "intensity"],
+    },
+}
+
+
+def _kitti_data_config(voxel_size=None, max_points_per_voxel: int = 5, **changes):
+    """The dataset base with a file's processors: sampled to
+    KITTI_NUM_POINTS a scan for the point-based detectors, to
+    GRID_NUM_POINTS and voxelized at ``voxel_size`` for the grid ones."""
+    import copy
+
+    data = {**copy.deepcopy(KITTI_DATA_BASE), **changes}
+    n = KITTI_NUM_POINTS if voxel_size is None else GRID_NUM_POINTS
+    data["DATA_PROCESSOR"] = [
+        {"NAME": "mask_points_and_boxes_outside_range", "REMOVE_OUTSIDE_BOXES": True},
+        {"NAME": "sample_points", "NUM_POINTS": {"train": n, "test": n}},
+        {"NAME": "shuffle_points", "SHUFFLE_ENABLED": {"train": True, "test": False}},
+    ]
+    if voxel_size is not None:
+        data["DATA_PROCESSOR"].append(
+            {"NAME": "transform_points_to_voxels", "VOXEL_SIZE": voxel_size,
+             "MAX_POINTS_PER_VOXEL": max_points_per_voxel,
+             "MAX_NUMBER_OF_VOXELS": {"train": 16000, "test": 40000}})
+    return data
+
+
+def _kitti_anchors(stride: int = 8, bottoms=(-1.78, -0.6, -0.6), classes: int = 3):
+    """KITTI's anchor configs, in CLASS_NAMES order."""
+    cfgs = [("Car", [3.9, 1.6, 1.56], 0.6, 0.45), ("Pedestrian", [0.8, 0.6, 1.73], 0.5, 0.35),
+            ("Cyclist", [1.76, 0.6, 1.73], 0.5, 0.35)]
+    return [{"class_name": name, "anchor_sizes": [size], "anchor_rotations": [0, 1.57],
+             "anchor_bottom_heights": [bottom], "align_center": False,
+             "feature_map_stride": stride, "matched_threshold": matched,
+             "unmatched_threshold": unmatched}
+            for (name, size, matched, unmatched), bottom in zip(cfgs[:classes], bottoms)]
+
+
+def _with_anchors(model, anchors):
+    return {**model, "DENSE_HEAD": {**model["DENSE_HEAD"], "ANCHOR_GENERATOR_CONFIG": anchors}}
+
+
+def _kitti_optimization(batch: int, lr: float):
+    return {**POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION, "BATCH_SIZE_PER_GPU": batch, "NUM_EPOCHS": 80,
+            "LR": lr}
+
+
+KITTI_POINTRCNN = POINTRCNN_DYNAMIC_OBJ
+KITTI_POINTRCNN_IOU = {
+    **POINTRCNN_DYNAMIC_OBJ,
+    "ROI_HEAD": {**POINTRCNN_DYNAMIC_OBJ["ROI_HEAD"], "TARGET_CONFIG": {
+        **POINTRCNN_DYNAMIC_OBJ["ROI_HEAD"]["TARGET_CONFIG"], "CLS_SCORE_TYPE": "roi_iou",
+        "CLS_FG_THRESH": 0.7, "CLS_BG_THRESH": 0.25}},
+}
+KITTI_SECOND = _with_anchors(SECOND_DYNAMIC_OBJ, _kitti_anchors())
+KITTI_POINTPILLAR = _with_anchors(POINTPILLAR_DYNAMIC_OBJ, _kitti_anchors(stride=2))
+_SECOND_HEAD = SECOND_DYNAMIC_OBJ["DENSE_HEAD"]
+KITTI_SECOND_MULTIHEAD = {**SECOND_DYNAMIC_OBJ, "DENSE_HEAD": {
+    "NAME": "AnchorHeadMulti",
+    **{k: _SECOND_HEAD[k] for k in ("CLASS_AGNOSTIC", "USE_DIRECTION_CLASSIFIER", "DIR_OFFSET",
+                                    "DIR_LIMIT_OFFSET", "NUM_DIR_BINS")},
+    "USE_MULTIHEAD": True, "SEPARATE_MULTIHEAD": True,
+    "ANCHOR_GENERATOR_CONFIG": _kitti_anchors(bottoms=(-1.6, -1.6, -1.6)),
+    "SHARED_CONV_NUM_FILTER": 64,
+    "RPN_HEAD_CFGS": [{"HEAD_CLS_NAME": [name]} for name in KITTI_CLASS_NAMES],
+    **{k: _SECOND_HEAD[k] for k in ("TARGET_ASSIGNER_CONFIG", "LOSS_CONFIG")},
+}}
+KITTI_PV_RCNN = _with_anchors(PV_RCNN_DYNAMIC_OBJ, _kitti_anchors())
+KITTI_SECOND_IOU = _with_anchors(SECOND_IOU_DYNAMIC_OBJ, _kitti_anchors())
+KITTI_PART_A2 = _with_anchors(PART_A2_DYNAMIC_OBJ, _kitti_anchors())
+KITTI_VOXEL_RCNN_CAR = _with_anchors(VOXEL_RCNN_DYNAMIC_OBJ, _kitti_anchors(classes=1))
+
+# PartA2_free: NAME PointRCNN on the UNetV2 backbone (PartA2Free), a point head
+# with mean-size residuals, Part-A2's RoI tower with DISABLE_PART
+_PART_A2_ROI = PART_A2_DYNAMIC_OBJ["ROI_HEAD"]
+KITTI_PART_A2_FREE = {
+    "NAME": "PointRCNN", "VFE": {"NAME": "MeanVFE"},
+    "BACKBONE_3D": {"NAME": "UNetV2", "RETURN_ENCODED_TENSOR": False},
+    "POINT_HEAD": {
+        "NAME": "PointIntraPartOffsetHead", "CLS_FC": [128, 128], "PART_FC": [128, 128],
+        "REG_FC": [128, 128], "CLASS_AGNOSTIC": False, "USE_POINT_FEATURES_BEFORE_FUSION": False,
+        "TARGET_CONFIG": POINTRCNN_DYNAMIC_OBJ["POINT_HEAD"]["TARGET_CONFIG"],
+        "LOSS_CONFIG": {
+            "LOSS_REG": "WeightedSmoothL1Loss",
+            "LOSS_WEIGHTS": {"point_cls_weight": 1.0, "point_box_weight": 1.0,
+                             "point_part_weight": 1.0, "code_weights": [1.0] * 8},
+        },
+    },
+    "ROI_HEAD": {
+        **{k: _PART_A2_ROI[k] for k in ("NAME", "CLASS_AGNOSTIC")}, "SHARED_FC": [256, 256, 256],
+        **{k: _PART_A2_ROI[k] for k in ("CLS_FC", "REG_FC", "DP_RATIO")},
+        "DISABLE_PART": True, "SEG_MASK_SCORE_THRESH": 0.0,
+        "NMS_CONFIG": {"TRAIN": _PART_A2_ROI["NMS_CONFIG"]["TRAIN"],
+                       "TEST": {**_PART_A2_ROI["NMS_CONFIG"]["TEST"], "NMS_PRE_MAXSIZE": 9000,
+                                "NMS_THRESH": 0.85}},
+        **{k: _PART_A2_ROI[k] for k in ("ROI_AWARE_POOL", "CONV_TOWER")},
+        "TARGET_CONFIG": {**_PART_A2_ROI["TARGET_CONFIG"], "REG_FG_THRESH": 0.65},
+        "LOSS_CONFIG": _PART_A2_ROI["LOSS_CONFIG"],
+    },
+    "POST_PROCESSING": PART_A2_DYNAMIC_OBJ["POST_PROCESSING"],
+}
+
+
+def _kitti_full(model, batch: int, lr: float, voxel_size=(0.05, 0.05, 0.1), classes=None,
+                **data):
+    return {"CLASS_NAMES": list(classes or KITTI_CLASS_NAMES),
+            "DATA_CONFIG": _kitti_data_config(None if voxel_size is None else list(voxel_size),
+                                              **data),
+            "MODEL": model, "OPTIMIZATION": _kitti_optimization(batch, lr)}
+
+
+_PILLAR_AUGMENTOR = {"DISABLE_AUG_LIST": ["placeholder"], "AUG_CONFIG_LIST": [
+    {**KITTI_DATA_BASE["DATA_AUGMENTOR"]["AUG_CONFIG_LIST"][0],
+     "SAMPLE_GROUPS": ["Car:15", "Pedestrian:15", "Cyclist:15"], "LIMIT_WHOLE_SCENE": False},
+    *KITTI_DATA_BASE["DATA_AUGMENTOR"]["AUG_CONFIG_LIST"][1:]]}
+KITTI_CONFIGS = {  # file stem under configs/models/kitti_models → the whole file
+    "pointrcnn": _kitti_full(KITTI_POINTRCNN, 2, 0.01, voxel_size=None),
+    "pointrcnn_iou": _kitti_full(KITTI_POINTRCNN_IOU, 3, 0.01, voxel_size=None),
+    "second": _kitti_full(KITTI_SECOND, 4, 0.003),
+    "pointpillar": _kitti_full(KITTI_POINTPILLAR, 4, 0.003, voxel_size=(0.16, 0.16, 4),
+                               max_points_per_voxel=32,
+                               POINT_CLOUD_RANGE=[0, -39.68, -3, 69.12, 39.68, 1],
+                               DATA_AUGMENTOR=_PILLAR_AUGMENTOR),
+    "second_multihead": _kitti_full(KITTI_SECOND_MULTIHEAD, 4, 0.003),
+    "pv_rcnn": _kitti_full(KITTI_PV_RCNN, 2, 0.01),
+    "second_iou": _kitti_full(KITTI_SECOND_IOU, 4, 0.003),
+    "PartA2": _kitti_full(KITTI_PART_A2, 2, 0.01),
+    "PartA2_free": _kitti_full(KITTI_PART_A2_FREE, 4, 0.01),
+    "voxel_rcnn_car": _kitti_full(KITTI_VOXEL_RCNN_CAR, 2, 0.01, classes=["Car"]),
+}
+
+# nuScenes CBGS (configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml):
+# their MODEL sections and the geometry their DATA_CONFIG records; the nuScenes
+# dataset itself is not ported, so a caller builds them with that geometry
+CBGS_CLASS_NAMES = ["car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
+                    "motorcycle", "bicycle", "pedestrian", "traffic_cone"]
+CBGS_POINT_CLOUD_RANGE = [-51.2, -51.2, -5.0, 51.2, 51.2, 3.0]
+CBGS_NUM_POINT_FEATURES = 5  # x, y, z, intensity, time lag
+
+
+def _cbgs_anchors(stride: int):
+    cfgs = [("car", [4.63, 1.97, 1.74], -0.95, 0.6, 0.45),
+            ("truck", [6.93, 2.51, 2.84], -0.6, 0.55, 0.4),
+            ("construction_vehicle", [6.37, 2.85, 3.19], -0.225, 0.5, 0.35),
+            ("bus", [10.5, 2.94, 3.47], -0.085, 0.55, 0.4),
+            ("trailer", [12.29, 2.90, 3.87], 0.115, 0.5, 0.35),
+            ("barrier", [0.50, 2.53, 0.98], -1.33, 0.55, 0.4),
+            ("motorcycle", [2.11, 0.77, 1.47], -1.085, 0.5, 0.3),
+            ("bicycle", [1.70, 0.60, 1.28], -1.18, 0.5, 0.35),
+            ("pedestrian", [0.73, 0.67, 1.77], -0.935, 0.6, 0.4),
+            ("traffic_cone", [0.41, 0.41, 1.07], -1.285, 0.6, 0.4)]
+    return [{"class_name": name, "anchor_sizes": [size], "anchor_rotations": [0, 1.57],
+             "anchor_bottom_heights": [bottom], "align_center": False,
+             "feature_map_stride": stride, "matched_threshold": matched,
+             "unmatched_threshold": unmatched} for name, size, bottom, matched, unmatched in cfgs]
+
+
+def _cbgs_dense_head(stride: int):
+    return {
+        "NAME": "AnchorHeadMulti", "CLASS_AGNOSTIC": False, "DIR_OFFSET": 0.78539,
+        "DIR_LIMIT_OFFSET": 0.0, "NUM_DIR_BINS": 2, "USE_DIRECTION_CLASSIFIER": True,
+        "SHARED_CONV_NUM_FILTER": 64, "NUM_MIDDLE_CONV": 1, "NUM_MIDDLE_FILTER": 64,
+        "ANCHOR_GENERATOR_CONFIG": _cbgs_anchors(stride),
+        "RPN_HEAD_CFGS": [{"HEAD_CLS_NAME": names} for names in (
+            ["car"], ["truck", "construction_vehicle"], ["bus", "trailer"], ["barrier"],
+            ["motorcycle", "bicycle"], ["pedestrian", "traffic_cone"])],
+        "TARGET_ASSIGNER_CONFIG": {
+            "NAME": "AxisAlignedTargetAssigner", "BOX_CODER": "ResidualCoder",
+            "BOX_CODER_CONFIG": {"code_size": 9, "encode_angle_by_sincos": True},
+        },
+        "LOSS_CONFIG": {"LOSS_WEIGHTS": {"cls_weight": 1.0, "loc_weight": 0.25, "dir_weight": 0.2,
+                                         "code_weights": [1.0] * 8 + [0.2, 0.2]}},
+    }
+
+
+_CBGS_POST = {
+    "RECALL_THRESH_LIST": [0.3, 0.5, 0.7], "SCORE_THRESH": 0.1, "OUTPUT_RAW_SCORE": False,
+    "EVAL_METRIC": "kitti",
+    "NMS_CONFIG": {"MULTI_CLASSES_NMS": True, "NMS_TYPE": "nms_gpu", "NMS_THRESH": 0.2,
+                   "NMS_PRE_MAXSIZE": 1000, "NMS_POST_MAXSIZE": 83},
+}
+CBGS_SECOND_MULTIHEAD = {
+    "NAME": "SECONDNet", "VFE": {"NAME": "MeanVFE"}, "BACKBONE_3D": {"NAME": "VoxelResBackBone8x"},
+    "MAP_TO_BEV": {"NAME": "HeightCompression", "NUM_BEV_FEATURES": 256},
+    "BACKBONE_2D": SECOND_DYNAMIC_OBJ["BACKBONE_2D"],
+    "DENSE_HEAD": _cbgs_dense_head(8), "POST_PROCESSING": _CBGS_POST,
+}
+CBGS_PP_MULTIHEAD = {
+    "NAME": "PointPillar",
+    "VFE": {"NAME": "PillarVFE", "WITH_DISTANCE": False, "USE_ABSLOTE_XYZ": True,
+            "NUM_FILTERS": [64]},
+    "MAP_TO_BEV": {"NAME": "PointPillarScatter", "NUM_BEV_FEATURES": 64},
+    "BACKBONE_2D": {**POINTPILLAR_DYNAMIC_OBJ["BACKBONE_2D"], "UPSAMPLE_STRIDES": [0.5, 1, 2]},
+    "DENSE_HEAD": _cbgs_dense_head(4), "POST_PROCESSING": _CBGS_POST,
+}
+CBGS_GEOMETRY = {  # (VOXEL_SIZE, GRID_SIZE) of each file's DATA_CONFIG
+    "cbgs_second_multihead": ([0.1, 0.1, 0.2], [1024, 1024, 40]),
+    "cbgs_pp_multihead": ([0.2, 0.2, 8.0], [512, 512, 1]),
+}
+
 # the YAML files (relative to the repository root) that ship as the dicts above
 SHIPPED_MODEL_CONFIGS = {
     "configs/models/lyft_models/pointrcnn_dynamic_obj.yaml": POINTRCNN_DYNAMIC_OBJ_FULL,
@@ -540,6 +781,7 @@ SHIPPED_MODEL_CONFIGS = {
     "configs/models/lyft_models/part_a2_dynamic_obj.yaml": PART_A2_DYNAMIC_OBJ_FULL,
     "configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml":
         NUSCENES_BOSTON_POINTRCNN_DYNAMIC_OBJ_FULL,
+    **{f"configs/models/kitti_models/{stem}.yaml": full for stem, full in KITTI_CONFIGS.items()},
 }
 
 

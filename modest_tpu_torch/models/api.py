@@ -1,8 +1,10 @@
 """Model-family dispatch: forward, loss and post-processing — port of
 ``modest_tpu/models/api.py`` for the detectors the port has: PointRCNN, the
-grid detectors (PointPillar, SECONDNet), PVRCNN, SECONDNetIoU, VoxelRCNN
-and PartA2. The two-stage heads share the refined-box post-processing
-(SECOND-IoU's "refined" boxes are its RoIs, scored by its IoU branch)."""
+grid detectors (PointPillar, SECONDNet, single or grouped anchor head),
+PVRCNN, SECONDNetIoU, VoxelRCNN, PartA2 and the anchor-free Part-A2 (NAME
+PointRCNN with the UNetV2 backbone). The two-stage heads share the
+refined-box post-processing (SECOND-IoU's "refined" boxes are its RoIs,
+scored by its IoU branch)."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +20,11 @@ SAMPLES_ROIS = ("PointRCNN", "PVRCNN", "VoxelRCNN", "PartA2", "PartA2Net")
 
 def is_grid_model(model_cfg) -> bool:
     return model_cfg.NAME in ("SECONDNet", "PointPillar")
+
+
+def is_parta2_free(model_cfg) -> bool:
+    return (model_cfg.NAME == "PointRCNN"
+            and model_cfg.get("BACKBONE_3D", {}).get("NAME", "") == "UNetV2")
 
 
 def samples_rois(model_cfg) -> bool:
@@ -46,6 +53,10 @@ def apply_train(model, model_cfg, points, gt_boxes, roi_draws=None, on_stage=Non
 def compute_loss(out, gt_boxes, model_cfg, num_class: int = 1):
     """(total loss, metrics) of a train-mode forward's outputs."""
     _check_ported(model_cfg)
+    if is_parta2_free(model_cfg):
+        from .part_a2 import parta2_free_loss
+
+        return parta2_free_loss(out, gt_boxes, model_cfg, num_class)
     if is_grid_model(model_cfg):
         from .grid_detectors import grid_detector_loss
 

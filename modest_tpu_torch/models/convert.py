@@ -4,8 +4,9 @@ pcdet checkpoints.
 ``state_dict_from_jax(params, batch_stats)`` (PointRCNN),
 ``grid_state_dict_from_jax(params, batch_stats, model_cfg)`` (PointPillar,
 SECONDNet), ``pvrcnn_state_dict_from_jax``, ``second_iou_state_dict_from_jax``,
-``voxelrcnn_state_dict_from_jax`` and ``parta2_state_dict_from_jax`` (same
-arguments; the JAX package has no pcdet route for these, nor has the port) take
+``voxelrcnn_state_dict_from_jax``, ``parta2_state_dict_from_jax`` and
+``parta2_free_state_dict_from_jax`` (same arguments; the JAX package has no
+pcdet route for these, nor has the port) take
 the flax param and batch-stat trees (nested mappings of arrays) and return
 the port's ``state_dict``. ``state_dict_from_pcdet``
 brings a pcdet ``model_state`` to the port's layouts. The port's keys are
@@ -173,34 +174,77 @@ def _bev_state_from_jax(P, S, bb_cfg):
 
 
 def _sparse_state_from_jax(P, S):
-    """flax ``VoxelBackBone8x`` → ``backbone_3d.*``: every kernel is 3 × 3 × 3
-    but ``conv_out``'s, which is 3 × 1 × 1."""
+    """flax ``VoxelBackBone8x`` or ``VoxelResBackBone8x`` → ``backbone_3d.*``:
+    every kernel is 3 × 3 × 3 but ``conv_out``'s, which is 3 × 1 × 1. A
+    ``SparseResBlock`` ``res<s>_<a|b>`` (``conv1``, ``bn1``, ``conv2``,
+    ``bn2``) → ``conv<s>.<i>.{conv1,bn1,conv2,bn2}``."""
     sd = {}
 
-    def put(prefix, kernel, bn, st):
-        window = (3, 1, 1) if prefix == "conv_out" else (3, 3, 3)
+    def sparse_kernel(kernel, window=(3, 3, 3)):
         cin = kernel.shape[0] // (window[0] * window[1] * window[2])
-        sd[f"{prefix}.0.weight"] = kernel.reshape(*window, cin, kernel.shape[1])
+        return kernel.reshape(*window, cin, kernel.shape[1])
+
+    def put(prefix, kernel, bn, st):
+        sd[f"{prefix}.0.weight"] = sparse_kernel(kernel, (3, 1, 1) if prefix == "conv_out"
+                                                 else (3, 3, 3))
         sd.update(_bn_entries(f"{prefix}.1", bn, st))
 
     def block(prefix, name):
-        put(prefix, P[name]["SubMConv3d_0"]["kernel"], P[name]["MaskedBatchNorm_0"],
-            S[name]["MaskedBatchNorm_0"])
+        if "SubMConv3d_0" in P[name]:
+            put(prefix, P[name]["SubMConv3d_0"]["kernel"], P[name]["MaskedBatchNorm_0"],
+                S[name]["MaskedBatchNorm_0"])
+            return
+        for i in (1, 2):
+            sd[f"{prefix}.conv{i}.weight"] = sparse_kernel(P[name][f"conv{i}"]["kernel"])
+            sd.update(_bn_entries(f"{prefix}.bn{i}", P[name][f"bn{i}"], S[name][f"bn{i}"]))
 
     block("conv_input", "conv_input")
-    block("conv1.0", "conv1")
+    res = "res1_a" in P
+    for i, name in enumerate(("res1_a", "res1_b") if res else ("conv1",)):
+        block(f"conv1.{i}", name)
     for s in (2, 3, 4):
         put(f"conv{s}.0", P[f"conv{s}_down"]["kernel"], P[f"conv{s}_down_bn"],
             S[f"conv{s}_down_bn"])
-        block(f"conv{s}.1", f"conv{s}_a")
-        block(f"conv{s}.2", f"conv{s}_b")
+        for i, part in ((1, "a"), (2, "b")):
+            block(f"conv{s}.{i}", f"res{s}_{part}" if res else f"conv{s}_{part}")
     put("conv_out", P["conv_out"]["kernel"], P["conv_out_bn"], S["conv_out_bn"])
+    return sd
+
+
+def multihead_state_from_jax(P, S):
+    """flax ``AnchorHeadMulti`` → the port's ``AnchorHeadMulti`` entries:
+    ``shared_conv`` / ``shared_bn`` → ``shared_conv.{0,1}``, and per group
+    ``heads_<g>``'s Conv and BatchNorm modules, numbered in creation order
+    (per branch cls, box, dir: its 1x1 conv, made before the call that
+    makes its middle convs, then those) →
+    ``rpn_heads.<g>.{cls,box,dir}_mid`` and ``conv_{cls,box,dir_cls}``."""
+    sd = {}
+    if "shared_conv" in P:
+        sd["shared_conv.0.weight"] = _conv2d(P["shared_conv"]["kernel"])
+        sd.update(_bn_entries("shared_conv.1", P["shared_bn"], S["shared_bn"]))
+    for g in _numbered(P, "heads"):
+        head, stats = P[f"heads_{g}"], S.get(f"heads_{g}", {})
+        n_conv, n_bn = len(_numbered(head, "Conv")), len(_numbered(head, "BatchNorm"))
+        branches = n_conv - n_bn  # each branch: a 1x1 conv and its middle (conv, BN)s
+        ci = bi = 0
+        for branch, conv in (("cls", "conv_cls"), ("box", "conv_box"),
+                             ("dir", "conv_dir_cls"))[:branches]:
+            sd[f"rpn_heads.{g}.{conv}.weight"] = _conv2d(head[f"Conv_{ci}"]["kernel"])
+            sd[f"rpn_heads.{g}.{conv}.bias"] = head[f"Conv_{ci}"]["bias"]
+            ci += 1
+            for j in range(n_bn // branches):
+                sd[f"rpn_heads.{g}.{branch}_mid.{3 * j}.weight"] = _conv2d(
+                    head[f"Conv_{ci}"]["kernel"])
+                sd.update(_bn_entries(f"rpn_heads.{g}.{branch}_mid.{3 * j + 1}",
+                                      head[f"BatchNorm_{bi}"], stats[f"BatchNorm_{bi}"]))
+                ci, bi = ci + 1, bi + 1
     return sd
 
 
 def grid_state_dict_from_jax(params, batch_stats, model_cfg):
     """JAX ``GridDetector`` (params, batch_stats) → the port's ``state_dict``
-    for the single-head PointPillar or SECONDNet of ``model_cfg``."""
+    for the PointPillar or SECONDNet of ``model_cfg``, with one anchor head
+    or the grouped one (``dense_head_multi``)."""
     P, S = _plain(params), _plain(batch_stats)
     sd = {}
     for k in _numbered(P.get("vfe", {}), "Dense"):
@@ -214,6 +258,10 @@ def grid_state_dict_from_jax(params, batch_stats, model_cfg):
                                                                   S["backbone_3d"])))
     sd.update(_prefixed("backbone_2d", _bev_state_from_jax(
         P["backbone_2d"], S["backbone_2d"], model_cfg.BACKBONE_2D)))
+    if "dense_head_multi" in P:
+        sd.update(_prefixed("dense_head", multihead_state_from_jax(
+            P["dense_head_multi"], S.get("dense_head_multi", {}))))
+        return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
     head = P["dense_head"]
     for name, ours in (("conv_cls", "Conv_0"), ("conv_box", "Conv_1"),
                        ("conv_dir_cls", "Conv_2")):
@@ -296,6 +344,22 @@ def unet_state_from_jax(params, stats):
     return sd
 
 
+def _part_tower_state(P, S, model_cfg):
+    sd = _prefixed("pool_proj", mlp_state_from_jax(P["pool_proj"], S.get("pool_proj")))
+    for i in range(len(model_cfg.ROI_HEAD.CONV_TOWER.NUM_FILTERS)):
+        conv = P[f"tower_conv{i}"]
+        sd[f"conv_tower.{i}.conv.weight"] = np.ascontiguousarray(
+            conv["kernel"].transpose(4, 3, 0, 1, 2))
+        sd[f"conv_tower.{i}.conv.bias"] = conv["bias"]
+        sd.update(_bn_entries(f"conv_tower.{i}.bn", P[f"tower_bn{i}"], S[f"tower_bn{i}"]))
+    sd.update(_rcnn_heads(P, S))
+    return sd
+
+
+def _tensors(sd):
+    return {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
 def parta2_state_dict_from_jax(params, batch_stats, model_cfg):
     """JAX ``PartA2`` (params, batch_stats) → the port's ``state_dict``:
     stage 1 as SECOND's, the UNet by ``unet_state_from_jax``; the point
@@ -307,15 +371,21 @@ def parta2_state_dict_from_jax(params, batch_stats, model_cfg):
     sd.update(_prefixed("backbone_3d", unet_state_from_jax(P["backbone_3d"], S["backbone_3d"])))
     for name in ("seg_head", "part_head"):
         sd.update(_prefixed(name, _fc_state(P, S, name)))
-    sd.update(_prefixed("pool_proj", mlp_state_from_jax(P["pool_proj"], S.get("pool_proj"))))
-    for i in range(len(model_cfg.ROI_HEAD.CONV_TOWER.NUM_FILTERS)):
-        conv = P[f"tower_conv{i}"]
-        sd[f"conv_tower.{i}.conv.weight"] = np.ascontiguousarray(
-            conv["kernel"].transpose(4, 3, 0, 1, 2))
-        sd[f"conv_tower.{i}.conv.bias"] = conv["bias"]
-        sd.update(_bn_entries(f"conv_tower.{i}.bn", P[f"tower_bn{i}"], S[f"tower_bn{i}"]))
-    sd.update(_rcnn_heads(P, S))
-    return {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    sd.update(_part_tower_state(P, S, model_cfg))
+    return _tensors(sd)
+
+
+def parta2_free_state_dict_from_jax(params, batch_stats, model_cfg):
+    """JAX ``PartA2Free`` (params, batch_stats) → the port's ``state_dict``:
+    the UNet, the ``point_head`` (``PointHeadBox``) and ``part_head``, then
+    the RoI tower and heads as Part-A²'s."""
+    P, S = _plain(params), _plain(batch_stats)
+    sd = _prefixed("backbone_3d", unet_state_from_jax(P["backbone_3d"], S["backbone_3d"]))
+    sd.update(_prefixed("point_head", point_head_state_from_jax(P["point_head"],
+                                                                S.get("point_head"))))
+    sd.update(_prefixed("part_head", _fc_state(P, S, "part_head")))
+    sd.update(_part_tower_state(P, S, model_cfg))
+    return _tensors(sd)
 
 
 def spconv_layout(model_state) -> str:

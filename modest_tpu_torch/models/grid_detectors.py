@@ -14,9 +14,9 @@ before their reshape, so anchor a of location (y, x) is row (y·fx + x)·na + a,
 the JAX package's location-major order. Module names are pcdet's
 (``vfe.pfn_layers.k.{linear,norm}``, ``backbone_3d.conv*``,
 ``backbone_2d.{blocks,deblocks}``, ``dense_head.conv_{cls,box,dir_cls}``).
-Only the single-head route is ported: the multi-head and ATSS assigners,
-multi-class NMS and the residual sparse backbone raise
-``NotImplementedError``.
+Multi-class anchor sets and ``AnchorHeadMulti`` take the grouped head of
+``models/anchor_head_multi.py``; SECOND takes ``VoxelResBackBone8x`` where
+the config names it; the ATSS assigner and multi-class NMS are here.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from ..ops.box_torch import limit_period
-from ..ops.iou3d import nms_bev
+from ..ops.iou3d import boxes_iou3d, boxes_iou_bev, multi_classes_nms, nms_bev
 from ..utils.config import Config
 from .box_coders import ResidualCoder
 from .layers import BatchNorm2d, Conv2d, MaskedBatchNorm
@@ -102,18 +102,47 @@ def aligned_bev_iou(boxes_a, boxes_b):
     return inter / torch.clamp_min(area_a + area_b - inter, 1e-6)
 
 
-@torch.no_grad()
-def assign_anchor_targets(anchors, gt_boxes, box_coder, matched_thr: float,
-                          unmatched_thr: float):
-    """AxisAlignedTargetAssigner over the batch, one class set.
+def single_head_anchor_setup(anchor_cfg, grid_size, point_cloud_range):
+    """Anchors and per-anchor match settings of a (possibly multi-class)
+    AnchorHeadSingle, location-major. The anchor configs are in
+    ``CLASS_NAMES`` order (class id = position + 1). Returns (anchors (A, 7),
+    anchors per location, matched_thr, unmatched_thr, anchor_cls): scalars
+    and None for one config, per-anchor (A,) arrays otherwise."""
+    anchors, fmap = generate_anchors(anchor_cfg, grid_size, point_cloud_range)
+    na_list = [len(c["anchor_sizes"]) * len(c["anchor_rotations"])
+               * len(c["anchor_bottom_heights"]) for c in anchor_cfg]
+    if len(anchor_cfg) == 1:
+        c = anchor_cfg[0]
+        return (anchors, na_list[0], float(c["matched_threshold"]),
+                float(c["unmatched_threshold"]), None)
 
-    anchors (A, 7); gt_boxes (B, M, 8), zero rows padding. Returns labels
-    (B, A) int64 (-1 ignore, 0 background, class id), reg_targets (B, A, 7)
-    and reg_weights (B, A)."""
+    def per_anchor(values, dtype):
+        loc = np.concatenate([np.full(n, v, dtype) for v, n in zip(values, na_list)])
+        return np.tile(loc, fmap[0] * fmap[1])
+
+    return (anchors, sum(na_list),
+            per_anchor([c["matched_threshold"] for c in anchor_cfg], np.float32),
+            per_anchor([c["unmatched_threshold"] for c in anchor_cfg], np.float32),
+            per_anchor(range(1, len(anchor_cfg) + 1), np.int32))
+
+
+@torch.no_grad()
+def assign_anchor_targets(anchors, gt_boxes, box_coder, matched_thr, unmatched_thr,
+                          anchor_cls=None):
+    """AxisAlignedTargetAssigner over the batch.
+
+    anchors (A, 7); gt_boxes (B, M, 8), zero rows padding. The thresholds are
+    scalars or per-anchor (A,) tensors; ``anchor_cls`` (A,), when given,
+    matches each anchor only to gt boxes of its class (the reference assigns
+    class by class; masking the overlaps is the same). Returns labels (B, A)
+    int64 (-1 ignore, 0 background, class id), reg_targets (B, A, code) and
+    reg_weights (B, A)."""
     gt_valid = gt_boxes.abs().sum(-1) > 0  # (B, M)
     cls = gt_boxes[..., 7].long()
     ov = aligned_bev_iou(anchors, gt_boxes[..., :7])  # (B, A, M)
     pair_ok = gt_valid[:, None, :]
+    if anchor_cls is not None:
+        pair_ok = pair_ok & (cls[:, None, :] == anchor_cls[None, :, None])
     ov = torch.where(pair_ok, ov, -1.0)
     a2g_max = ov.amax(dim=2)
     a2g_arg = ov.argmax(dim=2)  # the first maximum, as jnp.argmax
@@ -131,6 +160,67 @@ def assign_anchor_targets(anchors, gt_boxes, box_coder, matched_thr: float,
     matched = torch.gather(gt_boxes[..., :7], 1, a2g_arg[..., None].expand(-1, -1, 7))
     reg_targets = box_coder.encode(matched, anchors.expand_as(matched))
     fg = labels > 0
+    reg_targets = torch.where(fg[..., None], reg_targets, 0.0)
+    return labels, reg_targets, fg.float()
+
+
+@torch.no_grad()
+def assign_targets_atss(anchors, gt_boxes, box_coder, topk: int, match_height: bool = False):
+    """ATSS target assigner (arXiv 1912.02424; reference
+    atss_target_assigner.py:75-141) over the batch, as the JAX package's
+    ``assign_targets_atss``: per gt box its ``topk`` anchors of nearest
+    centre are candidates, positive at or above the mean + std (Bessel) of
+    their IoUs and with the centre inside the box's BEV rectangle (the
+    reference's local (x, y) against (dy, dx)/2, sizes swapped, kept); an
+    anchor that several boxes claim keeps the one of highest IoU, and each
+    box claims its best-IoU anchor (the last box wins a collision). No
+    ignore band. Returns (labels (B, A), reg_targets (B, A, code),
+    reg_weights (B, A))."""
+    iou_fn = boxes_iou3d if match_height else boxes_iou_bev
+    b, m = gt_boxes.shape[:2]
+    num_a = anchors.shape[0]
+    k = min(int(topk), num_a)
+    dev = anchors.device
+    gt_valid = gt_boxes.abs().sum(-1) > 0  # (B, M)
+    cls = gt_boxes[..., 7].long()
+    ious = iou_fn(anchors.expand(b, -1, -1), gt_boxes[..., :7])  # (B, A, M)
+    ious = torch.where(gt_valid[:, None, :], ious, 0.0)
+
+    dist = torch.linalg.norm(anchors[None, :, None, :3] - gt_boxes[:, None, :, :3], dim=-1)
+    # the k nearest, ties to the lower anchor index (lax.top_k of -dist)
+    topk_idx = torch.sort(-dist.transpose(1, 2), dim=-1, descending=True,
+                          stable=True).indices[..., :k]  # (B, M, K)
+    cand = torch.gather(ious.transpose(1, 2), 2, topk_idx)  # (B, M, K)
+    thresh = cand.mean(-1) + cand.std(-1) + 1e-6
+    is_pos = cand >= thresh[..., None]
+
+    cand_xy = (torch.gather(anchors[:, :2].expand(b, -1, -1), 1,
+                            topk_idx.reshape(b, -1, 1).expand(-1, -1, 2)).reshape(b, m, k, 2)
+               - gt_boxes[:, :, None, :2])
+    c, s = torch.cos(-gt_boxes[..., 6])[..., None], torch.sin(-gt_boxes[..., 6])[..., None]
+    x_loc = cand_xy[..., 0] * c - cand_xy[..., 1] * s
+    y_loc = cand_xy[..., 0] * s + cand_xy[..., 1] * c
+    in_gt = ((x_loc.abs() <= gt_boxes[..., 4:5] / 2)
+             & (y_loc.abs() <= gt_boxes[..., 3:4] / 2))
+    is_pos = is_pos & in_gt  # (B, M, K)
+
+    allowed = torch.zeros(b, m, num_a, dtype=torch.int32, device=dev).scatter_reduce(
+        2, topk_idx, is_pos.to(torch.int32), "amax").transpose(1, 2)  # (B, A, M)
+    ious_inf = torch.where((allowed > 0) & gt_valid[:, None, :], ious, float("-inf"))
+    a2g_val = ious_inf.amax(dim=2)
+    a2g_arg = ious_inf.argmax(dim=2)  # the first maximum, as jnp.argmax
+
+    best_anchor = ious.argmax(dim=1)  # (B, M)
+    gt_ids = torch.where(gt_valid, torch.arange(m, device=dev), -1)
+    forced = torch.full((b, num_a), -1, dtype=torch.int64, device=dev).scatter_reduce(
+        1, best_anchor, gt_ids, "amax")
+    idx = torch.where(forced >= 0, forced, a2g_arg)
+    val = torch.where(forced >= 0, torch.gather(ious, 2, forced.clamp_min(0)[..., None])[..., 0],
+                      a2g_val)
+    labels = torch.where(val > float("-inf"), torch.gather(cls, 1, idx), 0)
+    fg = labels > 0
+    matched = torch.gather(gt_boxes[..., :7], 1, idx[..., None].expand(-1, -1, 7))
+    reg_targets = box_coder.encode(matched, anchors.expand_as(matched))
     reg_targets = torch.where(fg[..., None], reg_targets, 0.0)
     return labels, reg_targets, fg.float()
 
@@ -262,52 +352,55 @@ class AnchorHeadSingle(nn.Module):
         return cls, box, dir_cls
 
 
-# the sparse backbone each voxel detector takes (VoxelBackBone8x where unlisted)
-SPARSE_BACKBONES = {"PartA2": "UNetV2", "PartA2Net": "UNetV2"}
-
-
-def _refuse_unported(cfg):
-    head = cfg.DENSE_HEAD
-    if head.get("NAME", "AnchorHeadSingle") != "AnchorHeadSingle" \
-            or len(head.ANCHOR_GENERATOR_CONFIG) != 1:
-        raise NotImplementedError("modest_tpu_torch ports the single-class AnchorHeadSingle; "
-                                  "AnchorHeadMulti and multi-class anchor sets are not ported")
-    tac = head.get("TARGET_ASSIGNER_CONFIG", None) or {}
-    if tac.get("NAME", "AxisAlignedTargetAssigner") != "AxisAlignedTargetAssigner":
-        raise NotImplementedError(f"target assigner {tac.get('NAME')} is not ported")
-    bcc = tac.get("BOX_CODER_CONFIG", None) or head.get("BOX_CODER_CONFIG", None) or {}
-    if int(bcc.get("code_size", 7)) != 7 or bool(bcc.get("encode_angle_by_sincos", False)):
-        raise NotImplementedError("only the 7-dim residual box coder is ported")
-    if cfg.POST_PROCESSING.NMS_CONFIG.get("MULTI_CLASSES_NMS", False):
-        raise NotImplementedError("multi-class NMS is not ported")
-    if cfg.NAME != "PointPillar":
-        name = cfg.get("BACKBONE_3D", {}).get("NAME", "VoxelBackBone8x")
-        if name != SPARSE_BACKBONES.get(cfg.NAME, "VoxelBackBone8x"):
-            raise NotImplementedError(f"sparse backbone {name} is not ported for {cfg.NAME}")
+# the sparse backbones each voxel detector takes (VoxelBackBone8x where unlisted)
+SPARSE_BACKBONES = {"SECONDNet": ("VoxelBackBone8x", "VoxelResBackBone8x"),
+                    "PartA2": ("UNetV2",), "PartA2Net": ("UNetV2",)}
 
 
 class GridDetector(nn.Module):
-    """PointPillar / SECONDNet with one anchor head. ``model.train()``
-    selects the train branch (targets against the gt boxes, batch norms on
-    batch statistics), ``model.eval()`` the eval one (decoded boxes)."""
+    """PointPillar / SECONDNet. ``model.train()`` selects the train branch
+    (targets against the gt boxes, batch norms on batch statistics),
+    ``model.eval()`` the eval one (decoded boxes).
+
+    As in the JAX package, an ``AnchorHeadMulti`` config or a multi-class
+    anchor set goes through the grouped head (``models/anchor_head_multi.py``:
+    class-major anchors, per-class thresholds, the box coder of
+    ``BOX_CODER_CONFIG``, ``class_names`` needed); one anchor config takes
+    the single head, matched by ``TARGET_ASSIGNER_CONFIG.NAME``
+    (AxisAlignedTargetAssigner or ATSS). The two-stage detectors below set
+    ``GROUPED_ROUTE`` off: their stage 1 is always one head over
+    location-major anchors with per-anchor thresholds and classes, and the
+    7-dim coder, whatever the config names (the JAX package's
+    ``single_head_anchor_setup``)."""
+
+    GROUPED_ROUTE = True
 
     def __init__(self, model_cfg, num_class: int, point_cloud_range, voxel_size, grid_size,
-                 num_point_features: int = 4):
+                 num_point_features: int = 4, class_names=None):
         super().__init__()
         self.model_cfg = cfg = Config(model_cfg)
-        _refuse_unported(cfg)
         self.num_class = num_class
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
         self.voxel_size = tuple(float(v) for v in voxel_size)
-        self.grid_size = tuple(int(v) for v in grid_size)
-        gs = self.grid_size
-        self.box_coder = ResidualCoder()
-        acfg = cfg.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG[0]
-        anchors, _ = generate_anchors([acfg.to_dict()], gs, self.point_cloud_range)
-        self.register_buffer("anchors", torch.from_numpy(anchors), persistent=False)
-        self.matched_thr = float(acfg.matched_threshold)
-        self.unmatched_thr = float(acfg.unmatched_threshold)
-        na = len(acfg.anchor_sizes) * len(acfg.anchor_rotations) * len(acfg.anchor_bottom_heights)
+        self.grid_size = gs = tuple(int(v) for v in grid_size)
+        head = cfg.DENSE_HEAD
+        acfgs = [c.to_dict() for c in head.ANCHOR_GENERATOR_CONFIG]
+        tac = head.get("TARGET_ASSIGNER_CONFIG", None) or {}
+        self.assigner = "AxisAlignedTargetAssigner"
+        code_size, sincos = 7, False
+        self.use_multihead = self.GROUPED_ROUTE and (
+            head.get("NAME", "AnchorHeadSingle") == "AnchorHeadMulti" or len(acfgs) > 1)
+        if self.GROUPED_ROUTE:
+            self.assigner = str(tac.get("NAME", "AxisAlignedTargetAssigner"))
+            if self.assigner not in ("AxisAlignedTargetAssigner", "ATSS"):
+                raise NotImplementedError(f"target assigner {self.assigner}")
+            self.atss_topk = int(tac.get("TOPK", 9))
+            self.match_height = bool(tac.get("MATCH_HEIGHT", False))
+            # BOX_CODER_CONFIG under TARGET_ASSIGNER_CONFIG (the cbgs configs) or DENSE_HEAD
+            bcc = tac.get("BOX_CODER_CONFIG", None) or head.get("BOX_CODER_CONFIG", None) or {}
+            code_size = int(bcc.get("code_size", 7))
+            sincos = bool(bcc.get("encode_angle_by_sincos", False))
+        self.box_coder = ResidualCoder(code_size, sincos)
 
         if cfg.NAME == "PointPillar":
             self.vfe = PillarVFE(num_point_features, cfg.VFE.NUM_FILTERS, self.voxel_size,
@@ -317,10 +410,14 @@ class GridDetector(nn.Module):
             bev_channels = self.vfe.num_bev_features
             self.stages = ("vfe", "backbone_2d", "dense_head")
         else:
-            from .sparse_conv import SparseUNet, VoxelBackBone8x
+            from .sparse_conv import SparseUNet, VoxelBackBone8x, VoxelResBackBone8x
 
-            unet = SPARSE_BACKBONES.get(cfg.NAME) == "UNetV2"
-            self.backbone_3d = (SparseUNet if unet else VoxelBackBone8x)(num_point_features)
+            name = cfg.get("BACKBONE_3D", {}).get("NAME", "VoxelBackBone8x")
+            if name not in SPARSE_BACKBONES.get(cfg.NAME, ("VoxelBackBone8x",)):
+                raise NotImplementedError(f"sparse backbone {name} is not ported for {cfg.NAME}")
+            backbone = {"UNetV2": SparseUNet, "VoxelResBackBone8x": VoxelResBackBone8x}.get(
+                name, VoxelBackBone8x)
+            self.backbone_3d = backbone(num_point_features)
             nz = gs[2] + 1  # z padded like spconv
             for pad in (1, 1, 0):  # conv2/3/4 (kernel 3, stride 2), then conv_out
                 nz = (nz + 2 * pad - 3) // 2 + 1
@@ -328,17 +425,59 @@ class GridDetector(nn.Module):
             self.stages = ("voxelize", "backbone_3d", "backbone_2d", "dense_head")
         self.num_bev_features = bev_channels
         self.backbone_2d = BaseBEVBackbone(cfg.BACKBONE_2D, bev_channels)
+        if self.use_multihead:
+            from .anchor_head_multi import AnchorHeadMulti
+
+            if not class_names:
+                raise ValueError(f"{cfg.NAME} with a grouped anchor head needs class_names")
+            self.dense_head = AnchorHeadMulti(head, class_names, gs, self.point_cloud_range,
+                                              self.backbone_2d.num_bev_features, code_size,
+                                              sincos)
+            self.register_buffer("anchors", self.dense_head.anchors.clone(), persistent=False)
+            return
+        anchors, na, *match = single_head_anchor_setup(acfgs, gs, self.point_cloud_range)
+        self.register_buffer("anchors", torch.from_numpy(anchors), persistent=False)
+        # per-anchor arrays for a multi-class set; scalars and None for one class
+        for key, value in zip(("matched_thr", "unmatched_thr", "anchor_cls"), match):
+            if isinstance(value, np.ndarray):
+                self.register_buffer(key, torch.from_numpy(value), persistent=False)
+            else:
+                setattr(self, key, value)
         self.dense_head = AnchorHeadSingle(
             self.backbone_2d.num_bev_features, num_class, na, self.box_coder.code_size,
-            num_dir_bins=int(cfg.DENSE_HEAD.get("NUM_DIR_BINS", 2)),
-            use_dir=bool(cfg.DENSE_HEAD.get("USE_DIRECTION_CLASSIFIER", True)))
+            num_dir_bins=int(head.get("NUM_DIR_BINS", 2)),
+            use_dir=bool(head.get("USE_DIRECTION_CLASSIFIER", True)))
+
+    def anchor_targets(self, gt_boxes):
+        """The single head's (labels, reg_targets) for ``gt_boxes``."""
+        if self.assigner == "ATSS":
+            labels, reg_targets, _ = assign_targets_atss(
+                self.anchors, gt_boxes, self.box_coder, self.atss_topk, self.match_height)
+        else:
+            labels, reg_targets, _ = assign_anchor_targets(
+                self.anchors, gt_boxes, self.box_coder, self.matched_thr, self.unmatched_thr,
+                self.anchor_cls)
+        return labels, reg_targets
+
+    def head_forward(self, bev2d, gt_boxes):
+        """The dense head on the BEV map: its predictions and anchors, and in
+        train mode its targets."""
+        if self.use_multihead:
+            return self.dense_head(bev2d, gt_boxes if self.training else None)
+        cls_preds, box_preds, dir_preds = self.dense_head(bev2d)
+        out = {"cls_preds": cls_preds, "box_preds": box_preds, "dir_cls_preds": dir_preds,
+               "anchors": self.anchors}
+        if self.training:
+            out["box_cls_labels"], out["box_reg_targets"] = self.anchor_targets(gt_boxes)
+        return out
 
     def forward(self, points, gt_boxes=None, on_stage=None, max_voxels: int = MAX_VOXELS):
         """points (B, N, 3+C) → dict of outputs: in eval mode feed it to
         ``grid_post_process``, in train mode (``gt_boxes`` (B, M, 8),
-        zero-padded) to ``grid_detector_loss``. ``on_stage(name)``, when
-        given, is called after each stage of ``self.stages``; ``max_voxels``
-        is SECOND's voxel cap (JAX's call parameter and its default)."""
+        zero-padded; (B, M, 10) with velocity for a 9-code head) to
+        ``grid_detector_loss``. ``on_stage(name)``, when given, is called
+        after each stage of ``self.stages``; ``max_voxels`` is SECOND's voxel
+        cap (JAX's call parameter and its default)."""
         if self.training and gt_boxes is None:
             raise ValueError("GridDetector: train mode needs gt_boxes; call .eval() for the "
                              "eval forward")
@@ -356,23 +495,17 @@ class GridDetector(nn.Module):
             mark("backbone_3d")
         bev2d = self.backbone_2d(bev)
         mark("backbone_2d")
-        cls_preds, box_preds, dir_preds = self.dense_head(bev2d)
-        out = {"cls_preds": cls_preds, "box_preds": box_preds, "dir_cls_preds": dir_preds,
-               "anchors": self.anchors}
-        if self.training:
-            labels, reg_targets, _ = assign_anchor_targets(
-                self.anchors, gt_boxes, self.box_coder, self.matched_thr, self.unmatched_thr)
-            out["box_cls_labels"] = labels
-            out["box_reg_targets"] = reg_targets
-        else:
+        out = self.head_forward(bev2d, gt_boxes)
+        if not self.training:
             out["batch_cls_preds"], out["batch_box_preds"] = self.generate_predicted_boxes(
-                cls_preds, box_preds, dir_preds)
+                out["cls_preds"], out["box_preds"], out["dir_cls_preds"])
         mark("dense_head")
         return out
 
     def generate_predicted_boxes(self, cls_preds, box_preds, dir_preds):
         """Anchor decode and the direction-bin snap."""
-        boxes = self.box_coder.decode(box_preds, self.anchors[None].expand_as(box_preds))
+        boxes = self.box_coder.decode(box_preds, self.anchors[None].expand(
+            *box_preds.shape[:2], -1))
         if dir_preds is not None:
             head = self.model_cfg.DENSE_HEAD
             dir_offset = float(head.DIR_OFFSET)
@@ -381,7 +514,7 @@ class GridDetector(nn.Module):
             dir_rot = limit_period(boxes[..., 6] - dir_offset, float(head.DIR_LIMIT_OFFSET),
                                    period)
             heading = dir_rot + dir_offset + period * dir_labels.to(boxes.dtype)
-            boxes = torch.cat([boxes[..., :6], heading[..., None]], dim=-1)
+            boxes = torch.cat([boxes[..., :6], heading[..., None], boxes[..., 7:]], dim=-1)
         return cls_preds, boxes
 
 
@@ -392,6 +525,7 @@ class TwoStageGridDetector(GridDetector):
     the proposal layer (``ROI_HEAD.NMS_CONFIG``, TRAIN or TEST by the mode),
     and in train mode the anchor targets."""
 
+    GROUPED_ROUTE = False
     STAGE_ONE = ("voxelize", "backbone_3d", "backbone_2d", "dense_head", "proposal")
 
     def __init__(self, *args, **kwargs):
@@ -414,21 +548,15 @@ class TwoStageGridDetector(GridDetector):
         mark("backbone_3d")
         bev2d = self.backbone_2d(bev)
         mark("backbone_2d")
-        cls_preds, box_preds, dir_preds = self.dense_head(bev2d)
-        batch_cls, batch_box = self.generate_predicted_boxes(cls_preds, box_preds, dir_preds)
+        out = self.head_forward(bev2d, gt_boxes)
+        batch_cls, batch_box = self.generate_predicted_boxes(
+            out["cls_preds"], out["box_preds"], out["dir_cls_preds"])
         mark("dense_head")
-        out = {"cls_preds": cls_preds, "box_preds": box_preds, "dir_cls_preds": dir_preds,
-               "anchors": self.anchors}
         nms_cfg = self.model_cfg.ROI_HEAD.NMS_CONFIG["TRAIN" if self.training else "TEST"]
         proposals = proposal_layer(
             batch_box, batch_cls.reshape(points.shape[0], -1, self.num_class),
             nms_pre=int(nms_cfg.NMS_PRE_MAXSIZE), nms_post=int(nms_cfg.NMS_POST_MAXSIZE),
             nms_thresh=float(nms_cfg.NMS_THRESH))
-        if self.training:
-            labels, reg_targets, _ = assign_anchor_targets(
-                self.anchors, gt_boxes, self.box_coder, self.matched_thr, self.unmatched_thr)
-            out["box_cls_labels"] = labels
-            out["box_reg_targets"] = reg_targets
         mark("proposal")
         return out, voxels, extra, bev2d, proposals
 
@@ -452,8 +580,9 @@ class TwoStageGridDetector(GridDetector):
 
 def grid_detector_loss(out, cfg, num_class: int = 1):
     """AnchorHeadTemplate losses (reference anchor_head_template.py:101-223):
-    focal classification, smooth-L1 box regression with the sin(a − b)
-    heading trick, direction cross-entropy. Returns (loss, metrics)."""
+    focal classification over ``num_class`` columns, smooth-L1 box
+    regression with the sin(a − b) heading trick (none for a (cos, sin)
+    coder), direction cross-entropy. Returns (loss, metrics)."""
     lw = cfg.DENSE_HEAD.LOSS_CONFIG.LOSS_WEIGHTS
     cls_preds, box_preds = out["cls_preds"], out["box_preds"]
     labels, reg_targets = out["box_cls_labels"], out["box_reg_targets"]
@@ -471,10 +600,13 @@ def grid_detector_loss(out, cfg, num_class: int = 1):
     one_hot = nn.functional.one_hot(labels.long().clamp_min(0), num_class + 1)[..., 1:].float()
     cls_loss = sigmoid_focal_loss(cls_preds, one_hot, cls_w).sum() / b * lw.cls_weight
 
-    sin_pred = torch.sin(box_preds[..., 6:7]) * torch.cos(reg_targets[..., 6:7])
-    sin_tgt = torch.cos(box_preds[..., 6:7]) * torch.sin(reg_targets[..., 6:7])
-    bp = torch.cat([box_preds[..., :6], sin_pred, box_preds[..., 7:]], dim=-1)
-    bt = torch.cat([reg_targets[..., :6], sin_tgt, reg_targets[..., 7:]], dim=-1)
+    if out.get("box_coder_sincos", False):
+        bp, bt = box_preds, reg_targets  # the (cos, sin) residuals need no trick
+    else:
+        sin_pred = torch.sin(box_preds[..., 6:7]) * torch.cos(reg_targets[..., 6:7])
+        sin_tgt = torch.cos(box_preds[..., 6:7]) * torch.sin(reg_targets[..., 6:7])
+        bp = torch.cat([box_preds[..., :6], sin_pred, box_preds[..., 7:]], dim=-1)
+        bt = torch.cat([reg_targets[..., :6], sin_tgt, reg_targets[..., 7:]], dim=-1)
     loc_loss = (weighted_smooth_l1(bp, bt, reg_w, list(lw.code_weights)).sum() / b
                 * lw.loc_weight)
     total = cls_loss + loc_loss
@@ -482,7 +614,9 @@ def grid_detector_loss(out, cfg, num_class: int = 1):
     if out.get("dir_cls_preds") is not None:
         head = cfg.DENSE_HEAD
         bins = int(head.NUM_DIR_BINS)
-        rot_gt = reg_targets[..., 6] + anchors[..., 6]
+        # the grouped head hands over the matched gt heading itself
+        rot_gt = out["box_gt_heading"] if "box_gt_heading" in out \
+            else reg_targets[..., 6] + anchors[..., 6]
         offset_rot = limit_period(rot_gt - float(head.DIR_OFFSET), 0, 2 * math.pi)
         dir_targets = torch.floor(offset_rot / (2 * math.pi / bins)).long().clamp(0, bins - 1)
         logp = torch.log_softmax(out["dir_cls_preds"], dim=-1)
@@ -498,24 +632,32 @@ def grid_detector_loss(out, cfg, num_class: int = 1):
 
 def grid_post_process(out, post_cfg):
     """Score-thresholded greedy NMS over the decoded anchors, batched and
-    padded (the single-class route of the JAX package's
-    ``grid_post_process``): the ``NMS_PRE_MAXSIZE`` best scores (ties to
-    the lower anchor index, as ``lax.top_k``), anchors at or below
-    ``SCORE_THRESH`` never kept. Returns (B, K) boxes / scores / labels and
-    validity."""
+    padded, as the JAX package's ``grid_post_process``. One route takes each
+    anchor's best class: the ``NMS_PRE_MAXSIZE`` best scores (ties to the
+    lower anchor index, as ``lax.top_k``), anchors at or below
+    ``SCORE_THRESH`` never kept, (B, NMS_POST_MAXSIZE) slots.
+    ``MULTI_CLASSES_NMS`` runs ``multi_classes_nms``: every class over every
+    anchor, (B, C·NMS_POST_MAXSIZE) slots in class order. Returns boxes (all
+    the decoded columns) / scores / labels and validity."""
     nms_cfg = post_cfg.NMS_CONFIG
-    if nms_cfg.get("MULTI_CLASSES_NMS", False):
-        raise NotImplementedError("multi-class NMS is not ported")
     cls, boxes = out["batch_cls_preds"], out["batch_box_preds"]
+    width = boxes.shape[-1]
+    if nms_cfg.get("MULTI_CLASSES_NMS", False):
+        scores, labels, idx, mask = multi_classes_nms(
+            torch.sigmoid(cls), boxes, float(nms_cfg.NMS_THRESH),
+            score_thresh=float(post_cfg.SCORE_THRESH),
+            pre_maxsize=int(nms_cfg.NMS_PRE_MAXSIZE), post_maxsize=int(nms_cfg.NMS_POST_MAXSIZE))
+        return {"boxes": torch.gather(boxes, 1, idx[..., None].expand(-1, -1, width)),
+                "scores": scores, "labels": labels, "valid": mask, "rois": None}
     scores = torch.sigmoid(cls).amax(dim=-1)
     labels = cls.argmax(dim=-1) + 1
     masked = torch.where(scores > float(post_cfg.SCORE_THRESH), scores, float("-inf"))
     k = min(int(nms_cfg.NMS_PRE_MAXSIZE), masked.shape[1])
     top_idx = torch.sort(masked, dim=1, descending=True, stable=True).indices[:, :k]
-    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, boxes.shape[-1]))
+    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, width))
     keep, keep_mask = nms_bev(top_boxes[..., :7], torch.gather(masked, 1, top_idx),
                               float(nms_cfg.NMS_THRESH), int(nms_cfg.NMS_POST_MAXSIZE))
     sel = torch.gather(top_idx, 1, keep)
-    return {"boxes": torch.gather(boxes, 1, sel[..., None].expand(-1, -1, boxes.shape[-1])),
+    return {"boxes": torch.gather(boxes, 1, sel[..., None].expand(-1, -1, width)),
             "scores": torch.gather(scores, 1, sel), "labels": torch.gather(labels, 1, sel),
             "valid": keep_mask, "rois": None}

@@ -77,20 +77,21 @@ class _Im2colConv2d(torch.autograd.Function):
         return gx, gw, None, None
 
 
-# the stride-1 BEV convs that run cuDNN off: at least IM2COL_MIN_CHANNELS in
-# and an input map of at least IM2COL_MIN_SITES cells (SECOND's level 1,
-# 200 × 226 at 256 and 128 channels; PointPillars' widest stride-1 map, 248 ×
-# 280, has 64 channels and stays on cuDNN)
-IM2COL_MIN_CHANNELS = 128
-IM2COL_MIN_SITES = 40_000
+# the stride-1 BEV convs to 128 channels that run cuDNN off: every one from
+# 256 channels (SECOND's level-1 opener on the Lyft, KITTI and CBGS maps), and
+# from 128 channels on a map of at least IM2COL_MIN_SITES cells (level 1 of
+# SECOND on Lyft, 200 × 226, and KITTI, 200 × 176; CBGS's 128 × 128 and
+# PointPillars' 128-channel levels stay on cuDNN)
+IM2COL_MIN_SITES = 35_000
 
 
-def conv_uses_cudnn(in_channels: int, hw, stride) -> bool:
+def conv_uses_cudnn(in_channels: int, out_channels: int, hw, stride) -> bool:
     """Whether ``Conv2d`` runs an input map of ``hw`` cells on cuDNN (else
     cuDNN off: im2col and a GEMM). A rule of the shape, so a run's route
     and rounding do not depend on timing."""
-    return not (tuple(stride) == (1, 1) and in_channels >= IM2COL_MIN_CHANNELS
-                and hw[0] * hw[1] >= IM2COL_MIN_SITES)
+    if tuple(stride) != (1, 1) or out_channels != 128 or in_channels < 128:
+        return True
+    return in_channels < 256 and hw[0] * hw[1] < IM2COL_MIN_SITES
 
 
 class Conv2d(nn.Conv2d):
@@ -100,9 +101,11 @@ class Conv2d(nn.Conv2d):
     heuristics take FFT tiling for SECOND's stride-1 convs on its 200 × 226
     BEV map, and neither its benchmark mode nor channels_last finds better:
     365 ms against 3.7 for the 256 → 128 conv, 12.6 against 2.0 for 128 →
-    128; cuDNN is the faster route for the configs' other BEV convs
+    128; the 256 → 128 conv takes 250–300 ms on cuDNN at every map size
+    measured (KITTI's 200 × 176, CBGS's 128 × 128), 1.3–3.7 off it; cuDNN is
+    the faster route for the configs' other BEV convs
     (``tools/grid_probe.py convs`` times each shape on both routes, PERF.md
-    PR 9). Both routes compute the same convolution; they round
+    §6). Both routes compute the same convolution; they round
     differently. The CPU always takes ``nn.Conv2d``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
@@ -111,7 +114,8 @@ class Conv2d(nn.Conv2d):
                          padding=padding, bias=False)
 
     def forward(self, x):
-        if not x.is_cuda or conv_uses_cudnn(self.in_channels, x.shape[-2:], self.stride):
+        if not x.is_cuda or conv_uses_cudnn(self.in_channels, self.out_channels, x.shape[-2:],
+                                            self.stride):
             return super().forward(x)
         return _Im2colConv2d.apply(x, self.weight, self.stride, self.padding)
 

@@ -30,8 +30,7 @@ from ..ops import pointnet2 as p2
 from ..ops.box_torch import points_in_boxes_index
 from ..ops.pointnet2_stack import query_and_group_masked
 from .box_coders import ResidualCoder
-from .grid_detectors import (MAX_VOXELS, GridDetector, assign_anchor_targets,
-                             grid_detector_loss)
+from .grid_detectors import MAX_VOXELS, GridDetector, grid_detector_loss
 from .layers import FCHead, SharedMLP
 from .losses import binary_cross_entropy
 from .roi_head import (canonical_transform_gt, generate_refined_boxes, proposal_layer,
@@ -114,7 +113,11 @@ class PVRCNN(GridDetector):
     """PV-RCNN with one anchor head. ``model.train()`` selects the train
     branch (anchor targets, RoI sampling against the gt boxes, batch norms
     on batch statistics), ``model.eval()`` the eval one (refined boxes for
-    ``pointrcnn.post_process``)."""
+    ``pointrcnn.post_process``). Its stage 1 is one head whatever the
+    config's head and backbone names (``GROUPED_ROUTE`` off, VoxelBackBone8x),
+    as in the JAX package."""
+
+    GROUPED_ROUTE = False
 
     def __init__(self, model_cfg, num_class: int, point_cloud_range, voxel_size, grid_size,
                  num_point_features: int = 4):
@@ -212,10 +215,7 @@ class PVRCNN(GridDetector):
             nms_pre=int(nms_cfg.NMS_PRE_MAXSIZE), nms_post=int(nms_cfg.NMS_POST_MAXSIZE),
             nms_thresh=float(nms_cfg.NMS_THRESH))
         if self.training:
-            labels, reg_targets, _ = assign_anchor_targets(
-                self.anchors, gt_boxes, self.box_coder, self.matched_thr, self.unmatched_thr)
-            out["box_cls_labels"] = labels
-            out["box_reg_targets"] = reg_targets
+            out["box_cls_labels"], out["box_reg_targets"] = self.anchor_targets(gt_boxes)
             tcfg = cfg.ROI_HEAD.TARGET_CONFIG
             if roi_draws is None:
                 roi_draws = sampler_draws(b, rois.shape[1], int(tcfg.ROI_PER_IMAGE), rois.device)

@@ -194,6 +194,10 @@ class VoxelBackBone8x(nn.Module):
     sources of PV-RCNN's voxel set abstraction (strides
     ``BACKBONE_STRIDES``)."""
 
+    BLOCK = None  # the blocks after each stage's opener (None: SubM conv → BN → ReLU)
+    CONV1_BLOCKS = 1
+    CONV4_CHANNELS = 64
+
     def __init__(self, in_channels: int = 4, return_multiscale: bool = False):
         super().__init__()
         self.return_multiscale = return_multiscale
@@ -205,11 +209,14 @@ class VoxelBackBone8x(nn.Module):
             return SparseBlock(SparseConv3d(cin, cout, (2, 2, 2), padding), cout)
 
         self.conv_input = subm(in_channels, 16)
-        self.conv1 = nn.ModuleList([subm(16, 16)])
-        self.conv2 = nn.ModuleList([down(16, 32, (1, 1, 1)), subm(32, 32), subm(32, 32)])
-        self.conv3 = nn.ModuleList([down(32, 64, (1, 1, 1)), subm(64, 64), subm(64, 64)])
-        self.conv4 = nn.ModuleList([down(64, 64, (0, 1, 1)), subm(64, 64), subm(64, 64)])
-        self.conv_out = SparseBlock(SparseConv3d(64, 128, (2, 1, 1), (0, 0, 0), (3, 1, 1)), 128)
+        block = self.BLOCK or subm
+        self.conv1 = nn.ModuleList([block(16, 16) for _ in range(self.CONV1_BLOCKS)])
+        c_in = 16
+        for name, c, padding in (("conv2", 32, (1, 1, 1)), ("conv3", 64, (1, 1, 1)),
+                                 ("conv4", self.CONV4_CHANNELS, (0, 1, 1))):
+            setattr(self, name, nn.ModuleList([down(c_in, c, padding), block(c, c), block(c, c)]))
+            c_in = c
+        self.conv_out = SparseBlock(SparseConv3d(c_in, 128, (2, 1, 1), (0, 0, 0), (3, 1, 1)), 128)
         self.num_bev_features = 2 * 128
         # with ``record_active`` set, a forward leaves each stage's active-site
         # count per scan in ``active_counts`` (no host read)
@@ -221,7 +228,8 @@ class VoxelBackBone8x(nn.Module):
         counts = {"conv1": valid.sum(1)} if record else {}
         rows = neighbor_index(keys, valid, coords, shape_zyx, OFFSETS3)
         x = self.conv_input(feats, valid, rows, valid)
-        x = self.conv1[0](x, valid, rows, valid)
+        for block in self.conv1:
+            x = block(x, valid, rows, valid)
         scales = {"x_conv1": (x, coords, valid, keys)}
         s = shape_zyx
         for name, stage in (("conv2", self.conv2), ("conv3", self.conv3), ("conv4", self.conv4)):
@@ -247,6 +255,35 @@ class VoxelBackBone8x(nn.Module):
             self.active_counts = counts
         bev = height_compress(x, keys, valid, s_out)
         return (bev, scales) if self.return_multiscale else bev
+
+
+class SparseResBlock(nn.Module):
+    """Residual SubM block (reference spconv_backbone.SparseBasicBlock, as
+    the JAX package's ``SparseResBlock``: no conv bias): conv → BN → ReLU →
+    conv → BN, plus the input, → ReLU. Keys ``conv1``, ``bn1``, ``conv2``,
+    ``bn2``."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv1 = SubMConv3d(in_channels, out_channels)
+        self.bn1 = MaskedBatchNorm(out_channels)
+        self.conv2 = SubMConv3d(out_channels, out_channels)
+        self.bn2 = MaskedBatchNorm(out_channels)
+
+    def forward(self, x, valid, rows, out_valid):
+        y = torch.relu(self.bn1(self.conv1(x, rows, out_valid), valid))
+        return torch.relu(self.bn2(self.conv2(y, rows, out_valid), valid) + x)
+
+
+class VoxelResBackBone8x(VoxelBackBone8x):
+    """spconv VoxelResBackBone8x (reference spconv_backbone.py:183-280): the
+    VoxelBackBone8x chain with two ``SparseResBlock``s in conv1 and after
+    each strided opener, and a 128-channel stage 4. The BEV map has the same
+    2 × 128 channels."""
+
+    BLOCK = SparseResBlock
+    CONV1_BLOCKS = 2
+    CONV4_CHANNELS = 128
 
 
 def kernel_sites_z3(coords, valid, out_shape_zyx):

@@ -184,3 +184,44 @@ def nms_bev(boxes, scores, thresh: float, max_keep: int):
     keep_idx = torch.where(keep_mask, torch.gather(order, 1, out_pos[:, :max_keep]),
                            torch.zeros_like(out_pos[:, :max_keep]))
     return keep_idx, keep_mask
+
+
+def class_agnostic_nms(box_scores, box_preds, nms_thresh: float, score_thresh=None,
+                       pre_maxsize=None, post_maxsize: int = 512):
+    """Score-thresholded rotated NMS (reference model_nms_utils.py:6-34),
+    batched: box_scores (B, N), box_preds (B, N, 7). Scores that are not
+    finite or not above ``score_thresh`` are never kept; with ``pre_maxsize``
+    below N only the best ``pre_maxsize`` (ties to the lower index, as
+    ``lax.top_k``) enter the NMS. Returns (B, post_maxsize) indices into N
+    and their validity."""
+    valid = torch.isfinite(box_scores)
+    if score_thresh is not None:
+        valid &= box_scores > score_thresh
+    scores = torch.where(valid, box_scores, float("-inf"))
+    if pre_maxsize is None or pre_maxsize >= scores.shape[1]:
+        return nms_bev(box_preds, scores, nms_thresh, post_maxsize)
+    top_idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :pre_maxsize]
+    keep, keep_mask = nms_bev(torch.gather(box_preds, 1, top_idx[..., None].expand(-1, -1, 7)),
+                              torch.gather(scores, 1, top_idx), nms_thresh, post_maxsize)
+    return torch.gather(top_idx, 1, keep), keep_mask
+
+
+def multi_classes_nms(cls_scores, box_preds, nms_thresh: float, score_thresh=None,
+                      pre_maxsize=None, post_maxsize: int = 512):
+    """Per-class rotated NMS (reference model_nms_utils.multi_classes_nms),
+    batched: cls_scores (B, N, C), box_preds (B, N, 7) shared by the classes
+    or (B, N, C, 7) per class. Each class keeps ``post_maxsize`` slots,
+    concatenated in class order. Returns (scores, labels (1-based), indices
+    into N, validity), each (B, C·post_maxsize); an unused slot scores 0.
+    The classes run as one batch of B·C NMS problems."""
+    b, n, c = cls_scores.shape
+    if box_preds.dim() == 3:
+        box_preds = box_preds[:, :, None].expand(-1, -1, c, -1)
+    boxes = box_preds[..., :7].permute(0, 2, 1, 3).reshape(b * c, n, 7)
+    scores = cls_scores.permute(0, 2, 1).reshape(b * c, n)
+    idx, mask = class_agnostic_nms(scores, boxes, nms_thresh, score_thresh, pre_maxsize,
+                                   post_maxsize)
+    kept = torch.where(mask, torch.gather(scores, 1, idx), 0.0)
+    labels = torch.arange(1, c + 1, device=idx.device).repeat_interleave(post_maxsize)
+    return (kept.reshape(b, c * post_maxsize), labels.expand(b, -1),
+            idx.reshape(b, c * post_maxsize), mask.reshape(b, c * post_maxsize))

@@ -6,7 +6,8 @@ a NaN — the measurements behind ``models/layers.py::Conv2d``,
     python -m modest_tpu_torch.tools.grid_probe sparse    # SECOND's sparse backbone backward
     python -m modest_tpu_torch.tools.grid_probe squeezed  # SECOND on a 16-step one-cycle
 
-``convs`` times each BEV conv shape of the two Lyft configs at B = 4 under
+``convs`` times each BEV conv shape of the Lyft and KITTI configs and the
+CBGS SECOND at B = 4 under
 cuDNN's heuristics, its benchmark mode, channels_last and with cuDNN off
 (im2col and a GEMM), forward and forward + backward, and prints the route
 ``Conv2d``'s rule picks beside the faster of cuDNN's default and cuDNN off.
@@ -47,6 +48,21 @@ CONV_SHAPES = {
     "pointpillar_l2": (128, 128, 124, 140, 1, 1),
     "pointpillar_l3_first": (128, 256, 126, 142, 2, 0),
     "pointpillar_l3": (256, 256, 62, 70, 1, 1),
+    # KITTI's SECOND (200 x 176 BEV), its grouped head's shared conv, and
+    # PointPillars (496 x 432 pillars); the CBGS SECOND's 128 x 128 BEV
+    "kitti_second_l1_first": (256, 128, 202, 178, 1, 0),
+    "kitti_second_l1": (128, 128, 200, 176, 1, 1),
+    "kitti_second_l2_first": (128, 256, 202, 178, 2, 0),
+    "kitti_second_l2": (256, 256, 100, 88, 1, 1),
+    "kitti_multihead_shared": (512, 64, 200, 176, 1, 1),
+    "kitti_pointpillar_l1": (64, 64, 248, 216, 1, 1),
+    "kitti_pointpillar_l2": (128, 128, 124, 108, 1, 1),
+    "kitti_pointpillar_l3": (256, 256, 62, 54, 1, 1),
+    "cbgs_second_l1_first": (256, 128, 130, 130, 1, 0),
+    "cbgs_second_l1": (128, 128, 128, 128, 1, 1),
+    "cbgs_second_l2": (256, 256, 64, 64, 1, 1),
+    "cbgs_shared": (512, 64, 128, 128, 1, 1),
+    "cbgs_middle": (64, 64, 128, 128, 1, 1),
 }
 
 
@@ -93,7 +109,7 @@ def convs(card: str):
                 xg, wg, None, stride, pad).sum().backward(), 3)
         torch.backends.cudnn.benchmark = False
         torch.backends.cudnn.enabled = True
-        row["route"] = ("cudnn" if layers.conv_uses_cudnn(cin, (h, w), (stride, stride))
+        row["route"] = ("cudnn" if layers.conv_uses_cudnn(cin, cout, (h, w), (stride, stride))
                         else "im2col")
         for key in ("ms", "fwd_bwd_ms"):
             row[f"faster_{key}"] = ("cudnn" if row[f"default_{key}"] <= row[f"no_cudnn_{key}"]

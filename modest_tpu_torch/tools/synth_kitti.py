@@ -6,7 +6,8 @@ velodyne, label, calib and plane files from the same seed. Images are PNG
 headers only (signature, IHDR, IEND): the dataset reads nothing of an image
 but its size. ``full_density`` gives scans of ~72k–90k points with 8–20
 ``Dynamic`` objects each, the size of a Lyft scan, with road planes on
-which gt sampling can paste objects.
+which gt sampling can paste objects; ``kitti_classes`` makes the objects
+KITTI's Car, Pedestrian and Cyclist.
 """
 from __future__ import annotations
 
@@ -25,6 +26,12 @@ IMG_SHAPE = (400, 1200)  # H, W
 # points per scan and objects: 60k ground + 8-20 objects of 1500 points
 FULL_DENSITY = {"n_ground": 60000, "n_obj": 1500, "n_cars": (8, 21), "x_range": (10, 70),
                 "y_range": (-6, 6)}
+# kitti_classes: KITTI's mean sizes (l, w, h), each object's share of n_obj points,
+# and object centres in KITTI's range [0, -40, -3, 70.4, 40, 1] and camera view
+KITTI_SIZES = {"Car": (3.9, 1.6, 1.56), "Pedestrian": (0.8, 0.6, 1.73),
+               "Cyclist": (1.76, 0.6, 1.73)}
+KITTI_POINT_SHARE = {"Car": 1.0, "Pedestrian": 0.25, "Cyclist": 0.4}
+KITTI_XY_RANGE = ((10, 60), (-8, 8))
 
 
 def make_calib_obj():
@@ -52,16 +59,22 @@ def _write_calib(path):
 
 
 def make_dataset(root, n_train=4, n_val=2, seed=0, ground_z=-1.8, n_ground=4000, n_obj=300,
-                 n_cars=(1, 3), x_range=(8, 45), y_range=(-8, 8), full_density=False):
+                 n_cars=(1, 3), x_range=(8, 45), y_range=(-8, 8), full_density=False,
+                 kitti_classes=False):
     """Creates root/training/{velodyne,calib,label_2,image_2,planes} and
     ImageSets. Each frame: a ground plane and ``n_cars`` (low, high
     exclusive) 'Dynamic' cars of ``n_obj`` points ahead of the camera (lidar
     +x), labels in camera coordinates. ``full_density`` takes
-    ``FULL_DENSITY``'s sizes and the road plane the ground lies on. Returns
-    the lidar boxes by frame."""
+    ``FULL_DENSITY``'s sizes and the road plane the ground lies on.
+    ``kitti_classes`` makes each object a Car, Pedestrian or Cyclist of
+    ``KITTI_SIZES`` (±10 %) with its ``KITTI_POINT_SHARE`` of ``n_obj``
+    points, centred in ``KITTI_XY_RANGE``; left off, the files are the same
+    byte for byte. Returns the lidar boxes by frame."""
     if full_density:
         n_ground, n_obj, n_cars, x_range, y_range = (
             FULL_DENSITY[k] for k in ("n_ground", "n_obj", "n_cars", "x_range", "y_range"))
+    if kitti_classes:
+        x_range, y_range = KITTI_XY_RANGE
     # the road plane in rect coordinates, -y + d = 0 (y points down): the
     # ground lies at y = -ground_z, so d = -ground_z. tests/synth_kitti.py
     # writes d = ground_z, a road above the camera, which lifts gt-sampled
@@ -79,14 +92,22 @@ def make_dataset(root, n_train=4, n_val=2, seed=0, ground_z=-1.8, n_ground=4000,
         boxes = []
         pts = [np.stack([rng.uniform(2, 80, n_ground), rng.uniform(-30, 30, n_ground),
                          np.full(n_ground, ground_z) + rng.randn(n_ground) * 0.02], 1)]
+        names = []
         for _ in range(cars):
-            l, w, h = rng.uniform(3.5, 4.5), rng.uniform(1.6, 2.0), rng.uniform(1.4, 1.7)
+            if kitti_classes:
+                cls = list(KITTI_SIZES)[rng.randint(len(KITTI_SIZES))]
+                l, w, h = np.asarray(KITTI_SIZES[cls]) * rng.uniform(0.9, 1.1, 3)
+                n_pts = int(n_obj * KITTI_POINT_SHARE[cls])
+            else:
+                cls, n_pts = "Dynamic", n_obj
+                l, w, h = rng.uniform(3.5, 4.5), rng.uniform(1.6, 2.0), rng.uniform(1.4, 1.7)
+            names.append(cls)
             cx = rng.uniform(*x_range)
             cy = rng.uniform(*y_range)
             ry = rng.uniform(-np.pi, np.pi)
             cz = ground_z + h / 2
             box = np.array([cx, cy, cz, l, w, h, ry])
-            local = rng.uniform(-0.5, 0.5, (n_obj, 3)) * [l, w, h]
+            local = rng.uniform(-0.5, 0.5, (n_pts, 3)) * [l, w, h]
             c, s = np.cos(ry), np.sin(ry)
             rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
             pts.append(local @ rot.T + box[:3])
@@ -104,11 +125,11 @@ def make_dataset(root, n_train=4, n_val=2, seed=0, ground_z=-1.8, n_ground=4000,
         boxes = np.array(boxes).reshape(-1, 7)
         cam = box_np.boxes3d_lidar_to_kitti_camera(boxes.copy(), calib)
         img_boxes = box_np.boxes3d_kitti_camera_to_imageboxes(cam.copy(), calib, IMG_SHAPE)
-        for b, ib in zip(cam, img_boxes):
+        for cls, b, ib in zip(names, cam, img_boxes):
             x, y, z, l, h, w, ry = b
             alpha = -np.arctan2(x, z) + ry
             lines.append(
-                f"Dynamic -1 -1 {alpha:.4f} {ib[0]:.2f} {ib[1]:.2f} {ib[2]:.2f} {ib[3]:.2f} "
+                f"{cls} -1 -1 {alpha:.4f} {ib[0]:.2f} {ib[1]:.2f} {ib[2]:.2f} {ib[3]:.2f} "
                 f"{h:.4f} {w:.4f} {l:.4f} {x:.4f} {y:.4f} {z:.4f} {ry:.4f}")
         with open(os.path.join(root, "training", "label_2", f"{name}.txt"), "w") as f:
             f.write("\n".join(lines) + "\n")

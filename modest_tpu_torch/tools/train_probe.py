@@ -5,10 +5,12 @@ CPU path's.
     python -m modest_tpu_torch.tools.train_probe diverge [--device cpu]
     python -m modest_tpu_torch.tools.train_probe grad_gap
     python -m modest_tpu_torch.tools.train_probe det_gap [--trials 8] [--lr LR]
+    python -m modest_tpu_torch.tools.train_probe bn_gap
 
-Both run from the repository's root on ``chip_smoke.py``'s synthetic training
-set (16 Lyft-sized scans, ``tools/synth_kitti.py``), its first batch at
-B = 2 × 12288 and the flagship config, and print one JSON line per result.
+The first three run from the repository's root on ``chip_smoke.py``'s
+synthetic training set (16 Lyft-sized scans, ``tools/synth_kitti.py``), its
+first batch at B = 2 × 12288 and the flagship config, and print one JSON line
+per result.
 
 ``diverge`` takes ``chip_smoke.OVERFIT_STEPS`` (20) optimizer steps on that
 one batch, with the RoI-sampler draws a run takes at each step and the
@@ -39,10 +41,19 @@ agreement, ``chip_smoke.forward_chain``'s stage-by-stage comparison and the
 verdict of its check, the spread of the point logits and RCNN scores, and
 the ambiguous pairs each of the CPU's two NMS meets (``nms_ambiguity``: a
 score gap of twice the card-vs-CPU one, an IoU shell of 1e-3).
+
+``bn_gap`` runs KITTI's PointRCNN (3 classes, 16384 points a scan) on the
+first scan of ``chip_smoke.py``'s 3-class KITTI set, once with the batch
+norms' statistics taken from a train-mode pass over the batch and once with
+``chip_smoke.randomise_bn``'s, on the card and on the CPU in float32 and on
+the CPU in float64 with the card's choices, and prints per layer how far
+each pair parts and each batch norm's conditioning: whether a card-vs-CPU
+gap is the card's or the float32 computation's (``bn_gap``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import json
@@ -96,6 +107,20 @@ def make_train_set(root: Path):
     make_dataset(root, n_train=cs.TRAIN_SCANS, n_val=0, seed=0, full_density=True)
     create_kitti_infos(Config(POINTRCNN_DYNAMIC_OBJ_FULL).DATA_CONFIG, ["Dynamic"], root, root,
                        if_val=False)
+
+
+def make_kitti_set(root: Path):
+    """chip_smoke.py's 3-class KITTI set (``phase_kitti_dataset``) in ``root``."""
+    import chip_smoke as cs
+    from ..configs import KITTI_CLASS_NAMES, KITTI_CONFIGS
+    from ..data.kitti_dataset import create_kitti_infos
+    from ..tools.synth_kitti import make_dataset
+    from ..utils.config import Config
+
+    make_dataset(root, n_train=cs.KITTI_SCANS, n_val=0, seed=0, full_density=True,
+                 kitti_classes=True)
+    create_kitti_infos(Config(KITTI_CONFIGS["second"]).DATA_CONFIG, KITTI_CLASS_NAMES, root,
+                       root, if_val=False)
 
 
 def _forward_loss(model, model_cfg, batch, draws):
@@ -356,6 +381,115 @@ def grad_gap(dev, cfg, batch) -> dict:
         .float().mean().item()}
 
 
+def _point_taps(model, points, tape, pinned: bool = False) -> dict:
+    """The eval forward of ``model``'s backbone and point head on
+    ``points`` under ``tape``: every batch norm's output, every SA and FP
+    level's output features, the point logits, residuals and decoded boxes,
+    in forward order, on the CPU."""
+    taps = {}
+
+    def tap(name):
+        def record(module, inputs, output):
+            taps[name] = (output[1] if isinstance(output, tuple) else output).detach().cpu()
+        return record
+
+    levels = ("backbone_3d.SA_modules", "backbone_3d.FP_modules")
+    handles = [m.register_forward_hook(tap(name)) for name, m in model.named_modules()
+               if isinstance(m, torch.nn.BatchNorm1d) or name.rsplit(".", 1)[0] in levels]
+    model.eval()
+    try:
+        with torch.inference_mode(), tape, (PinnedIndices() if pinned else contextlib.nullcontext()):
+            cls, box = model.point_head(model.backbone_3d(points))
+            b, n = points.shape[:2]
+            decoded = model.point_coder.decode(
+                box.reshape(-1, model.point_coder.code_size), points[..., :3].reshape(-1, 3),
+                (cls.argmax(dim=-1) + 1).reshape(-1)).reshape(b, n, 7)
+    finally:
+        for h in handles:
+            h.remove()
+    taps.update(point_cls_preds=cls.cpu(), point_box_preds=box.cpu(),
+                point_boxes_decoded=decoded.cpu())
+    return taps
+
+
+def _conditioning(bn) -> dict:
+    """A batch norm's running statistics: its smallest variance, its largest
+    gain |w| / sqrt(var + eps), and its largest |mean| / sqrt(var + eps), the
+    factor by which the input's rounding (a share of |x|) grows against the
+    output's scale."""
+    std = (bn.running_var.detach().double() + bn.eps).sqrt()
+    return {"min_var": float(bn.running_var.min()),
+            "max_gain": float((bn.weight.detach().double().abs() / std).max()),
+            "max_mean_over_std": float((bn.running_mean.double().abs() / std).max())}
+
+
+def bn_gap(dev, model_cfg, num_class: int, batch, stats: str) -> dict:
+    """PointRCNN's backbone and point head on the first scan of ``batch``,
+    with the batch norms' running statistics set by one of
+    ``chip_smoke.py``'s two rules (``stats``: "calibrated", from one
+    train-mode pass over ``batch`` (``calibrate_grid_model``), or
+    "randomised" (``randomise_bn``)), on ``dev`` and on the CPU in float32
+    and on the CPU in float64, all with ``dev``'s choices (its ball queries
+    replayed; FPS and three-NN pick in float32). Per layer in forward order
+    the largest |difference| of each pair and the float64 output's largest
+    |value|, with each batch norm's conditioning (``_conditioning``); for
+    the point logits and decoded boxes also ``chip_smoke.forward_chain``'s
+    ``point_tol_used`` of each pair and the headings that part by more than
+    pi (a wrap at +-pi)."""
+    import chip_smoke as cs
+
+    model = build_network(model_cfg, num_class, device=dev, seed=0)
+    if stats == "calibrated":
+        cs.calibrate_grid_model(torch, api, model, model_cfg, batch)
+    elif stats == "randomised":
+        cs.randomise_bn(torch, model, seed=0)
+    else:
+        raise ValueError(f"bn_gap: stats {stats!r} is neither calibrated nor randomised")
+    weights = {k: v.cpu() for k, v in model.state_dict().items()}
+    scan = batch["points"][:1]
+    card_tape = BallQueryTape()
+    card = _point_taps(model, scan.to(dev), card_tape)
+    cpu_model = build_network(model_cfg, num_class, device="cpu", seed=0)
+    cpu_model.load_state_dict(weights)
+    cpu_tape = BallQueryTape(card_tape.calls, substitute=True)
+    cpu = _point_taps(cpu_model, scan.cpu(), cpu_tape)
+    f64_model = build_network(model_cfg, num_class, device="cpu", seed=0)
+    f64_model.load_state_dict(weights)
+    f64 = _point_taps(f64_model.double(), scan.cpu().double(),
+                      BallQueryTape(card_tape.calls, substitute=True), pinned=True)
+    modules = dict(model.named_modules())
+
+    def gap(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    layers = []
+    for name, ref in f64.items():
+        row = {"layer": name, "ref_absmax": float(ref.abs().max()),
+               "card_vs_cpu": gap(card[name], cpu[name]),
+               "card_vs_float64": gap(card[name], ref), "cpu_vs_float64": gap(cpu[name], ref)}
+        if isinstance(modules.get(name), torch.nn.BatchNorm1d):
+            row.update(_conditioning(modules[name]))
+        layers.append(row)
+
+    def tol_used(got, want):
+        return max(float(((got[k].double() - want[k].double()).abs()
+                          / (atol + cs.FORWARD_RTOL * want[k].double().abs())).max())
+                   for k, atol in (("point_cls_preds", cs.MATCH_SCORE),
+                                   ("point_boxes_decoded", cs.MATCH_SIZE)))
+
+    def wraps(got, want):
+        return int(((got["point_boxes_decoded"][..., 6].double()
+                     - want["point_boxes_decoded"][..., 6].double()).abs() > np.pi).sum())
+
+    pairs = {"card_vs_cpu": (card, cpu), "card_vs_float64": (card, f64),
+             "cpu_vs_float64": (cpu, f64)}
+    return {"stats": stats, "points": int(scan.shape[1]),
+            "ball_queries_differ": sum(q["slots_differ"] for q in cpu_tape.differ),
+            "point_tol_used": {k: tol_used(*v) for k, v in pairs.items()},
+            "heading_wraps": {k: wraps(*v) for k, v in pairs.items()},
+            "layers": layers}
+
+
 def nms_ambiguity(boxes, scores, thresh: float, max_keep: int, score_gap: float,
                   iou_shell: float) -> dict:
     """The CPU's greedy NMS over ``boxes`` (N, 7) and ``scores`` (N,) and
@@ -447,7 +581,7 @@ def det_gap(dev, cfg, trials: int, lr: float) -> list:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("probe", choices=["diverge", "grad_gap", "det_gap"])
+    parser.add_argument("probe", choices=["diverge", "grad_gap", "det_gap", "bn_gap"])
     parser.add_argument("--trials", type=int, default=8, help="det_gap only")
     parser.add_argument("--lr", type=float, default=None,
                         help="det_gap only: the one-cycle's peak (chip_smoke.ROUND_LR)")
@@ -463,6 +597,14 @@ def main(argv=None) -> None:
     try:
         import chip_smoke as cs
 
+        if args.probe == "bn_gap":
+            make_kitti_set(root)
+            cfg = cs.kitti_config("pointrcnn", root)
+            _, batch = cs.grid_batch(torch, cfg, dev)
+            for stats in ("calibrated", "randomised"):
+                emit({"probe": "bn_gap", **bn_gap(dev, cfg.MODEL, len(cfg.CLASS_NAMES), batch,
+                                                  stats)})
+            return
         make_train_set(root)
         if args.probe == "diverge":
             diverge(dev, *cs.first_batch(torch, root, dev), cs.OVERFIT_STEPS)

@@ -167,6 +167,99 @@ def test_nuscenes_boston_dataset_base_equals_its_yaml():
         == base["DATA_PROCESSOR"]
 
 
+KITTI_STEMS = ["pointrcnn", "pointrcnn_iou", "second", "pointpillar", "second_multihead",
+               "pv_rcnn", "second_iou", "PartA2", "PartA2_free", "voxel_rcnn_car"]
+
+
+@pytest.mark.parametrize("section", ["CLASS_NAMES", "DATA_CONFIG", "MODEL", "OPTIMIZATION"])
+@pytest.mark.parametrize("stem", KITTI_STEMS)
+def test_kitti_dicts_equal_the_jax_loaders_yaml(stem, section):
+    """configs.py ships each KITTI file whole, configs/datasets/kitti_dataset.yaml
+    merged in, as modest_tpu.utils.config reads it; ``KITTI_<NAME>`` is its
+    MODEL section."""
+    from modest_tpu.utils.config import cfg_from_yaml_file as j_cfg_from_yaml_file
+    from modest_tpu_torch import configs
+
+    yaml_file = f"configs/models/kitti_models/{stem}.yaml"
+    full = configs.KITTI_CONFIGS[stem]
+    want = j_cfg_from_yaml_file(yaml_file).to_dict()
+    assert list(want) == list(full)
+    assert _same(full[section], want[section])
+    assert configs.SHIPPED_MODEL_CONFIGS[yaml_file] is full
+    name = {"PartA2": "PART_A2", "PartA2_free": "PART_A2_FREE"}.get(stem, stem.upper())
+    assert full["MODEL"] is getattr(configs, f"KITTI_{name}")
+
+
+def test_kitti_dataset_base_equals_its_yaml():
+    from modest_tpu_torch.configs import KITTI_DATA_BASE
+
+    with open("configs/datasets/kitti_dataset.yaml") as f:
+        base = yaml.safe_load(f)
+    assert list(base) == [*KITTI_DATA_BASE, "DATA_PROCESSOR"]
+    for key in KITTI_DATA_BASE:
+        assert _same(KITTI_DATA_BASE[key], base[key]), key
+
+
+@pytest.mark.parametrize("stem", ["cbgs_second_multihead", "cbgs_pp_multihead"])
+def test_cbgs_model_sections_equal_the_jax_loaders_yaml(stem):
+    """The CBGS files' MODEL sections, class names and the geometry their
+    DATA_CONFIG records (their nuScenes dataset is not ported)."""
+    from modest_tpu.utils.config import cfg_from_yaml_file as j_cfg_from_yaml_file
+    from modest_tpu_torch import configs
+
+    want = j_cfg_from_yaml_file(f"configs/models/nuscenes_models/{stem}.yaml").to_dict()
+    assert _same(getattr(configs, stem.upper()), want["MODEL"])
+    assert configs.CBGS_CLASS_NAMES == want["CLASS_NAMES"]
+    data = want["DATA_CONFIG"]
+    assert configs.CBGS_POINT_CLOUD_RANGE == data["POINT_CLOUD_RANGE"]
+    assert list(configs.CBGS_GEOMETRY[stem]) == [data["VOXEL_SIZE"], data["GRID_SIZE"]]
+    assert len(data["POINT_FEATURE_ENCODING"]["used_feature_list"]) \
+        == configs.CBGS_NUM_POINT_FEATURES
+
+
+@pytest.mark.parametrize("stem", [*KITTI_STEMS, "cbgs_second_multihead", "cbgs_pp_multihead"])
+def test_kitti_and_cbgs_dicts_build_on_the_cpu(stem):
+    """``build_network(..., device="cpu")`` builds every shipped KITTI dict
+    and both CBGS model sections at full width, with the data geometry their
+    files give: the route each takes, and its anchor count."""
+    import types
+
+    import numpy as np
+
+    from modest_tpu_torch import configs
+    from modest_tpu_torch.models import build_network
+    from modest_tpu_torch.models.anchor_head_multi import AnchorHeadMulti
+    from modest_tpu_torch.models.part_a2 import PartA2Free
+    from modest_tpu_torch.models.sparse_conv import VoxelResBackBone8x
+
+    if stem.startswith("cbgs"):
+        model_cfg, names = getattr(configs, stem.upper()), configs.CBGS_CLASS_NAMES
+        pcr = configs.CBGS_POINT_CLOUD_RANGE
+        vs, gs = configs.CBGS_GEOMETRY[stem]
+        features = configs.CBGS_NUM_POINT_FEATURES
+    else:
+        full = configs.KITTI_CONFIGS[stem]
+        model_cfg, names = full["MODEL"], full["CLASS_NAMES"]
+        pcr = full["DATA_CONFIG"]["POINT_CLOUD_RANGE"]
+        vs = full["DATA_CONFIG"]["DATA_PROCESSOR"][-1].get("VOXEL_SIZE")
+        gs = None if vs is None else np.round(
+            (np.asarray(pcr[3:]) - pcr[:3]) / vs).astype(int).tolist()
+        features = 4
+    dataset = types.SimpleNamespace(point_cloud_range=pcr, voxel_size=vs, grid_size=gs,
+                                    class_names=names, num_point_features=features)
+    model = build_network(Config(model_cfg), len(names), device="cpu", dataset=dataset)
+    assert not model.training
+    grouped = stem in ("second", "pointpillar", "second_multihead") or stem.startswith("cbgs")
+    assert grouped == isinstance(getattr(model, "dense_head", None), AnchorHeadMulti)
+    assert isinstance(model, PartA2Free) == (stem == "PartA2_free")
+    assert isinstance(getattr(model, "backbone_3d", None), VoxelResBackBone8x) \
+        == (stem == "cbgs_second_multihead")
+    if gs is not None and stem != "PartA2_free":
+        stride = model_cfg["DENSE_HEAD"]["ANCHOR_GENERATOR_CONFIG"][0]["feature_map_stride"]
+        per_loc = 2 * len(model_cfg["DENSE_HEAD"]["ANCHOR_GENERATOR_CONFIG"])
+        assert model.anchors.shape == ((gs[0] // stride) * (gs[1] // stride) * per_loc, 7)
+
+
 @pytest.mark.parametrize("pairs", [
     ["OPTIMIZATION.LR", "0.002", "OPTIMIZATION.NUM_EPOCHS", "5"],
     ["DATA_CONFIG.FOV_POINTS_ONLY", "0", "CLASS_NAMES", "[Car,Pedestrian]"],

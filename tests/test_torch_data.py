@@ -224,6 +224,50 @@ def test_synthetic_writer_equals_the_test_writer(tmp_path):
             assert (a / rel).read_bytes() == (b / rel).read_bytes(), rel
 
 
+def _tree_digest(root):
+    import hashlib
+
+    digest = hashlib.sha256()
+    for path in sorted(p for p in root.rglob("*") if p.is_file()):
+        digest.update(str(path.relative_to(root)).encode())
+        digest.update(path.read_bytes())
+    return digest.hexdigest()
+
+
+@pytest.mark.parametrize("kwargs,want", [
+    ({"n_train": 2, "n_val": 1, "seed": 7},
+     "a87212a374c763caccfa2d362c11e7c96483d0431fef4b8c3dd6169f80162627"),
+    ({"n_train": 2, "n_val": 1, "seed": 0, "full_density": True},
+     "b8cfb64c312c0040f86fa0537029a43e740018b11f9b812c0a3ee6329327db43"),
+])
+def test_synthetic_writer_default_output_is_unchanged(tmp_path, kwargs, want):
+    """Without ``kitti_classes`` every file is byte for byte what the writer
+    gave before the option existed (the digests of its files then)."""
+    tsynth.make_dataset(tmp_path, **kwargs)
+    assert _tree_digest(tmp_path) == want
+
+
+def test_synthetic_writer_kitti_classes(tmp_path):
+    """``kitti_classes``: Car, Pedestrian and Cyclist objects at KITTI's
+    sizes (±10 %) inside KITTI's range, read back by the port's KITTI
+    label reader."""
+    from modest_tpu_torch.utils import kitti_io
+
+    boxes = tsynth.make_dataset(tmp_path, n_train=3, n_val=0, seed=0, full_density=True,
+                                kitti_classes=True)
+    names = []
+    for gid, b in boxes.items():
+        objs = kitti_io.read_label(
+            tmp_path / "training" / "label_2" / f"{gid:06d}.txt")
+        assert len(objs) == len(b) >= 8
+        for obj, box in zip(objs, b):
+            names.append(obj.cls_type)
+            size = np.asarray(tsynth.KITTI_SIZES[obj.cls_type])
+            assert np.all(np.abs(box[3:6] / size - 1) <= 0.1 + 1e-9)
+            assert 0 < box[0] < 70.4 and -40 < box[1] < 40 and -3 < box[2] < 1
+    assert set(names) == {"Car", "Pedestrian", "Cyclist"}
+
+
 def test_full_density_scenes(tmp_path):
     boxes = tsynth.make_dataset(tmp_path, n_train=2, n_val=0, seed=0, full_density=True)
     for gid, b in boxes.items():

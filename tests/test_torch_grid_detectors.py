@@ -247,17 +247,28 @@ def test_gradients_match_jax_grad(pair):
 
 
 def test_build_network_takes_the_data_geometry_and_refuses_unported_heads():
+    """The geometry is required; the grouped head (AnchorHeadMulti) and the
+    ATSS assigner, once refused, build now; a target assigner JAX does not
+    know is refused, as JAX refuses it."""
+    from modest_tpu_torch.models.anchor_head_multi import AnchorHeadMulti
+
     cfg = Config(pillar_model_cfg())
     with pytest.raises(ValueError, match="geometry"):
         build_network(cfg, 1, device="cpu")
     model = build_network(cfg, 1, device="cpu", dataset=geometry("pillar"))
     assert model.anchors.shape == (16 * 16 * 2, 7) and not model.training
-    for patch in ({"NAME": "AnchorHeadMulti"},
-                  {"TARGET_ASSIGNER_CONFIG": {"NAME": "ATSS"}}):
-        bad = Config(second_model_cfg())
-        bad.DENSE_HEAD.update(patch)
-        with pytest.raises(NotImplementedError):
-            build_network(bad, 1, device="cpu", dataset=geometry("second"))
+    multi = Config(second_model_cfg())
+    multi.DENSE_HEAD.NAME = "AnchorHeadMulti"
+    with_names = types.SimpleNamespace(**vars(geometry("second")), class_names=["Dynamic"])
+    model = build_network(multi, 1, device="cpu", dataset=with_names)
+    assert isinstance(model.dense_head, AnchorHeadMulti)
+    atss = Config(second_model_cfg())
+    atss.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NAME = "ATSS"
+    assert build_network(atss, 1, device="cpu", dataset=geometry("second")).assigner == "ATSS"
+    bad = Config(second_model_cfg())
+    bad.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NAME = "HungarianAssigner"
+    with pytest.raises(NotImplementedError, match="HungarianAssigner"):
+        build_network(bad, 1, device="cpu", dataset=geometry("second"))
 
 
 # --- the pcdet loader: layouts a pcdet checkpoint stores ------------------------

@@ -357,12 +357,15 @@ def test_im2col_conv_route_computes_conv2d(stride, padding):
 
 
 def test_conv_route_rule_sends_second_level1_to_im2col():
-    """``Conv2d``'s route is a rule of the shape: of the two Lyft configs' BEV
-    conv shapes (``tools/grid_probe.py``'s table), only SECOND's stride-1
-    convs on its 200 x 226 level-1 map leave cuDNN."""
+    """``Conv2d``'s route is a rule of the shape: of the BEV conv shapes of
+    the Lyft and KITTI configs and the CBGS SECOND (``tools/grid_probe.py``'s
+    table), only SECOND's stride-1 convs to 128 channels leave cuDNN: the
+    256-channel openers on every map, the 128-channel convs on Lyft's 200 x
+    226 and KITTI's 200 x 176 level-1 maps."""
     from modest_tpu_torch.models.layers import conv_uses_cudnn
     from modest_tpu_torch.tools.grid_probe import CONV_SHAPES
 
-    off = {name for name, (cin, _, h, w, stride, _) in CONV_SHAPES.items()
-           if not conv_uses_cudnn(cin, (h, w), (stride, stride))}
-    assert off == {"second_l1_first", "second_l1"}
+    off = {name for name, (cin, cout, h, w, stride, _) in CONV_SHAPES.items()
+           if not conv_uses_cudnn(cin, cout, (h, w), (stride, stride))}
+    assert off == {"second_l1_first", "second_l1", "kitti_second_l1_first", "kitti_second_l1",
+                   "cbgs_second_l1_first"}

@@ -77,19 +77,25 @@ def test_build_network_runs_on_the_card_unless_asked_for_the_cpu():
 @pytest.mark.parametrize("name,backbone", [("SECONDNet", "VoxelResBackBone8x"),
                                            ("PointRCNN", "UNetV2")])
 def test_build_network_refuses_unported_detectors(name, backbone):
-    """SECOND with the residual sparse backbone (nuScenes CBGS) and the
-    sparse-UNet PointRCNN (PartA2-free) are not ported."""
+    """Once refused, both build now: SECOND with the residual sparse
+    backbone (nuScenes CBGS) and the sparse-UNet PointRCNN (PartA2Free, from
+    KITTI's PartA2_free dict). Another sparse backbone is still refused."""
     import copy
     import types
 
-    from modest_tpu_torch.configs import SECOND_DYNAMIC_OBJ
+    from modest_tpu_torch.configs import KITTI_PART_A2_FREE, SECOND_DYNAMIC_OBJ
+    from modest_tpu_torch.models.part_a2 import PartA2Free
+    from modest_tpu_torch.models.sparse_conv import VoxelResBackBone8x
 
-    cfg = Config(copy.deepcopy(SECOND_DYNAMIC_OBJ if name == "SECONDNet"
-                               else POINTRCNN_DYNAMIC_OBJ))
+    cfg = Config(copy.deepcopy(SECOND_DYNAMIC_OBJ if name == "SECONDNet" else KITTI_PART_A2_FREE))
     cfg.NAME = name
     cfg.BACKBONE_3D.NAME = backbone
     geometry = types.SimpleNamespace(point_cloud_range=[0, -40, -3, 90.4, 40, 1],
                                      voxel_size=[0.05, 0.05, 0.1], grid_size=[1808, 1600, 40])
+    model = build_network(cfg, 1 if name == "SECONDNet" else 3, device="cpu", dataset=geometry)
+    assert isinstance(model.backbone_3d if name == "SECONDNet" else model,
+                      VoxelResBackBone8x if name == "SECONDNet" else PartA2Free)
+    cfg.BACKBONE_3D.NAME = "SparseResNet"
     with pytest.raises(NotImplementedError):
         build_network(cfg, 1, device="cpu", dataset=geometry)
 

@@ -6,8 +6,8 @@ tests/test_torch_grid_detectors.py), JAX's variables (seeded, from
 JAX train forward (its RoI sampler's key recorded and handed to the port as
 draws) is in tests/test_torch_part_a2_train.py; here one eval forward
 with the seeded statistics is shared by the module. Also the
-build_network route and the refusal of the anchor-free PartA2Free, and the
-shipped config dict against its YAML. Its pieces alone are held to JAX in
+build_network route (the anchor-free PartA2Free's too), and the shipped
+config dict against its YAML. Its pieces alone are held to JAX in
 tests/test_torch_part_a2_ops.py."""
 from __future__ import annotations
 
@@ -120,9 +120,12 @@ def test_build_network_routes_part_a2_and_refuses_part_a2_free():
     assert isinstance(model, pa.PartA2) and isinstance(model.backbone_3d, sc.SparseUNet)
     assert api.samples_rois(cfg)
     free = parta2_model_cfg()
-    free["NAME"] = "PointRCNN"
-    with pytest.raises(NotImplementedError, match="PartA2Free"):
-        build_network(Config(free), 1, device="cpu", dataset=geometry("second"))
+    free["NAME"] = "PointRCNN"  # the anchor-free Part-A2, once refused
+    free["POINT_HEAD"].update(REG_FC=[16], TARGET_CONFIG={
+        "GT_EXTRA_WIDTH": [0.2, 0.2, 0.2], "BOX_CODER": "PointResidualCoder",
+        "BOX_CODER_CONFIG": {"use_mean_size": True, "mean_size": [[3.9, 1.6, 1.56]]}})
+    model = build_network(Config(free), 1, device="cpu", dataset=geometry("second"))
+    assert isinstance(model, pa.PartA2Free) and isinstance(model.backbone_3d, sc.SparseUNet)
     bad = parta2_model_cfg()
     bad["BACKBONE_3D"] = {"NAME": "VoxelBackBone8x"}
     with pytest.raises(NotImplementedError, match="UNetV2|sparse backbone"):

@@ -4,11 +4,14 @@ the CPU against itself finds no difference and a float64 run within float32
 rounding, the divergence probe records each step and names the module
 where a non-finite value starts, and the detection-gap probe of the CPU
 against itself agrees at every stage. Also chip_smoke.py's stage-by-stage
-detection check (forward_chain, check_chain): it names the stage a changed
-weight parts, and it lets the end-to-end match fall short only where a
-device's own decision kept another box."""
+detection check (forward_chain, check_chain, and the grid detectors'
+grid_forward_chain, check_grid_chain): it names the stage a changed weight
+parts, and it lets the end-to-end match fall short only where a device's own
+decision kept another box. And the batch-norm probe (bn_gap) of the CPU
+against itself."""
 import copy
 import json
+import types
 
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from modest_tpu_torch.configs import (POINTRCNN_DYNAMIC_OBJ_DATA_CONFIG,
                                       POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION)
 from modest_tpu_torch.data.kitti_dataset import create_kitti_infos
 from modest_tpu_torch.data.loader import build_dataloader
+from modest_tpu_torch.models import api, build_network
 from modest_tpu_torch.ops import pointnet2 as p2
 from modest_tpu_torch.tools import train_probe
 from modest_tpu_torch.utils.config import Config
@@ -121,6 +125,30 @@ def test_det_gap_of_the_cpu_against_itself(tmp_path, capsys):
     assert json.loads(capsys.readouterr().out.splitlines()[-1])["probe"] == "det_gap"
 
 
+@pytest.mark.parametrize("stats", ["calibrated", "randomised"])
+def test_bn_gap_of_the_cpu_against_itself(cfg_and_batch, stats):
+    """With the CPU in the card's place every layer agrees bit for bit, the
+    float64 run parts from float32 by rounding only, and every batch norm's
+    conditioning is reported."""
+    cfg, batch = cfg_and_batch
+    r = train_probe.bn_gap(torch.device("cpu"), cfg.MODEL, 1, batch, stats)
+    assert r["stats"] == stats and r["points"] == 512 and r["ball_queries_differ"] == 0
+    assert r["point_tol_used"]["card_vs_cpu"] == 0.0 and r["heading_wraps"]["card_vs_cpu"] == 0
+    names = [row["layer"] for row in r["layers"]]
+    assert names[-3:] == ["point_cls_preds", "point_box_preds", "point_boxes_decoded"]
+    assert "backbone_3d.SA_modules.0" in names and "backbone_3d.FP_modules.0" in names
+    model = train_probe.build_network(cfg.MODEL, 1, device="cpu")
+    bns = [n for part in ("backbone_3d", "point_head")
+           for n, m in model.get_submodule(part).named_modules(prefix=part)
+           if isinstance(m, torch.nn.BatchNorm1d)]
+    assert sorted(row["layer"] for row in r["layers"] if "max_mean_over_std" in row) == sorted(bns)
+    for row in r["layers"]:
+        assert row["card_vs_cpu"] == 0.0
+        assert row["cpu_vs_float64"] <= 1e-4 * max(row["ref_absmax"], 1.0)
+    with pytest.raises(ValueError, match="neither"):
+        train_probe.bn_gap(torch.device("cpu"), cfg.MODEL, 1, batch, "identity")
+
+
 def test_nms_ambiguity_finds_tied_overlapping_pairs():
     boxes = torch.tensor([[0, 0, 0, 2, 2, 1, 0], [0.1, 0, 0, 2, 2, 1, 0], [9, 0, 0, 2, 2, 1, 0]])
     scores = torch.tensor([0.5, 0.5 - 1e-7, 0.5 - 2e-7])
@@ -182,3 +210,62 @@ def test_check_chain_excuses_a_short_match_only_where_a_decision_parted(
                    "matched")
     with pytest.raises(SystemExit):
         cs.check_chain(dict(chain, finals_given_card_rcnn=0.9), 1.0, 20, "final NMS")
+
+
+@pytest.fixture(scope="module")
+def grid_chain_inputs():
+    """``TINY_MULTIHEAD`` (two groups, multi-class NMS) and one 5-feature
+    scan."""
+    import chip_smoke
+    from test_nuscenes_waymo import TINY_MULTIHEAD
+
+    ds = types.SimpleNamespace(point_cloud_range=(-16.0, -16.0, -5.0, 16.0, 16.0, 3.0),
+                               voxel_size=(1.0, 1.0, 8.0), grid_size=(32, 32, 1),
+                               class_names=["car", "pedestrian"], num_point_features=5)
+    rng = np.random.RandomState(0)
+    scan = torch.from_numpy(rng.uniform(-15, 15, (1, 256, 5)).astype(np.float32))
+    return chip_smoke, Config(copy.deepcopy(TINY_MULTIHEAD)), ds, scan
+
+
+@pytest.mark.parametrize("shift", [0.0, 0.01])
+def test_grid_forward_chain_names_a_changed_dense_output(grid_chain_inputs, shift):
+    """The same weights agree at every stage; a class bias moved by 20x the
+    matcher's score limit parts at the dense stage."""
+    cs, cfg, ds, scan = grid_chain_inputs
+    want = build_network(cfg, 2, device="cpu", seed=0, dataset=ds)
+    got = build_network(cfg, 2, device="cpu", seed=0, dataset=ds)
+    with torch.no_grad():
+        for name, p in got.named_parameters():
+            if "conv_cls" in name and name.endswith("bias"):
+                p.add_(shift)
+    chain, fin_got, fin_want = cs.grid_forward_chain(torch, np, api, got, want, cfg, scan)
+    match = cs.match_finals(np, fin_got, fin_want)
+    detections = match["card_detections"] + match["cpu_detections"]
+    assert match["card_detections"] > 0
+    if not shift:
+        assert chain == {"dense_tol_used": 0.0, "finals_given_card_dense": 1.0,
+                         "cpu_finals_own_dense": 1.0}
+        assert match["match_frac"] == 1.0
+        cs.check_grid_chain(chain, match["match_frac"], detections, "unchanged")
+        return
+    assert chain["dense_tol_used"] > 1.0 and chain["finals_given_card_dense"] == 1.0
+    with pytest.raises(SystemExit):
+        cs.check_grid_chain(chain, match["match_frac"], detections, "shifted")
+
+
+@pytest.mark.parametrize("own, passes", [(1.0, False), (0.95, True)])
+def test_check_grid_chain_excuses_a_short_match_only_where_the_cpus_own_nms_parted(
+        grid_chain_inputs, own, passes):
+    cs = grid_chain_inputs[0]
+    chain = {"dense_tol_used": 0.1, "finals_given_card_dense": 1.0, "cpu_finals_own_dense": own}
+    if passes:
+        cs.check_grid_chain(chain, 0.9, 20, "parted")
+    else:
+        with pytest.raises(SystemExit):
+            cs.check_grid_chain(chain, 0.9, 20, "not parted")
+    cs.check_grid_chain(dict(chain, cpu_finals_own_dense=1.0), 0.98, 20, "matched")
+    for bad in ({"finals_given_card_dense": 0.9}, {"dense_tol_used": 1.5}):
+        with pytest.raises(SystemExit):
+            cs.check_grid_chain(dict(chain, **bad), 1.0, 20, f"{bad}")
+    with pytest.raises(SystemExit):
+        cs.check_grid_chain(chain, 1.0, 0, "no detection")

@@ -60,12 +60,15 @@ def seeded_variables(jmodel, points, gt_boxes, seed: int = 0):
         max_voxels=MAX_VOXELS), points, gt_boxes), seed)
 
 
-def run_jax(jmodel, jcfg, loss_fn, sampler_module=None, forwards=("train", "eval")):
-    """The toy batch through ``jmodel``: one jitted train forward + loss (the
-    sampler's key recorded when ``sampler_module`` samples RoIs) and one
-    eval forward with the statistics the train forward left, or with the
-    seeded ones when ``forwards`` leaves out "train"."""
-    pts, gt = toy_batch(0, GT_XY)
+def run_jax(jmodel, jcfg, loss_fn, sampler_module=None, forwards=("train", "eval"),
+            batch=None, post=None):
+    """The toy batch (or ``batch``, (points, gt boxes)) through ``jmodel``:
+    one jitted train forward + loss (the sampler's key recorded when
+    ``sampler_module`` samples RoIs) and one eval forward with the
+    statistics the train forward left, or with the seeded ones when
+    ``forwards`` leaves out "train"; ``post``, when given, post-processes
+    the eval outputs in the same jit (``run.final``)."""
+    pts, gt = toy_batch(0, GT_XY) if batch is None else batch
     jp, jg = jnp.asarray(pts), jnp.asarray(gt)
     params, stats0 = seeded_variables(jmodel, jp, jg)
     run = types.SimpleNamespace(pts=pts, gt=gt, params=_np(params), stats0=_np(stats0),
@@ -96,8 +99,11 @@ def run_jax(jmodel, jcfg, loss_fn, sampler_module=None, forwards=("train", "eval
         run.out, run.stats1 = _np(out), _np(stats1)
         run.metrics = {k: float(v) for k, v in metrics.items()}
     if "eval" in forwards:
-        run.eval = _np(jax.jit(lambda v, p: jmodel.apply(v, p, train=False,
-                                                         max_voxels=MAX_VOXELS))(
+        def evaluate(v, p):
+            out = jmodel.apply(v, p, train=False, max_voxels=MAX_VOXELS)
+            return out, (post(out) if post is not None else None)
+
+        run.eval, run.final = _np(jax.jit(evaluate)(
             {"params": params, "batch_stats": run.stats1}, jp))
     return run
 
