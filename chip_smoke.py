@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve paths, each at full size from fixed seeds:
+Fourteen paths, each at full size from fixed seeds:
 
 * the flagship detector's eval forward plus post-processing (PointRCNN,
   configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
@@ -44,9 +44,20 @@ Twelve paths, each at full size from fixed seeds:
   SECOND-IoU, Part-A2, the anchor-free Part-A2, Voxel R-CNN Car) at full
   width on synthetic scans of Cars, Pedestrians and Cyclists: their eval
   forward plus post-processing at B = 4, and cli/train.py for 8 steps of
-  five of them; the nuScenes CBGS grouped heads
-  (configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml) at their
-  geometry: eval forward plus multi-class NMS at B = 4 and a train forward;
+  five of them;
+* Waymo's three configs (configs/models/waymo_models/{pv_rcnn,second,PartA2}.yaml)
+  at full width on a synthetic processed Waymo tree (tools/synth_infos.py,
+  ~180,000 points a frame, no-label-zone points dropped, 131072 sampled),
+  through build_dataloader: PV-RCNN's eval forward at the config's B = 2
+  (keypoint FPS of 2048 of 131072 points a scan), cli/train.py for 4 steps
+  and cli/test.py under EVAL_METRIC kitti and waymo; SECOND's and
+  Part-A2's eval forward at B = 2;
+* the nuScenes CBGS grouped heads
+  (configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml) fed by
+  the nuScenes loader (tools/synth_infos.py: 10 sweeps of ~34,000 points a
+  keyframe, CBGS resampling, gt sampling, gt of width 10): eval forward plus
+  multi-class NMS at B = 4, a train forward, cli/train.py for one epoch and
+  cli/test.py with the SDK-free nuScenes evaluation;
 * the nuScenes-Boston PointRCNN
   (configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml, 6144
   points a scan): cli/train.py for 4 steps at B = 2 and cli/test.py;
@@ -131,11 +142,25 @@ Phases, each printing one JSON line:
    kitti_card_vs_cpu: forward_chain with the card's RoI-aware cells handed
    to the CPU), and 8 steps of cli/train.py for PointRCNN, SECOND,
    second_multihead, PV-RCNN and PartA2_free (kitti_train: every loss
-   finite, the FPS launches the steps take); then the CBGS grouped heads at
-   their nuScenes geometry on 5-feature scans (cbgs_forward: the timed
-   forwards with 10 × 83 multi-class NMS slots a scan, one train forward's
-   finite losses; grid_card_vs_cpu, its dense outputs within the chain's
-   limits and the CPU's multi-class NMS of the card's dense outputs 1:1);
+   finite, the FPS launches the steps take);
+4d''. Waymo (waymo_dataset: the tree, its gt database, both loaders' batch
+   shapes, points (2, 131072, 5) and gt (2, M, 8)); PV-RCNN
+   (waymo_pv_rcnn_forward: the warm-up's FPS launch at (2, 131072) → 2048
+   holds the plain FPS's indices on its own input, then timed forwards
+   with exactly one FPS launch each, stage ms, peak memory;
+   waymo_voxel_cap: the share of occupied voxels the 16000-voxel cap keeps;
+   waymo_pv_rcnn_card_vs_cpu as pv_rcnn_card_vs_cpu; waymo_pv_rcnn_train:
+   4 steps of cli/train.py, one FPS launch a step, then cli/test.py under
+   EVAL_METRIC kitti and waymo, each table's keys present, one launch a
+   test batch); SECOND (grid_forward, grid_card_vs_cpu) and Part-A2
+   (two_stage_forward, two_stage_card_vs_cpu) at B = 2, no FPS (waymo_grid);
+   then nuScenes (nuscenes_dataset: the tree of 10-sweep keyframes, its gt
+   database, both loaders' batch shapes, gt of width 10 and finite) and per
+   CBGS head (cbgs_forward: the timed forwards of the test batch with
+   10 × 83 multi-class NMS slots a scan, one train forward's finite losses
+   on a train batch with its 10-column targets; grid_card_vs_cpu; cbgs_train:
+   one epoch of cli/train.py, every loss finite, then cli/test.py with mAP
+   and NDS); no FPS launch;
 4e. the preparation CLIs (prep: every file written for every frame, PP
    finite in [0, 1], one radius-count launch an origin, and no tqdm,
    PyYAML or PIL loaded on the way);
@@ -417,11 +442,31 @@ KITTI_TRAIN = ("pointrcnn", "second", "second_multihead", "pv_rcnn", "PartA2_fre
 KITTI_EVAL_ONLY = ("pointpillar", "second_iou", "PartA2", "pointrcnn_iou", "voxel_rcnn_car")
 KITTI_FPS = {"pointrcnn": (3, 3), "pointrcnn_iou": (3, 3), "pv_rcnn": (1, 0)}
 # nuScenes CBGS heads (configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml,
-# the MODEL sections shipped as dicts, the nuScenes dataset not ported) at the
-# geometry their files record, on CBGS_SCANS synthetic 5-feature scans of
-# CBGS_POINTS points with CBGS_OBJECTS boxes of the 10 classes (velocity set)
+# shipped as dicts) fed by the nuScenes loader: a synthetic tree of
+# CBGS_TRAIN_FRAMES train and CBGS_VAL_FRAMES val keyframes of 10 sweeps of
+# ~34,000 points (tools/synth_infos.py), its gt database; the shipped configs
+# whole (CBGS resampling, gt sampling, 65536 points a scan, gt of width 10) at
+# their B = 4; cli/train.py for one epoch at the rate the config's first
+# epoch reaches, then cli/test.py with the SDK-free nuScenes evaluation
 CBGS_MODELS = ("cbgs_second_multihead", "cbgs_pp_multihead")
-CBGS_SCANS, CBGS_POINTS, CBGS_OBJECTS = 4, 65536, 24
+CBGS_CFG = "configs/models/nuscenes_models/{}.yaml"
+CBGS_BATCH = 4
+CBGS_TRAIN_FRAMES, CBGS_VAL_FRAMES = 4, 4
+# Waymo (configs/models/waymo_models/{pv_rcnn,second,PartA2}.yaml, shipped as
+# dicts) on a synthetic processed Waymo tree (tools/synth_infos.py: ~180,000
+# points a frame, ~3 % of them in no-label zones, sampled to 131072 without
+# replacement) read at the configs' SAMPLED_INTERVAL of 5: WAYMO_TRAIN_FRAMES
+# give 8 train samples (4 steps at the config's B = 2), WAYMO_VAL_FRAMES one
+# test batch. PV-RCNN: WAYMO_TIMED_ITERS timed forwards after a warm-up (one
+# FPS launch each, (2, 131072) -> 2048), card vs CPU, cli/train.py for one
+# epoch at the rate the config's first epoch reaches (the focal-loss NaN,
+# ROADMAP.md Queue 3), cli/test.py under EVAL_METRIC kitti and waymo. SECOND
+# and Part-A2: timed eval forwards at B = 2 and card vs CPU.
+WAYMO_CFG = "configs/models/waymo_models/{}.yaml"
+WAYMO_BATCH = 2
+WAYMO_INTERVAL = 5
+WAYMO_TRAIN_FRAMES, WAYMO_VAL_FRAMES = 8 * WAYMO_INTERVAL, 2 * WAYMO_INTERVAL
+WAYMO_TIMED_ITERS = 5
 # the dataset-preparation CLIs on tools/nu_scenes.py's drives: 3 drives of 40
 # sweeps 2 m apart (~27k points a sweep), the PP CLI on the card for 2 origins
 PREP_DRIVES = {"traversals": 3, "frames": 40, "spacing": 2.0, "n_ground": 48000,
@@ -1076,23 +1121,31 @@ def phase_train_card_vs_cpu(torch, np, dev, root, card):
              f"(< {MIN_ROI_MATCH})")
 
 
+def shipped_config(path, root):
+    """A shipped config (its dict, no PyYAML) with DATA_PATH ``root``."""
+    from modest_tpu_torch.cli.train import load_model_config
+
+    cfg = load_model_config(REPO / path)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    return cfg
+
+
 def grid_config(name, root):
     """A grid model's (or PV-RCNN's) shipped config on the synthetic set, its
     test split the training scans (no augmentation, 65536 points a scan)."""
-    from modest_tpu_torch.cli.train import load_model_config
-
-    cfg = load_model_config(REPO / {**GRID_CFGS, **TWO_STAGE_CFGS, "pv_rcnn": PV_CFG}[name])
-    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    cfg = shipped_config({**GRID_CFGS, **TWO_STAGE_CFGS, "pv_rcnn": PV_CFG}[name], root)
     cfg.DATA_CONFIG.DATA_SPLIT.test = "train"
     cfg.DATA_CONFIG.INFO_PATH.test = ["kitti_infos_train.pkl"]
     return cfg
 
 
-def grid_batch(torch, cfg, dev):
-    """The dataset and its first B = 4 test-mode batch on ``dev``."""
+def grid_batch(torch, cfg, dev, batch_size=GRID_BATCH, training=False):
+    """The dataset and its first batch (B = 4 unless asked otherwise, test
+    mode unless ``training``) on ``dev``."""
     from modest_tpu_torch.data.loader import batch_to_device, build_dataloader
 
-    ds, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, GRID_BATCH, training=False)
+    ds, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+                                  training=training)
     try:
         batch = next(iter(loader))
     finally:
@@ -1434,11 +1487,15 @@ def pv_forward_chain(torch, np, card_model, cpu_model, model_cfg, scan):
     return row, got, want
 
 
-def phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card):
-    """PV-RCNN's eval forward + post-process at full width, B = 4 scans of
-    65536 points: a warm-up whose keypoints must equal the plain FPS's,
-    then PV_TIMED_ITERS timed forwards (scans/s, stage ms by CUDA events,
-    peak memory, FPS launches: one a forward)."""
+def phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card,
+                     phase="pv_rcnn_forward", iters=PV_TIMED_ITERS):
+    """PV-RCNN's eval forward + post-process at full width (B = 4 scans of
+    65536 points on Lyft; Waymo's B = 2 of 131072): a warm-up whose FPS
+    launch must pick the plain FPS's indices on the same xyz, then ``iters``
+    timed forwards (scans/s, stage ms by CUDA events, peak memory, FPS
+    launches: one a forward)."""
+    from unittest import mock
+
     from modest_tpu_torch.ops import pointnet2 as p2
     from modest_tpu_torch.ops.fps import furthest_point_sample_plain
 
@@ -1446,12 +1503,26 @@ def phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card):
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=0, dataset=ds)
     calibrate_grid_model(torch, api, model, cfg.MODEL, batch)
     points = batch["points"]
-    out = api.apply_eval(model, cfg.MODEL, points)
-    xyz = points[..., :3].contiguous()
-    plain = p2.gather_points(xyz, furthest_point_sample_plain(xyz, PV_KEYPOINTS))
+    b = int(points.shape[0])
+    real, launched = p2.furthest_point_sample_cuda, []
+
+    def recording(xyz, npoint):
+        idx = real(xyz, npoint)
+        launched.append((xyz.clone(), npoint, idx))
+        return idx
+
+    with mock.patch.object(p2, "furthest_point_sample_cuda", recording):
+        out = api.apply_eval(model, cfg.MODEL, points)
+    if len(launched) != 1:
+        fail(f"{phase}: the warm-up forward launched FPS {len(launched)} times, not once")
+    xyz, npoint, idx = launched[0]
+    fps_shape = [*xyz.shape[:2], npoint]
+    plain_idx = furthest_point_sample_plain(xyz, npoint)
+    index_mismatches = int((idx != plain_idx).sum())
+    plain = p2.gather_points(xyz, plain_idx)
     keypoint_mismatches = int((out["keypoints"] != plain).any(-1).sum())
-    detections = check_final(torch, api.post_process(out, cfg.MODEL), GRID_BATCH,
-                             "pv_rcnn forward on the card")
+    detections = check_final(torch, api.post_process(out, cfg.MODEL), b,
+                             f"{phase} on the card")
 
     events = []
 
@@ -1466,7 +1537,7 @@ def phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card):
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(PV_TIMED_ITERS):
+    for _ in range(iters):
         t_it = time.perf_counter()
         events.clear()
         mark("start")
@@ -1474,31 +1545,35 @@ def phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card):
         mark("post_nms")
         torch.cuda.synchronize()
         forward_ms.append((time.perf_counter() - t_it) * 1e3)
-        for (_, a), (stage, b) in zip(events, events[1:]):
-            stage_ms[stage] += a.elapsed_time(b) / PV_TIMED_ITERS
+        for (_, a), (stage, b_ev) in zip(events, events[1:]):
+            stage_ms[stage] += a.elapsed_time(b_ev) / iters
     wall = time.perf_counter() - t0
     launches = dict(counts)
     forward_ms.sort()
-    check_final(torch, final, GRID_BATCH, "pv_rcnn timed forward on the card")
-    row = {"phase": "pv_rcnn_forward", "batch": GRID_BATCH,
+    check_final(torch, final, b, f"{phase} timed forward on the card")
+    row = {"phase": phase, "batch": b,
            "points_per_scan": int(points.shape[1]), "grid_size": [int(v) for v in ds.grid_size],
-           "keypoints": PV_KEYPOINTS, "keypoint_mismatches": keypoint_mismatches,
+           "keypoints": PV_KEYPOINTS, "fps_shape": fps_shape,
+           "fps_index_mismatches": index_mismatches,
+           "keypoint_mismatches": keypoint_mismatches,
            "detections": detections, "kept_per_scan": final["valid"].sum(1).tolist(),
            "stage_ms": stage_ms, "forward_ms_median": forward_ms[len(forward_ms) // 2],
-           "forward_ms_max": forward_ms[-1], "timed_forwards": PV_TIMED_ITERS,
-           "scans_per_s": GRID_BATCH * PV_TIMED_ITERS / wall,
+           "forward_ms_max": forward_ms[-1], "timed_forwards": iters,
+           "scans_per_s": b * iters / wall,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "fps_kernel_launches": launches,
-           "fps_launches_per_forward": sum(launches.values()) / PV_TIMED_ITERS, "card": card}
+           "fps_launches_per_forward": sum(launches.values()) / iters, "card": card}
     emit(row)
-    if keypoint_mismatches:
-        fail(f"pv_rcnn: {keypoint_mismatches} keypoints differ from the plain FPS's")
-    if launches != {"fps_cluster_kernel": PV_TIMED_ITERS, "fps_warp_kernel": 0}:
-        fail(f"pv_rcnn: {PV_TIMED_ITERS} forwards launched the fps kernels {launches} times")
+    if index_mismatches or keypoint_mismatches:
+        fail(f"{phase}: {index_mismatches} FPS indices and {keypoint_mismatches} keypoints "
+             f"differ from the plain FPS's")
+    if launches != {"fps_cluster_kernel": iters, "fps_warp_kernel": 0}:
+        fail(f"{phase}: {iters} forwards launched the fps kernels {launches} times")
     return model, row
 
 
-def phase_pv_card_vs_cpu(torch, np, api, build_network, cfg, ds, model, batch, card):
+def phase_pv_card_vs_cpu(torch, np, api, build_network, cfg, ds, model, batch, card,
+                         phase="pv_rcnn_card_vs_cpu"):
     """One scan's detections card vs CPU with the same weights: 1:1 >=
     MIN_BOX_MATCH, or ``pv_forward_chain`` stage by stage."""
     cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device="cpu", dataset=ds)
@@ -1507,12 +1582,12 @@ def phase_pv_card_vs_cpu(torch, np, api, build_network, cfg, ds, model, batch, c
     chain, got, want = pv_forward_chain(torch, np, model, cpu_model, cfg.MODEL,
                                         batch["points"][:1].cpu())
     match = match_finals(np, got, want)
-    emit({"phase": "pv_rcnn_card_vs_cpu", "points": int(batch["points"].shape[1]), **match,
+    emit({"phase": phase, "points": int(batch["points"].shape[1]), **match,
           **chain, "chain_s": time.perf_counter() - t0, "card": card})
     if not chain["keypoints_equal"]:
-        fail("pv_rcnn card vs CPU: the keypoints differ")
+        fail(f"{phase}: the keypoints differ")
     check_chain(chain, match["match_frac"], match["card_detections"] + match["cpu_detections"],
-                "pv_rcnn card vs CPU", stage1=("dense_tol_used", "proposals_given_card_dense"),
+                phase, stage1=("dense_tol_used", "proposals_given_card_dense"),
                 parted=not chain["rois_same_order"] or bool(chain["own_vsa_slots_differ"])
                 or bool(chain["own_grid_slots_differ"]))
 
@@ -1923,10 +1998,7 @@ def phase_kitti_dataset(root, card):
 def kitti_config(stem, root):
     """A KITTI config (its shipped dict) on the synthetic set, its test split
     the training scans."""
-    from modest_tpu_torch.cli.train import load_model_config
-
-    cfg = load_model_config(REPO / KITTI_CFG.format(stem))
-    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    cfg = shipped_config(KITTI_CFG.format(stem), root)
     cfg.DATA_CONFIG.DATA_SPLIT.test = "train"
     cfg.DATA_CONFIG.INFO_PATH.test = ["kitti_infos_train.pkl"]
     return cfg
@@ -2038,96 +2110,335 @@ def phase_kitti_train(torch, np, dev, root, stem, card):
     return launches
 
 
-def cbgs_batch(torch, np, dev):
-    """CBGS_SCANS synthetic nuScenes-like scans in the CBGS range: a ground
-    plane, CBGS_OBJECTS boxes of the 10 classes at their anchor sizes with
-    points on them, 5 features (x, y, z, intensity, time lag); gt boxes
-    (B, M, 10): the box, its velocity, its class."""
-    from modest_tpu_torch.configs import CBGS_POINT_CLOUD_RANGE, _cbgs_anchors
-
-    rng = np.random.RandomState(7)
-    anchors = _cbgs_anchors(8)
-    pcr = np.asarray(CBGS_POINT_CLOUD_RANGE)
-    points = np.zeros((CBGS_SCANS, CBGS_POINTS, 5), np.float32)
-    gt = np.zeros((CBGS_SCANS, CBGS_OBJECTS, 10), np.float32)
-    per_obj = CBGS_POINTS // (2 * CBGS_OBJECTS)
-    for s in range(CBGS_SCANS):
-        n_ground = CBGS_POINTS - per_obj * CBGS_OBJECTS
-        points[s, :n_ground, :2] = rng.uniform(pcr[:2] + 1, pcr[3:5] - 1, (n_ground, 2))
-        points[s, :n_ground, 2] = -1.8 + rng.randn(n_ground) * 0.05
-        for j in range(CBGS_OBJECTS):
-            cls = rng.randint(len(anchors))
-            a = anchors[cls]
-            size = np.asarray(a["anchor_sizes"][0]) * rng.uniform(0.9, 1.1, 3)
-            centre = [*rng.uniform(pcr[:2] + 5, pcr[3:5] - 5),
-                      a["anchor_bottom_heights"][0] + size[2] / 2]
-            yaw = rng.uniform(-np.pi, np.pi)
-            gt[s, j] = [*centre, *size, yaw, *rng.uniform(-3, 3, 2), cls + 1]
-            local = rng.uniform(-0.5, 0.5, (per_obj, 3)) * size
-            c, si = np.cos(yaw), np.sin(yaw)
-            rot = np.array([[c, -si, 0], [si, c, 0], [0, 0, 1.0]])
-            sl = slice(n_ground + j * per_obj, n_ground + (j + 1) * per_obj)
-            points[s, sl, :3] = local @ rot.T + centre
-        points[s, :, 3] = rng.rand(CBGS_POINTS)
-        points[s, :, 4] = rng.randint(0, 10, CBGS_POINTS) * 0.05
-    return {"points": torch.from_numpy(points).to(dev), "gt_boxes": torch.from_numpy(gt).to(dev)}
-
-
-def phase_cbgs(torch, np, api, build_network, dev, card):
-    """The CBGS grouped heads at their nuScenes geometry (10 classes in 6
-    groups, the 9-code (cos, sin) coder, SECOND's on VoxelResBackBone8x):
-    KITTI_TIMED_ITERS timed eval forwards + multi-class post-processing at
-    B = 4 (10 × NMS_POST_MAXSIZE slots a scan), one train forward and its
-    losses, then card vs CPU as the grid detectors (``phase_grid_card_vs_cpu``:
-    the card's ``multi_classes_nms`` held against the CPU's on the card's
-    dense outputs)."""
-    import types
-
+def phase_nuscenes_dataset(torch, np, root, card):
+    """The nuScenes tree (tools/synth_infos.py ``full_density``) under
+    ``root``/v1.0-trainval, its gt database, and both loaders of the CBGS
+    SECOND dict: CBGS resampling's train samples, the batch shapes (65536
+    5-feature points; gt of width 10 with the velocity, no NaN left)."""
     from modest_tpu_torch import configs
-    from modest_tpu_torch.utils.config import Config
+    from modest_tpu_torch.data.loader import build_dataloader
+    from modest_tpu_torch.tools import synth_infos
 
-    batch = cbgs_batch(torch, np, dev)
+    t0 = time.perf_counter()
+    tree = root / configs.NUSCENES_DATASET_BASE["VERSION"]
+    np.random.seed(0)
+    infos = synth_infos.write_nuscenes_tree(tree, CBGS_TRAIN_FRAMES,
+                                            rng=np.random.RandomState(0), full_density=True,
+                                            n_val=CBGS_VAL_FRAMES)
+    db_file = synth_infos.nuscenes_gt_database(tree, configs.NUSCENES_DATASET_BASE,
+                                               configs.CBGS_CLASS_NAMES,
+                                               "nuscenes_infos_train_10sweeps_withvelo.pkl")
+    with open(db_file, "rb") as f:
+        db = pickle.load(f)
+    written = time.perf_counter() - t0
+    cfg = shipped_config(CBGS_CFG.format(CBGS_MODELS[0]), root)
+    row = {"phase": "nuscenes_dataset", "train_frames": CBGS_TRAIN_FRAMES,
+           "val_frames": CBGS_VAL_FRAMES, "sweeps": len(infos[0]["sweeps"]) + 1,
+           "keyframe_points": [(tree / i["lidar_path"]).stat().st_size // 20 for i in infos],
+           "gt_per_frame": [len(i["gt_names"]) for i in infos],
+           "nan_velocities": int(sum(np.isnan(i["gt_boxes"][:, 7]).sum() for i in infos)),
+           "gt_database_objects": {k: len(v) for k, v in db.items()}, "write_s": written}
+    for training in (True, False):
+        np.random.seed(0)
+        t1 = time.perf_counter()
+        ds, batch = grid_batch(torch, cfg, "cpu", CBGS_BATCH, training=training)
+        mode = "train" if training else "test"
+        gt = batch["gt_boxes"].numpy()
+        gt = gt[np.abs(gt).sum(-1) > 0]
+        row[f"{mode}_samples"] = len(ds)
+        row[f"{mode}_batch"] = {"points": list(batch["points"].shape),
+                                "gt_boxes": list(batch["gt_boxes"].shape),
+                                "classes": sorted({int(c) for c in gt[:, -1]}),
+                                "moving": int((np.abs(gt[:, 7:9]).sum(1) > 0).sum()),
+                                "seconds": time.perf_counter() - t1}
+        if (tuple(batch["points"].shape) != (CBGS_BATCH, 65536, 5)
+                or batch["gt_boxes"].shape[-1] != 10 or not np.isfinite(gt).all()):
+            fail(f"nuscenes {mode} batch: points {tuple(batch['points'].shape)}, gt "
+                 f"{tuple(batch['gt_boxes'].shape)}, finite {bool(np.isfinite(gt).all())}")
+    row.update(seconds=time.perf_counter() - t0, card=card)
+    emit(row)
+
+
+def phase_cbgs_train(torch, np, dev, root, stem, card):
+    """cli/train.py on one CBGS config, from its dict at its B = 4, for one
+    epoch of the loader's resampled train samples, peaking at the rate the
+    config's first epoch reaches: every loss finite. Then cli/test.py on its
+    checkpoint over the val frames: the SDK-free nuScenes evaluation's
+    mAP and NDS and the BEV AP table."""
+    from modest_tpu_torch.cli import test as test_cli
+    from modest_tpu_torch.cli import train as train_cli
+
+    cfg_file = str(REPO / CBGS_CFG.format(stem))
+    cfg = shipped_config(CBGS_CFG.format(stem), root)
+    lr = one_cycle_early_lr(cfg.OPTIMIZATION, 1)
+    out = root / stem
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train_cli.main(["--cfg_file", cfg_file, "--data_path", str(root), "--epochs", "1",
+                            "--fix_random_seed", "--output_dir", str(out),
+                            "--set", "OPTIMIZATION.LR", str(lr)], stage_times=True)
+    seconds = time.perf_counter() - t0
+    hist = state.history
+    if len(hist) < 3:
+        fail(f"{stem} train: {len(hist)} steps")
+    check_history(np, hist, f"{stem} train")
+    timed = hist[2:]
+    stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
+    train_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    t0 = time.perf_counter()
+    annos, results = test_cli.main(["--cfg_file", cfg_file, "--ckpt_dir", str(out / "ckpt"),
+                                    "--data_path", str(root), "--output_dir",
+                                    str(out / "test"), "--workers", "0"])
+    test_s = time.perf_counter() - t0
+    emit({"phase": "cbgs_train", "model": stem, "batch": CBGS_BATCH, "steps": len(hist),
+          "lr": lr, "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
+          "scans_per_s": CBGS_BATCH * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"]),
+          "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[1]["end_s"]) / len(timed),
+          "data_wait_ms": sum(r["data_wait_ms"] for r in timed) / len(timed),
+          "stage_ms": stage_ms, "peak_mem_gb": train_peak, "cli_seconds": seconds,
+          "test_seconds": test_s, "test_frames": len(annos),
+          "test_detections": int(sum(len(a["score"]) for a in annos)),
+          "nuscenes_eval": {k: v for k, v in results.items()
+                            if k in ("mAP", "NDS", "mATE", "mASE", "mAOE", "mAVE")},
+          "card": card})
+    if len(annos) != CBGS_VAL_FRAMES or not {"mAP", "NDS"} <= set(results):
+        fail(f"{stem} cli/test.py: {len(annos)} frames, results {sorted(results)}")
+    if any(a["boxes_lidar"].shape[-1] != 9 or not np.isfinite(a["boxes_lidar"]).all()
+           for a in annos):
+        fail(f"{stem} cli/test.py: boxes not finite (N, 9)")
+
+
+def phase_nuscenes_cbgs(torch, np, api, build_network, dev, card):
+    """The CBGS grouped heads (10 classes in 6 groups, the 9-code (cos, sin)
+    coder, SECOND's on VoxelResBackBone8x) fed by the nuScenes loader:
+    KITTI_TIMED_ITERS timed eval forwards + multi-class post-processing of
+    the test batch at B = 4 (10 x NMS_POST_MAXSIZE slots a scan), one train
+    forward and its losses on a train batch (velocity targets), card vs CPU
+    as the grid detectors (``phase_grid_card_vs_cpu``), then cli/train.py
+    and cli/test.py (``phase_cbgs_train``). No hand kernel: the FPS counts,
+    set to 0 before, must read 0."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_nuscenes_"))
+    t0 = time.perf_counter()
+    try:
+        phase_nuscenes_dataset(torch, np, tmp, card)
+        counts = reset_fps_counts()
+        for stem in CBGS_MODELS:
+            cfg = shipped_config(CBGS_CFG.format(stem), tmp)
+            ds, batch = grid_batch(torch, cfg, dev, CBGS_BATCH)
+            np.random.seed(1)
+            _, train_batch = grid_batch(torch, cfg, dev, CBGS_BATCH, training=True)
+            model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=0,
+                                  dataset=ds)
+            calibrate_grid_model(torch, api, model, cfg.MODEL, batch)
+            row, final = timed_forwards(torch, api, model, cfg.MODEL, batch["points"],
+                                        KITTI_TIMED_ITERS, stem)
+            out = api.apply_train(model, cfg.MODEL, train_batch["points"],
+                                  train_batch["gt_boxes"])
+            _, metrics = api.compute_loss(out, train_batch["gt_boxes"], cfg.MODEL,
+                                          len(cfg.CLASS_NAMES))
+            losses = {k: v.item() for k, v in metrics.items()}
+            labels = out["box_cls_labels"]
+            model.eval()
+            if not all(math.isfinite(v) for v in losses.values()):
+                fail(f"{stem}: non-finite train losses {losses}")
+            nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+            slots = len(cfg.CLASS_NAMES) * int(nms.NMS_POST_MAXSIZE)
+            if final["boxes"].shape[1:] != (slots, 9):
+                fail(f"{stem}: final boxes {tuple(final['boxes'].shape)}, not (B, {slots}, 9)")
+            emit({"phase": "cbgs_forward", "model": stem,
+                  "grid_size": [int(v) for v in ds.grid_size],
+                  "anchors": int(model.anchors.shape[0]), "slots_per_scan": slots, **row,
+                  "train_losses": losses, "train_box_targets": int(out["box_reg_targets"]
+                                                                   .shape[-1]),
+                  "train_labels_by_class": torch.bincount(
+                      labels.clamp_min(0).flatten(),
+                      minlength=len(cfg.CLASS_NAMES) + 1).tolist(),
+                  "card": card})
+            phase_grid_card_vs_cpu(torch, np, api, build_network, stem, cfg, ds, model, batch,
+                                   card)
+            del model, out
+            torch.cuda.empty_cache()
+            phase_cbgs_train(torch, np, dev, tmp, stem, card)
+            torch.cuda.empty_cache()
+        if any(counts.values()):
+            fail(f"the CBGS heads launched hand kernels {dict(counts)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "nuscenes_cbgs_seconds", "seconds": time.perf_counter() - t0, "card": card})
+
+
+def phase_waymo_dataset(torch, np, root, card):
+    """The processed Waymo tree (tools/synth_infos.py ``full_density``), the
+    gt database the configs' gt sampling reads (every 10th train frame), and
+    both loaders of the PV-RCNN dict: points (2, 131072, 5) with the NLZ
+    points dropped, gt (2, M, 8)."""
+    from modest_tpu_torch import configs
+    from modest_tpu_torch.tools import synth_infos
+
+    t0 = time.perf_counter()
+    np.random.seed(0)
+    infos = synth_infos.write_waymo_tree(root, WAYMO_TRAIN_FRAMES, rng=np.random.RandomState(0),
+                                         full_density=True, n_val=WAYMO_VAL_FRAMES)
+    db_file = synth_infos.waymo_gt_database(root, configs.WAYMO_DATASET_BASE,
+                                            configs.WAYMO_CLASS_NAMES)
+    with open(db_file, "rb") as f:
+        db = pickle.load(f)
+    written = time.perf_counter() - t0
+    cfg = shipped_config(WAYMO_CFG.format("pv_rcnn"), root)
+    raw = [np.load(root / "waymo_processed_data" / i["point_cloud"]["lidar_sequence"]
+                   / f"{i['point_cloud']['sample_idx']:04d}.npy")
+           for i in infos[::WAYMO_INTERVAL]]
+    row = {"phase": "waymo_dataset", "train_frames": WAYMO_TRAIN_FRAMES,
+           "val_frames": WAYMO_VAL_FRAMES, "sampled_interval": WAYMO_INTERVAL,
+           "raw_points": [len(r) for r in raw],
+           "points_outside_nlz": [int((r[:, 5] == -1).sum()) for r in raw],
+           "gt_per_frame": [len(i["annos"]["name"]) for i in infos[::WAYMO_INTERVAL]],
+           "gt_database_objects": {k: len(v) for k, v in db.items()}, "write_s": written}
+    for training in (True, False):
+        np.random.seed(0)
+        t1 = time.perf_counter()
+        ds, batch = grid_batch(torch, cfg, "cpu", WAYMO_BATCH, training=training)
+        mode = "train" if training else "test"
+        row[f"{mode}_samples"] = len(ds)
+        row[f"{mode}_batch"] = {"points": list(batch["points"].shape),
+                                "gt_boxes": list(batch["gt_boxes"].shape),
+                                "seconds": time.perf_counter() - t1}
+        if (tuple(batch["points"].shape) != (WAYMO_BATCH, 131072, 5)
+                or batch["gt_boxes"].shape[-1] != 8):
+            fail(f"waymo {mode} batch: points {tuple(batch['points'].shape)}, gt "
+                 f"{tuple(batch['gt_boxes'].shape)}")
+    row.update(seconds=time.perf_counter() - t0, card=card)
+    emit(row)
+
+
+def phase_waymo_pv_train(torch, np, dev, root, card):
+    """cli/train.py on Waymo's PV-RCNN from its dict at full width and its
+    B = 2 for one epoch (4 steps) at the rate the config's first epoch
+    reaches; then cli/test.py on its checkpoint under EVAL_METRIC kitti and
+    waymo (``--set``): the R40 AP table and the AP/APH LEVEL_1/2 table. One
+    FPS launch a step and a test batch."""
+    from modest_tpu_torch.cli import test as test_cli
+    from modest_tpu_torch.cli import train as train_cli
+
+    cfg_file = str(REPO / WAYMO_CFG.format("pv_rcnn"))
+    cfg = shipped_config(WAYMO_CFG.format("pv_rcnn"), root)
+    lr = one_cycle_early_lr(cfg.OPTIMIZATION, 1)
+    out = root / "waymo_pv_rcnn"
     counts = reset_fps_counts()
-    for stem in CBGS_MODELS:
-        vs, gs = configs.CBGS_GEOMETRY[stem]
-        ds = types.SimpleNamespace(point_cloud_range=configs.CBGS_POINT_CLOUD_RANGE,
-                                   voxel_size=vs, grid_size=gs,
-                                   class_names=configs.CBGS_CLASS_NAMES,
-                                   num_point_features=configs.CBGS_NUM_POINT_FEATURES)
-        cfg = Config({"CLASS_NAMES": configs.CBGS_CLASS_NAMES,
-                      "MODEL": getattr(configs, stem.upper())})
-        model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=0, dataset=ds)
-        calibrate_grid_model(torch, api, model, cfg.MODEL, batch)
-        row, final = timed_forwards(torch, api, model, cfg.MODEL, batch["points"],
-                                    KITTI_TIMED_ITERS, stem)
-        out = api.apply_train(model, cfg.MODEL, batch["points"], batch["gt_boxes"])
-        _, metrics = api.compute_loss(out, batch["gt_boxes"], cfg.MODEL, len(cfg.CLASS_NAMES))
-        losses = {k: v.item() for k, v in metrics.items()}
-        labels = out["box_cls_labels"]
-        model.eval()
-        if not all(math.isfinite(v) for v in losses.values()):
-            fail(f"{stem}: non-finite train losses {losses}")
-        nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
-        slots = len(cfg.CLASS_NAMES) * int(nms.NMS_POST_MAXSIZE)
-        if final["boxes"].shape[1:] != (slots, 9):
-            fail(f"{stem}: final boxes {tuple(final['boxes'].shape)}, not (B, {slots}, 9)")
-        emit({"phase": "cbgs_forward", "model": stem, "grid_size": gs,
-              "anchors": int(model.anchors.shape[0]), "slots_per_scan": slots, **row,
-              "train_losses": losses, "train_labels_by_class": torch.bincount(
-                  labels.clamp_min(0).flatten(), minlength=len(cfg.CLASS_NAMES) + 1).tolist(),
-              "card": card})
-        phase_grid_card_vs_cpu(torch, np, api, build_network, stem, cfg, ds, model, batch, card)
-        del model, out
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train_cli.main(["--cfg_file", cfg_file, "--data_path", str(root), "--epochs", "1",
+                            "--fix_random_seed", "--output_dir", str(out),
+                            "--set", "OPTIMIZATION.LR", str(lr)], stage_times=True)
+    seconds = time.perf_counter() - t0
+    train_launches = dict(counts)
+    hist = state.history
+    steps = WAYMO_TRAIN_FRAMES // WAYMO_INTERVAL // WAYMO_BATCH
+    if len(hist) != steps:
+        fail(f"waymo pv_rcnn train: {len(hist)} steps, not {steps}")
+    check_history(np, hist, "waymo pv_rcnn train")
+    timed = hist[2:]
+    stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
+    train_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    tests, test_launches = {}, {}
+    for metric in ("kitti", "waymo"):
+        counts = reset_fps_counts()
+        t1 = time.perf_counter()
+        annos, results = test_cli.main(["--cfg_file", cfg_file, "--ckpt_dir", str(out / "ckpt"),
+                                        "--data_path", str(root), "--output_dir",
+                                        str(out / f"test_{metric}"), "--workers", "0",
+                                        "--set", "DATA_CONFIG.EVAL_METRIC", metric])
+        test_launches[metric] = dict(counts)
+        ap = {k: v for k, v in results.items() if k not in ("recall", "sec_per_example",
+                                                             "steady_sec_per_example")}
+        tests[metric] = {"frames": len(annos), "seconds": time.perf_counter() - t1,
+                         "detections": int(sum(len(a["score"]) for a in annos)), "ap": ap}
+        want_key = ("Vehicle_bev_iou0.7_R40" if metric == "kitti"
+                    else "OBJECT_TYPE_TYPE_VEHICLE_LEVEL_2/APH")
+        if len(annos) != WAYMO_VAL_FRAMES // WAYMO_INTERVAL or want_key not in ap:
+            fail(f"waymo pv_rcnn cli/test.py ({metric}): {len(annos)} frames, {sorted(ap)}")
+    want = {"fps_cluster_kernel": steps, "fps_warp_kernel": 0}
+    emit({"phase": "waymo_pv_rcnn_train", "batch": WAYMO_BATCH, "steps": len(hist), "lr": lr,
+          "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
+          "scans_per_s": WAYMO_BATCH * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"]),
+          "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[1]["end_s"]) / len(timed),
+          "data_wait_ms": sum(r["data_wait_ms"] for r in timed) / len(timed),
+          "forward_ms": sum(stage_ms[k] for k in state.model.stages), "stage_ms": stage_ms,
+          "peak_mem_gb": train_peak, "cli_seconds": seconds, "fps_kernel_launches": train_launches,
+          "tests": tests, "test_fps_kernel_launches": test_launches, "card": card})
+    if train_launches != want:
+        fail(f"waymo pv_rcnn train: {steps} steps launched fps {train_launches}, not {want}")
+    for metric, launches in test_launches.items():
+        if launches != {"fps_cluster_kernel": 1, "fps_warp_kernel": 0}:
+            fail(f"waymo pv_rcnn cli/test.py ({metric}): one batch launched fps {launches}")
+    return train_launches, len(hist), {m: n["fps_cluster_kernel"] for m, n in
+                                       test_launches.items()}
+
+
+def phase_waymo(torch, np, api, build_network, dev, card):
+    """Waymo's three configs on the synthetic tree: the dataset and loaders;
+    PV-RCNN's forward at B = 2 x 131072 (``phase_pv_forward``: one FPS
+    launch a forward, its indices equal to the plain FPS's), the share of
+    occupied voxels the 16000-voxel cap keeps, card vs CPU, training and
+    cli/test.py; then SECOND and Part-A2 at B = 2 with their card vs CPU
+    chains (no FPS). Returns the FPS launches of PV-RCNN's paths."""
+    from modest_tpu_torch.models.grid_detectors import MAX_VOXELS
+    from modest_tpu_torch.models.voxelize import voxel_counts
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_waymo_"))
+    t0 = time.perf_counter()
+    try:
+        phase_waymo_dataset(torch, np, tmp, card)
+        cfg = shipped_config(WAYMO_CFG.format("pv_rcnn"), tmp)
+        ds, batch = grid_batch(torch, cfg, dev, WAYMO_BATCH)
+        model, forward_row = phase_pv_forward(torch, np, api, build_network, cfg, ds, batch,
+                                              card, phase="waymo_pv_rcnn_forward",
+                                              iters=WAYMO_TIMED_ITERS)
+        in_range, occupied, kept, dropped = voxel_counts(
+            batch["points"], model.point_cloud_range, model.voxel_size, model.grid_size,
+            MAX_VOXELS)
+        emit({"phase": "waymo_voxel_cap", "max_voxels": MAX_VOXELS,
+              "config_max_voxels": dict(cfg.DATA_CONFIG.DATA_PROCESSOR[-1].MAX_NUMBER_OF_VOXELS),
+              "grid_size": [int(v) for v in ds.grid_size],
+              "points_in_range": in_range.tolist(), "occupied_voxels": occupied.tolist(),
+              "kept_voxels": kept.tolist(),
+              "kept_share": (kept.double() / occupied.double()).tolist(),
+              "dropped_points": dropped.tolist(), "card": card})
+        phase_pv_card_vs_cpu(torch, np, api, build_network, cfg, ds, model, batch, card,
+                             phase="waymo_pv_rcnn_card_vs_cpu")
+        del model
         torch.cuda.empty_cache()
-    if any(counts.values()):
-        fail(f"the CBGS heads launched hand kernels {dict(counts)}")
+        train = phase_waymo_pv_train(torch, np, dev, tmp, card)
+        torch.cuda.empty_cache()
+        counts = reset_fps_counts()
+        for stem in ("second", "PartA2"):
+            cfg = shipped_config(WAYMO_CFG.format(stem), tmp)
+            ds, batch = grid_batch(torch, cfg, dev, WAYMO_BATCH)
+            if stem == "second":
+                model = phase_grid_forward(torch, np, api, build_network, "waymo_second", cfg,
+                                           ds, batch, card)
+                phase_grid_card_vs_cpu(torch, np, api, build_network, "waymo_second", cfg, ds,
+                                       model, batch, card)
+                del model
+            else:
+                phase_two_stage_forward(torch, np, api, build_network, "waymo_PartA2", cfg, ds,
+                                        batch, card)
+            torch.cuda.empty_cache()
+        emit({"phase": "waymo_grid", "models": ["second", "PartA2"], "batch": WAYMO_BATCH,
+              "fps_kernel_launches": dict(counts), "card": card})
+        if any(counts.values()):
+            fail(f"Waymo SECOND and Part-A2 launched hand kernels {dict(counts)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "waymo_seconds", "seconds": time.perf_counter() - t0, "card": card})
+    return forward_row, train
 
 
 def phase_kitti(torch, np, api, build_network, dev, card):
-    """KITTI's 3-class configs and the CBGS heads: the dataset, every KITTI
-    model's forward (card vs CPU for the new routes), 8 train steps of
-    KITTI_TRAIN's, the CBGS phase. Returns the FPS launches by model of the
-    forwards and of the trainings."""
+    """KITTI's 3-class configs: the dataset, every model's forward (card vs
+    CPU for the routes slice 12 ported), 8 train steps of KITTI_TRAIN's.
+    Returns the FPS launches by model of the forwards and of the
+    trainings."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_kitti_"))
     forward_launches, train_launches = {}, {}
     t0 = time.perf_counter()
@@ -2141,8 +2452,7 @@ def phase_kitti(torch, np, api, build_network, dev, card):
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_cbgs(torch, np, api, build_network, dev, card)
-    emit({"phase": "kitti_cbgs_seconds", "seconds": time.perf_counter() - t0, "card": card})
+    emit({"phase": "kitti_seconds", "seconds": time.perf_counter() - t0, "card": card})
     return forward_launches, train_launches
 
 
@@ -3255,6 +3565,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     kitti_forward_launches, kitti_train_launches = phase_kitti(torch, np, api, build_network,
                                                                dev, card)
+    waymo_row, (waymo_train_launches, waymo_steps, waymo_test_launches) = phase_waymo(
+        torch, np, api, build_network, dev, card)
+    phase_nuscenes_cbgs(torch, np, api, build_network, dev, card)
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
     try:
@@ -3337,8 +3650,21 @@ def main() -> int:
             "pv_rcnn_shapes": "keypoint FPS, one call per PV-RCNN forward (B=4) and train step "
                               "(B=2) of 65536 points to 2048; launches over the timed forwards, "
                               "then the train steps and the eval-after-train batches; "
-                              "waymo_keypoints (2, 131072 -> 2048) and n_98304 (4, 98304 -> "
-                              "2048): the 32-point range past 65536, on no path yet",
+                              "waymo_keypoints (2, 131072 -> 2048): Waymo's PV-RCNN, the "
+                              "32-point range past 65536; n_98304 (4, 98304 -> 2048) on no "
+                              "path",
+            "waymo_launches": waymo_row["fps_kernel_launches"][kernel],
+            "waymo_forwards": WAYMO_TIMED_ITERS,
+            "waymo_fps_index_mismatches": waymo_row["fps_index_mismatches"],
+            "waymo_train_launches": waymo_train_launches[kernel],
+            "waymo_train_steps": waymo_steps,
+            "waymo_test_launches": waymo_test_launches if kernel == "fps_cluster_kernel"
+            else {metric: 0 for metric in waymo_test_launches},
+            "waymo_shapes": "Waymo PV-RCNN (configs/models/waymo_models/pv_rcnn.yaml) from the "
+                            "loader: one (2, 131072 -> 2048) call per forward, train step and "
+                            "test batch (row waymo_keypoints); launches over the timed "
+                            "forwards, the train steps and cli/test.py's batch under each "
+                            "EVAL_METRIC",
             "nuscenes_boston_train_launches": nusc_train_launches[kernel],
             "nuscenes_boston_train_steps": nusc_steps,
             "nuscenes_boston_test_launches": nusc_test_launches[kernel],

@@ -15,7 +15,10 @@ of the same directory, in the same forms, as are
 ``KITTI_<NAME>`` is the ``MODEL`` section of
 ``configs/models/kitti_models/<name>.yaml`` (``KITTI_CONFIGS`` the ten whole
 files), ``CBGS_{SECOND,PP}_MULTIHEAD`` the ``MODEL`` sections of
-``configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml``. ``PIPELINE_*`` are
+``configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml`` (``CBGS_CONFIGS``
+the two whole files) and ``WAYMO_CONFIGS`` the three files of
+``configs/models/waymo_models/`` whole, each on its dataset base
+(``NUSCENES_DATASET_BASE``, ``WAYMO_DATASET_BASE``). ``PIPELINE_*`` are
 ``configs/pipeline/{pp_score,generate_mask}.yaml`` and the
 ``data_paths/{fw70_2m,nusc}.yaml`` group, each exactly as PyYAML parses it;
 tests hold them equal.
@@ -701,9 +704,94 @@ KITTI_CONFIGS = {  # file stem under configs/models/kitti_models → the whole f
     "voxel_rcnn_car": _kitti_full(KITTI_VOXEL_RCNN_CAR, 2, 0.01, classes=["Car"]),
 }
 
-# nuScenes CBGS (configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml):
-# their MODEL sections and the geometry their DATA_CONFIG records; the nuScenes
-# dataset itself is not ported, so a caller builds them with that geometry
+# ---------------------------------------------------------------------------
+# nuScenes and Waymo: configs/datasets/{nuscenes,waymo}_dataset.yaml as
+# NUSCENES_DATASET_BASE and WAYMO_DATASET_BASE, and the model files on them,
+# whole: configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml
+# (CBGS_{SECOND,PP}_MULTIHEAD their MODEL sections) and
+# configs/models/waymo_models/{pv_rcnn,second,PartA2}.yaml (the Lyft files'
+# model sections with Waymo's three anchors).
+# ---------------------------------------------------------------------------
+
+NUSCENES_DATASET_BASE = {
+    "DATASET": "NuScenesDataset", "DATA_PATH": "data/nuscenes", "VERSION": "v1.0-trainval",
+    "MAX_SWEEPS": 10, "PRED_VELOCITY": True, "SET_NAN_VELOCITY_TO_ZEROS": True,
+    "FILTER_MIN_POINTS_IN_GT": 1, "BALANCED_RESAMPLING": True,
+    "DATA_SPLIT": {"train": "train", "test": "val"},
+    "INFO_PATH": {"train": ["nuscenes_infos_train_10sweeps_withvelo.pkl"],
+                  "test": ["nuscenes_infos_val_10sweeps_withvelo.pkl"]},
+    "POINT_CLOUD_RANGE": [-51.2, -51.2, -5.0, 51.2, 51.2, 3.0],
+    "DATA_AUGMENTOR": {
+        "DISABLE_AUG_LIST": ["placeholder"],
+        "AUG_CONFIG_LIST": [
+            {
+                "NAME": "gt_sampling", "USE_ROAD_PLANE": False,
+                "DB_INFO_PATH": ["nuscenes_dbinfos_10sweeps_withvelo.pkl"],
+                "PREPARE": {"filter_by_min_points": [
+                    f"{name}:5" for name in (
+                        "car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
+                        "motorcycle", "bicycle", "pedestrian", "traffic_cone")]},
+                "SAMPLE_GROUPS": ["car:2", "truck:3", "construction_vehicle:7", "bus:4",
+                                  "trailer:6", "barrier:2", "motorcycle:6", "bicycle:6",
+                                  "pedestrian:2", "traffic_cone:2"],
+                "NUM_POINT_FEATURES": 5, "REMOVE_EXTRA_WIDTH": [0.0, 0.0, 0.0],
+                "LIMIT_WHOLE_SCENE": True,
+            },
+            {"NAME": "random_world_flip", "ALONG_AXIS_LIST": ["x", "y"]},
+            {"NAME": "random_world_rotation", "WORLD_ROT_ANGLE": [-0.3925, 0.3925]},
+            {"NAME": "random_world_scaling", "WORLD_SCALE_RANGE": [0.95, 1.05]},
+        ],
+    },
+    "POINT_FEATURE_ENCODING": {
+        "encoding_type": "absolute_coordinates_encoding",
+        "used_feature_list": ["x", "y", "z", "intensity", "timestamp"],
+        "src_feature_list": ["x", "y", "z", "intensity", "timestamp"],
+    },
+    "DATA_PROCESSOR": [
+        {"NAME": "mask_points_and_boxes_outside_range", "REMOVE_OUTSIDE_BOXES": True},
+        {"NAME": "shuffle_points", "SHUFFLE_ENABLED": {"train": True, "test": True}},
+        {"NAME": "sample_points", "NUM_POINTS": {"train": 65536, "test": 65536}},
+    ],
+}
+
+WAYMO_NUM_POINTS = 131072  # each Waymo model file's sample, train and test
+WAYMO_DATASET_BASE = {
+    "DATASET": "WaymoDataset", "DATA_PATH": "data/waymo",
+    "PROCESSED_DATA_TAG": "waymo_processed_data",
+    "POINT_CLOUD_RANGE": [-75.2, -75.2, -2, 75.2, 75.2, 4],
+    "DATA_SPLIT": {"train": "train", "test": "val"},
+    "SAMPLED_INTERVAL": {"train": 5, "test": 5},
+    "EVAL_METRIC": "kitti",
+    "DATA_AUGMENTOR": {
+        "DISABLE_AUG_LIST": ["placeholder"],
+        "AUG_CONFIG_LIST": [
+            {
+                "NAME": "gt_sampling", "USE_ROAD_PLANE": False,
+                "DB_INFO_PATH": ["pcdet_waymo_dbinfos_train_sampled_10.pkl"],
+                "PREPARE": {"filter_by_min_points": ["Vehicle:5", "Pedestrian:5", "Cyclist:5"],
+                            "filter_by_difficulty": []},
+                "SAMPLE_GROUPS": ["Vehicle:15", "Pedestrian:10", "Cyclist:10"],
+                "NUM_POINT_FEATURES": 5, "REMOVE_EXTRA_WIDTH": [0.0, 0.0, 0.0],
+                "LIMIT_WHOLE_SCENE": True,
+            },
+            {"NAME": "random_world_flip", "ALONG_AXIS_LIST": ["x", "y"]},
+            {"NAME": "random_world_rotation", "WORLD_ROT_ANGLE": [-0.78539816, 0.78539816]},
+            {"NAME": "random_world_scaling", "WORLD_SCALE_RANGE": [0.95, 1.05]},
+        ],
+    },
+    "POINT_FEATURE_ENCODING": {
+        "encoding_type": "absolute_coordinates_encoding",
+        "used_feature_list": ["x", "y", "z", "intensity", "elongation"],
+        "src_feature_list": ["x", "y", "z", "intensity", "elongation"],
+    },
+    "DATA_PROCESSOR": [
+        {"NAME": "mask_points_and_boxes_outside_range", "REMOVE_OUTSIDE_BOXES": True},
+        {"NAME": "shuffle_points", "SHUFFLE_ENABLED": {"train": True, "test": True}},
+        {"NAME": "sample_points", "NUM_POINTS": {"train": WAYMO_NUM_POINTS,
+                                                 "test": WAYMO_NUM_POINTS}},
+    ],
+}
+
 CBGS_CLASS_NAMES = ["car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
                     "motorcycle", "bicycle", "pedestrian", "traffic_cone"]
 CBGS_POINT_CLOUD_RANGE = [-51.2, -51.2, -5.0, 51.2, 51.2, 3.0]
@@ -765,9 +853,74 @@ CBGS_PP_MULTIHEAD = {
     "BACKBONE_2D": {**POINTPILLAR_DYNAMIC_OBJ["BACKBONE_2D"], "UPSAMPLE_STRIDES": [0.5, 1, 2]},
     "DENSE_HEAD": _cbgs_dense_head(4), "POST_PROCESSING": _CBGS_POST,
 }
+
+
+def _cbgs_full(model, voxel_size, grid_size):
+    import copy
+
+    return {"CLASS_NAMES": list(CBGS_CLASS_NAMES),
+            "DATA_CONFIG": {**copy.deepcopy(NUSCENES_DATASET_BASE),
+                            "POINT_CLOUD_RANGE": list(CBGS_POINT_CLOUD_RANGE),
+                            "VOXEL_SIZE": voxel_size, "GRID_SIZE": grid_size},
+            "MODEL": model,
+            "OPTIMIZATION": {**POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION, "BATCH_SIZE_PER_GPU": 4,
+                             "NUM_EPOCHS": 20, "LR": 0.001}}
+
+
+CBGS_CONFIGS = {  # file stem under configs/models/nuscenes_models → the whole file
+    "cbgs_second_multihead": _cbgs_full(CBGS_SECOND_MULTIHEAD, [0.1, 0.1, 0.2], [1024, 1024, 40]),
+    "cbgs_pp_multihead": _cbgs_full(CBGS_PP_MULTIHEAD, [0.2, 0.2, 8.0], [512, 512, 1]),
+}
 CBGS_GEOMETRY = {  # (VOXEL_SIZE, GRID_SIZE) of each file's DATA_CONFIG
-    "cbgs_second_multihead": ([0.1, 0.1, 0.2], [1024, 1024, 40]),
-    "cbgs_pp_multihead": ([0.2, 0.2, 8.0], [512, 512, 1]),
+    stem: (full["DATA_CONFIG"]["VOXEL_SIZE"], full["DATA_CONFIG"]["GRID_SIZE"])
+    for stem, full in CBGS_CONFIGS.items()
+}
+
+WAYMO_CLASS_NAMES = ["Vehicle", "Pedestrian", "Cyclist"]
+
+
+def _waymo_anchors():
+    """Waymo's anchor configs, in CLASS_NAMES order, on the ground (z 0)."""
+    cfgs = [("Vehicle", [4.7, 2.1, 1.7], 0.55, 0.4), ("Pedestrian", [0.91, 0.86, 1.73], 0.5, 0.35),
+            ("Cyclist", [1.78, 0.84, 1.78], 0.5, 0.35)]
+    return [{"class_name": name, "anchor_sizes": [size], "anchor_rotations": [0, 1.57],
+             "anchor_bottom_heights": [0], "align_center": False, "feature_map_stride": 8,
+             "matched_threshold": matched, "unmatched_threshold": unmatched}
+            for name, size, matched, unmatched in cfgs]
+
+
+def _waymo_data_config():
+    import copy
+
+    data = copy.deepcopy(WAYMO_DATASET_BASE)
+    data["DATA_PROCESSOR"] = [
+        {"NAME": "mask_points_and_boxes_outside_range", "REMOVE_OUTSIDE_BOXES": True},
+        {"NAME": "sample_points", "NUM_POINTS": {"train": WAYMO_NUM_POINTS,
+                                                 "test": WAYMO_NUM_POINTS}},
+        {"NAME": "shuffle_points", "SHUFFLE_ENABLED": {"train": True, "test": False}},
+        {"NAME": "transform_points_to_voxels", "VOXEL_SIZE": [0.1, 0.1, 0.15],
+         "MAX_POINTS_PER_VOXEL": 5, "MAX_NUMBER_OF_VOXELS": {"train": 80000, "test": 90000}},
+    ]
+    return data
+
+
+def _waymo_full(model, optimization):
+    return {"CLASS_NAMES": list(WAYMO_CLASS_NAMES), "DATA_CONFIG": _waymo_data_config(),
+            "MODEL": _with_anchors(model, _waymo_anchors()),
+            "OPTIMIZATION": {**optimization, "NUM_EPOCHS": 30}}
+
+
+_WAYMO_SECOND_HEAD = SECOND_DYNAMIC_OBJ["DENSE_HEAD"]
+WAYMO_CONFIGS = {  # file stem under configs/models/waymo_models → the whole file
+    "pv_rcnn": _waymo_full(PV_RCNN_DYNAMIC_OBJ, POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION),
+    "second": _waymo_full({
+        **SECOND_DYNAMIC_OBJ,
+        "DENSE_HEAD": {**_WAYMO_SECOND_HEAD, "TARGET_ASSIGNER_CONFIG": {
+            k: _WAYMO_SECOND_HEAD["TARGET_ASSIGNER_CONFIG"][k] for k in ("NAME", "BOX_CODER")}},
+        "POST_PROCESSING": {**SECOND_DYNAMIC_OBJ["POST_PROCESSING"], "NMS_CONFIG": {
+            **SECOND_DYNAMIC_OBJ["POST_PROCESSING"]["NMS_CONFIG"], "NMS_THRESH": 0.7}},
+    }, GRID_OPTIMIZATION),
+    "PartA2": _waymo_full(PART_A2_DYNAMIC_OBJ, POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION),
 }
 
 # the YAML files (relative to the repository root) that ship as the dicts above
@@ -782,6 +935,8 @@ SHIPPED_MODEL_CONFIGS = {
     "configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml":
         NUSCENES_BOSTON_POINTRCNN_DYNAMIC_OBJ_FULL,
     **{f"configs/models/kitti_models/{stem}.yaml": full for stem, full in KITTI_CONFIGS.items()},
+    **{f"configs/models/nuscenes_models/{stem}.yaml": full for stem, full in CBGS_CONFIGS.items()},
+    **{f"configs/models/waymo_models/{stem}.yaml": full for stem, full in WAYMO_CONFIGS.items()},
 }
 
 

@@ -1,7 +1,8 @@
 """Batching and device feeding — port of ``modest_tpu/data/loader.py``.
 
 Every sample already has a fixed shape, so a batch is a dense dict of numpy
-arrays: points (B, N, 4) f32, gt_boxes (B, MAX_GT, 8) f32 zero-padded.
+arrays: points (B, N, 3+C) f32, gt_boxes (B, MAX_GT, W) f32 zero-padded, W the
+widest sample's (8, or 10 with nuScenes' velocities).
 
 With ``num_workers > 0`` batches are built ahead of use by worker
 processes (the augmentation path is many small numpy calls and holds the
@@ -45,6 +46,8 @@ def collate_batch(samples: list[dict], max_gt: int = MAX_GT_DEFAULT) -> dict:
         batch["calib"] = [s["calib"] for s in samples]
     if "image_shape" in samples[0]:
         batch["image_shape"] = [s["image_shape"] for s in samples]
+    if "metadata" in samples[0]:  # nuScenes token / Waymo context, used by eval writers
+        batch["metadata"] = [s["metadata"] for s in samples]
     batch["points"] = np.stack([s["points"] for s in samples]).astype(np.float32)
     if "gt_boxes" in samples[0]:
         width = max((s["gt_boxes"].shape[1] for s in samples), default=8)
@@ -194,13 +197,15 @@ def prefetch_to_device(loader, device):
 def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None, training=True,
                      logger=None, total_epochs=1, merge_all_iters_to_one_epoch=False,
                      max_gt: int = MAX_GT_DEFAULT, num_workers: int = 0):
-    from .kitti_dataset import KittiDataset
-
     name = dataset_cfg.get("DATASET", "KittiDataset")
-    if name != "KittiDataset":
-        raise NotImplementedError(f"modest_tpu_torch: dataset {name} is not ported")
-    dataset = KittiDataset(dataset_cfg=dataset_cfg, class_names=class_names, training=training,
-                           root_path=root_path, logger=logger)
+    if name == "NuScenesDataset":
+        from .nuscenes_dataset import NuScenesDataset as dataset_cls
+    elif name == "WaymoDataset":
+        from .waymo_dataset import WaymoDataset as dataset_cls
+    else:
+        from .kitti_dataset import KittiDataset as dataset_cls
+    dataset = dataset_cls(dataset_cfg=dataset_cfg, class_names=class_names, training=training,
+                          root_path=root_path, logger=logger)
     if merge_all_iters_to_one_epoch:
         dataset.merge_all_iters_to_one_epoch(True, total_epochs)
     loader = DataLoader(dataset, batch_size, shuffle=training, max_gt=max_gt,

@@ -37,6 +37,15 @@ def _grid_class(name: str):
     return GridDetector
 
 
+def _num_point_features(dataset) -> int:
+    """The point width a dataset hands the model: x, y, z and its encoder's
+    used features."""
+    if getattr(dataset, "num_point_features", None) is not None:
+        return int(dataset.num_point_features)
+    encoder = getattr(dataset, "point_feature_encoder", None)
+    return int(encoder.num_point_features) if encoder is not None else 4
+
+
 def build_network(model_cfg, num_class: int, device="cuda", *, seed: int = 0, dataset=None):
     """Build a detector in eval mode on ``device``, with weights drawn from a
     ``torch.Generator`` seeded with ``seed``; load trained weights with
@@ -45,7 +54,8 @@ def build_network(model_cfg, num_class: int, device="cuda", *, seed: int = 0, da
     the anchor-free Part-A2, NAME PointRCNN with the UNetV2 backbone) take
     the data geometry from ``dataset`` (its ``point_cloud_range``,
     ``voxel_size`` and ``grid_size``, as the dataset classes record them,
-    and ``num_point_features``, 4 where it has none); PointPillar and
+    and the point width: its ``num_point_features``, else its encoder's,
+    else 4; 5 on nuScenes and Waymo); PointPillar and
     SECONDNet take its ``class_names`` too, which a grouped anchor head
     needs. A CUDA device must exist unless the caller asks for the CPU:
     nothing falls back quietly."""
@@ -71,7 +81,7 @@ def build_network(model_cfg, num_class: int, device="cuda", *, seed: int = 0, da
             cfg, num_class=num_class,
             point_cloud_range=dataset.point_cloud_range, voxel_size=dataset.voxel_size,
             grid_size=dataset.grid_size,
-            num_point_features=int(getattr(dataset, "num_point_features", 4)), **kwargs)
+            num_point_features=_num_point_features(dataset), **kwargs)
     else:
         model = PointRCNN(cfg, num_class=num_class)
     init_parameters(model, torch.Generator().manual_seed(seed))

@@ -203,7 +203,7 @@ def test_kitti_dataset_base_equals_its_yaml():
 @pytest.mark.parametrize("stem", ["cbgs_second_multihead", "cbgs_pp_multihead"])
 def test_cbgs_model_sections_equal_the_jax_loaders_yaml(stem):
     """The CBGS files' MODEL sections, class names and the geometry their
-    DATA_CONFIG records (their nuScenes dataset is not ported)."""
+    DATA_CONFIG records, which ``CBGS_GEOMETRY`` reads off the whole dicts."""
     from modest_tpu.utils.config import cfg_from_yaml_file as j_cfg_from_yaml_file
     from modest_tpu_torch import configs
 
@@ -215,6 +215,71 @@ def test_cbgs_model_sections_equal_the_jax_loaders_yaml(stem):
     assert list(configs.CBGS_GEOMETRY[stem]) == [data["VOXEL_SIZE"], data["GRID_SIZE"]]
     assert len(data["POINT_FEATURE_ENCODING"]["used_feature_list"]) \
         == configs.CBGS_NUM_POINT_FEATURES
+
+
+NUSCENES_WAYMO_FILES = [("nuscenes_models", "CBGS_CONFIGS", "cbgs_second_multihead"),
+                        ("nuscenes_models", "CBGS_CONFIGS", "cbgs_pp_multihead"),
+                        ("waymo_models", "WAYMO_CONFIGS", "pv_rcnn"),
+                        ("waymo_models", "WAYMO_CONFIGS", "second"),
+                        ("waymo_models", "WAYMO_CONFIGS", "PartA2")]
+
+
+@pytest.mark.parametrize("section", ["CLASS_NAMES", "DATA_CONFIG", "MODEL", "OPTIMIZATION"])
+@pytest.mark.parametrize("folder,table,stem", NUSCENES_WAYMO_FILES)
+def test_nuscenes_and_waymo_dicts_equal_the_jax_loaders_yaml(folder, table, stem, section):
+    """configs.py ships the CBGS and Waymo files whole, their dataset base
+    merged in, as modest_tpu.utils.config reads them; ``cli/train.py`` takes
+    them without PyYAML."""
+    from modest_tpu.utils.config import cfg_from_yaml_file as j_cfg_from_yaml_file
+    from modest_tpu_torch import configs
+
+    yaml_file = f"configs/models/{folder}/{stem}.yaml"
+    full = getattr(configs, table)[stem]
+    want = j_cfg_from_yaml_file(yaml_file).to_dict()
+    assert list(want) == list(full)
+    assert _same(full[section], want[section])
+    assert configs.SHIPPED_MODEL_CONFIGS[yaml_file] is full
+
+
+@pytest.mark.parametrize("name", ["nuscenes", "waymo"])
+def test_nuscenes_and_waymo_dataset_bases_equal_their_yaml(name):
+    from modest_tpu_torch import configs
+
+    with open(f"configs/datasets/{name}_dataset.yaml") as f:
+        base = yaml.safe_load(f)
+    got = getattr(configs, f"{name.upper()}_DATASET_BASE")
+    assert list(base) == list(got)
+    assert _same(got, base)
+
+
+@pytest.mark.parametrize("stem", ["pv_rcnn", "second", "PartA2"])
+def test_waymo_dicts_build_on_the_cpu(stem):
+    """Each shipped Waymo dict at full width on the CPU, with the geometry
+    its data section records (1504 x 1504 x 40 voxels of 0.1 x 0.1 x 0.15 m)
+    and 5-feature points: three classes' anchors at stride 8, and PV-RCNN's
+    raw-points VSA source on the 2 features past xyz."""
+    import types
+
+    import numpy as np
+
+    from modest_tpu_torch import configs
+    from modest_tpu_torch.models import build_network
+
+    full = configs.WAYMO_CONFIGS[stem]
+    data = full["DATA_CONFIG"]
+    vs = data["DATA_PROCESSOR"][-1]["VOXEL_SIZE"]
+    pcr = data["POINT_CLOUD_RANGE"]
+    gs = np.round((np.asarray(pcr[3:]) - pcr[:3]) / vs).astype(int)
+    assert gs.tolist() == [1504, 1504, 40]
+    dataset = types.SimpleNamespace(
+        point_cloud_range=np.asarray(pcr, np.float32), voxel_size=vs, grid_size=gs,
+        class_names=full["CLASS_NAMES"],
+        point_feature_encoder=types.SimpleNamespace(num_point_features=len(
+            data["POINT_FEATURE_ENCODING"]["used_feature_list"])))
+    model = build_network(Config(full["MODEL"]), 3, device="cpu", dataset=dataset)
+    assert model.anchors.shape == (188 * 188 * 6, 7)
+    if stem == "pv_rcnn":
+        assert model.state_dict()["vsa.raw_points.0.0.weight"].shape[1] == 5
 
 
 @pytest.mark.parametrize("stem", [*KITTI_STEMS, "cbgs_second_multihead", "cbgs_pp_multihead"])

@@ -100,6 +100,46 @@ def test_build_network_refuses_unported_detectors(name, backbone):
         build_network(cfg, 1, device="cpu", dataset=geometry)
 
 
+@pytest.mark.parametrize("dataset", ["nuscenes", "waymo"])
+def test_build_dataloader_takes_nuscenes_and_waymo(dataset, tmp_path):
+    """``build_dataloader`` builds both datasets from the shipped dicts (it
+    refused them before they were ported), their batches carry the frames'
+    metadata and 5-feature points, and ``build_network`` on such a dataset
+    still refuses to run without a card unless asked for the CPU."""
+    import copy
+
+    import numpy as np
+
+    from modest_tpu_torch import configs
+    from modest_tpu_torch.data.loader import build_dataloader
+    from modest_tpu_torch.data.nuscenes_dataset import NuScenesDataset
+    from modest_tpu_torch.data.waymo_dataset import WaymoDataset
+    from modest_tpu_torch.tools import synth_infos
+
+    rng = np.random.RandomState(0)
+    if dataset == "nuscenes":
+        full = copy.deepcopy(configs.CBGS_CONFIGS["cbgs_pp_multihead"])
+        synth_infos.write_nuscenes_tree(tmp_path / full["DATA_CONFIG"]["VERSION"], 2, rng=rng,
+                                        full_density=True, n_val=2, points=2000)
+        cls = NuScenesDataset
+    else:
+        full = copy.deepcopy(configs.WAYMO_CONFIGS["second"])
+        synth_infos.write_waymo_tree(tmp_path, 2, rng=rng, full_density=True, n_val=2,
+                                     points=2000)
+        full["DATA_CONFIG"]["SAMPLED_INTERVAL"]["test"] = 1
+        cls = WaymoDataset
+    cfg = Config(full)
+    cfg.DATA_CONFIG.DATA_PATH = str(tmp_path)
+    ds, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, training=False)
+    assert isinstance(ds, cls) and len(ds) == 2
+    batch = next(iter(loader))
+    assert batch["points"].shape[-1] == 5 and len(batch["metadata"]) == 2
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; the refusal needs a host without one")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_network(cfg.MODEL, len(cfg.CLASS_NAMES), dataset=ds)
+
+
 def test_forward_refuses_train_mode():
     """Train mode needs gt boxes: without them the forward refuses and
     points to eval mode."""
