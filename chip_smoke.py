@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen paths, each at full size from fixed seeds:
+Sixteen paths, each at full size from fixed seeds:
 
 * the flagship detector's eval forward plus post-processing (PointRCNN,
   configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
@@ -58,6 +58,13 @@ Fourteen paths, each at full size from fixed seeds:
   keyframe, CBGS resampling, gt sampling, gt of width 10): eval forward plus
   multi-class NMS at B = 4, a train forward, cli/train.py for one epoch and
   cli/test.py with the SDK-free nuScenes evaluation;
+* CaDDN (configs/models/kitti_models/CaDDN{,_deeplab}.yaml: the compact
+  image encoder and the DeepLabV3 + ResNet-101 DDN) at full width (384 x
+  1248 images, 80 depth bins, a 280 x 376 x 25 voxel grid, 3 classes) on
+  synthetic KITTI scans with real-pixel images, through build_dataloader:
+  its eval forward plus post-processing at the config's B = 4, and
+  cli/train.py for 4 steps and cli/test.py;
+* the demo CLI (cli/demo.py) on raw .bin scans with the flagship PointRCNN;
 * the nuScenes-Boston PointRCNN
   (configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml, 6144
   points a scan): cli/train.py for 4 steps at B = 2 and cli/test.py;
@@ -161,6 +168,23 @@ Phases, each printing one JSON line:
    on a train batch with its 10-column targets; grid_card_vs_cpu; cbgs_train:
    one epoch of cli/train.py, every loss finite, then cli/test.py with mAP
    and NDS); no FPS launch;
+4d'''. CaDDN on 8 synthetic full-density 3-class KITTI scans with real-pixel
+   PNGs (caddn_dataset: PNG decode ms an image, a written array read back
+   equal, the camera items' shapes, images (384, 1248, 3) and depth maps
+   (96, 312), and their depth returns); per dict, the DeepLab DDN
+   (ResNet-101) and the compact encoder, at full width and B = 4 from
+   build_dataloader: timed eval forwards (caddn_forward: scans/s, stage ms
+   by CUDA events from the DDN's backbone, ASPP and head through the
+   channel reduce, frustum, lift and sample, BEV collapse, BEV backbone and
+   head to the post NMS, peak memory), card vs CPU at B = 1 stage by stage
+   (caddn_card_vs_cpu: depth probabilities, lifted cells, the sample and the
+   BEV map on the card's inputs, the head as the grid chain's, final boxes
+   1:1), cli/train.py for 4 steps at B = 4 and cli/test.py with the KITTI
+   table (caddn_train: every loss finite, the depth loss among them, ms a
+   step, data wait, peak memory); no FPS launch (caddn_kernels); then
+   cli/demo.py on 4 raw .bin scans with the flagship PointRCNN dict and
+   random weights (demo: 3 + 3 FPS launches a frame, the first frame's
+   indices equal to the plain FPS's, a CaDDN dict refused);
 4e. the preparation CLIs (prep: every file written for every frame, PP
    finite in [0, 1], one radius-count launch an origin, and no tqdm,
    PyYAML or PIL loaded on the way);
@@ -472,6 +496,30 @@ WAYMO_TIMED_ITERS = 5
 PREP_DRIVES = {"traversals": 3, "frames": 40, "spacing": 2.0, "n_ground": 48000,
                "n_wall": 6000, "n_cars": 4, "car_points": 300}
 PREP_PP_ORIGINS = 2
+# CaDDN (configs/models/kitti_models/CaDDN{,_deeplab}.yaml, shipped as dicts) on
+# CADDN_SCANS synthetic full-density 3-class KITTI scans with real-pixel
+# images (tools/synth_kitti.py pixels: 400 x 1200 PNGs, padded and cropped to
+# the config's 384 x 1248), at full width (80 LID bins, a 280 x 376 x 25 grid
+# of 0.16 m voxels, 3 classes) and the configs' B = 4: CADDN_TIMED_ITERS timed
+# eval forwards after a warm-up, card vs CPU at B = 1 stage by stage,
+# CADDN_TRAIN_EPOCHS epochs of cli/train.py (4 steps) at the rate the
+# config's first epochs reach, then cli/test.py. Card vs CPU limits: the depth
+# probabilities within CADDN_PROB_ATOL; at most CADDN_CELL_SHARE of the voxels
+# in view of either device lifted into another frustum cell (u0, v0, d0) or
+# in/out of view; with the card's frustum and lift the CPU's sample, and with
+# the card's sample its BEV map, within CADDN_SAMPLE_RTOL of their largest
+# magnitude; the head as the grid chain's (grid_forward_chain's limits)
+CADDN_STEMS = ("CaDDN_deeplab", "CaDDN")
+CADDN_SCANS = 8
+CADDN_BATCH = 4
+CADDN_TIMED_ITERS = 4
+CADDN_TRAIN_EPOCHS = 2
+CADDN_PROB_ATOL = 1e-3
+CADDN_CELL_SHARE = 1e-4
+CADDN_SAMPLE_RTOL = 1e-5
+# cli/demo.py: the flagship PointRCNN dict with random weights on DEMO_FRAMES
+# raw .bin scans of the CaDDN tree, 3 + 3 FPS launches a frame
+DEMO_FRAMES = 4
 
 
 def emit(obj) -> None:
@@ -669,7 +717,10 @@ def timed_forwards(torch, api, model, cfg, points, iters, where):
     boxes finite. Returns (row, the last final boxes)."""
     from modest_tpu_torch.models.pointrcnn import STAGES
 
-    b, dev = points.shape[0], points.device
+    first = points if torch.is_tensor(points) else points["images"]  # CaDDN: camera inputs
+    b, dev = first.shape[0], first.device
+    size = ({"points_per_scan": int(points.shape[1])} if torch.is_tensor(points)
+            else {"image_shape": list(first.shape[1:3])})
     detections = check_final(torch, run_path(api, model, cfg, points), b, f"{where} forward")
     events = []
 
@@ -696,7 +747,7 @@ def timed_forwards(torch, api, model, cfg, points, iters, where):
     wall = time.perf_counter() - t0
     forward_ms.sort()
     check_final(torch, final, b, f"{where} timed forward")
-    return {"batch": b, "points_per_scan": int(points.shape[1]), "detections": detections,
+    return {"batch": b, **size, "detections": detections,
             "kept_per_scan": final["valid"].sum(1).tolist(),
             "labels_kept": sorted({int(v) for v in final["labels"][final["valid"]].tolist()}),
             "stage_ms": stage_ms, "forward_ms_median": forward_ms[len(forward_ms) // 2],
@@ -2456,6 +2507,398 @@ def phase_kitti(torch, np, api, build_network, dev, card):
     return forward_launches, train_launches
 
 
+def phase_caddn_dataset(root, card):
+    """CADDN_SCANS synthetic full-density 3-class KITTI scans with real-pixel
+    images (tools/synth_kitti.py ``pixels``), their infos; the PNG decode time
+    an image, a written array read back equal, and the camera items' shapes
+    and depth returns from the CaDDN dict's test-mode dataset."""
+    import numpy as np
+
+    from modest_tpu_torch.configs import KITTI_CLASS_NAMES, KITTI_CONFIGS
+    from modest_tpu_torch.data.kitti_dataset import KittiDataset, create_kitti_infos
+    from modest_tpu_torch.tools.synth_kitti import IMG_SHAPE, make_dataset
+    from modest_tpu_torch.utils import native
+    from modest_tpu_torch.utils.config import Config
+    from modest_tpu_torch.utils.png import read_png_rgb, write_png
+
+    t0 = time.perf_counter()
+    boxes = make_dataset(root, n_train=CADDN_SCANS, n_val=0, seed=0, full_density=True,
+                         kitti_classes=True, pixels=True)
+    create_kitti_infos(Config(KITTI_CONFIGS["CaDDN"]).DATA_CONFIG, KITTI_CLASS_NAMES, root, root,
+                       if_val=False)
+    seconds = time.perf_counter() - t0
+    images = sorted((root / "training" / "image_2").iterdir())
+    t0 = time.perf_counter()
+    decoded = [read_png_rgb(p) for p in images]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(images)
+    pix = np.random.RandomState(1).randint(0, 256, (*IMG_SHAPE, 3)).astype(np.uint8)
+    write_png(root / "written.png", pix)
+    round_trip = bool(np.array_equal(read_png_rgb(root / "written.png"), pix))
+    cfg = kitti_config("CaDDN", root)
+    ds = KittiDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False, root_path=root)
+    samples = [ds[i] for i in range(len(ds))]
+    shapes = {key: sorted({tuple(s[key].shape) for s in samples})
+              for key in ("images", "depth_maps", "trans_lidar_to_cam", "trans_cam_to_img")}
+    nonzero = [int((s["depth_maps"] > 0).sum()) for s in samples]
+    emit({"phase": "caddn_dataset", "scans": CADDN_SCANS,
+          "objects": sum(len(b) for b in boxes.values()), "image_shape": list(IMG_SHAPE),
+          "decoded_shape": list(decoded[0].shape), "png_decode_ms_per_image": decode_ms,
+          "png_host_unfilter": native.available(), "written_array_read_back_equal": round_trip,
+          "item_shapes": {k: [list(v) for v in vals] for k, vals in shapes.items()},
+          "depth_nonzero_per_map": nonzero, "depth_map_cells": 96 * 312,
+          "grid_size": [int(v) for v in ds.grid_size], "seconds": seconds, "card": card})
+    if not round_trip:
+        fail("caddn dataset: a written PNG reads back other pixels")
+    if shapes != {"images": [(384, 1248, 3)], "depth_maps": [(96, 312)],
+                  "trans_lidar_to_cam": [(4, 4)], "trans_cam_to_img": [(3, 4)]}:
+        fail(f"caddn dataset: item shapes {shapes}")
+    if min(nonzero) == 0 or [int(v) for v in ds.grid_size] != [280, 376, 25]:
+        fail(f"caddn dataset: depth returns {nonzero}, grid {ds.grid_size}")
+
+
+def calibrate_caddn(torch, api, model, cfg, inputs, gt_boxes):
+    """Random CaDDN weights made to score like a detector: every batch
+    norm's running statistics from one train-mode pass over the batch
+    (momentum 1, the ASPP's dropout drawn from a seeded generator), then the
+    class head's bias moved so that the batch's median logit per anchor
+    channel is GRID_EMPTY_LOGIT."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    momenta = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    with torch.no_grad():
+        api.apply_train(model, cfg, inputs, gt_boxes,
+                        dropout=torch.Generator(device=gt_boxes.device).manual_seed(0))
+    for m, momentum in zip(bns, momenta):
+        m.momentum = momentum
+    logits = []
+    hook = model.dense_head.conv_cls.register_forward_hook(
+        lambda m, i, out: logits.append(out))
+    api.apply_eval(model, cfg, inputs)
+    hook.remove()
+    with torch.no_grad():
+        med = logits[0].transpose(0, 1).flatten(1).median(dim=1).values
+        model.dense_head.conv_cls.bias -= med - GRID_EMPTY_LOGIT
+    model.eval()
+
+
+def phase_caddn_forward(torch, np, api, build_network, stem, root, dev, card):
+    """One CaDDN dict at full width, B = 4 from ``build_dataloader``:
+    ``timed_forwards`` (scans/s, stage ms by CUDA events from the DDN's
+    backbone, ASPP and head or the compact encoder to the post NMS, peak
+    memory). Returns (model, dataset, batch)."""
+    from modest_tpu_torch.train.loop import model_inputs
+
+    cfg = kitti_config(stem, root)
+    ds, batch = grid_batch(torch, cfg, dev, CADDN_BATCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=0, dataset=ds)
+    calibrate_caddn(torch, api, model, cfg.MODEL, model_inputs(batch, cfg.MODEL),
+                    batch["gt_boxes"])
+    calibrate_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    inputs = model_inputs(batch, cfg.MODEL, eval_mode=True)
+    row, _ = timed_forwards(torch, api, model, cfg.MODEL, inputs, CADDN_TIMED_ITERS,
+                            f"caddn {stem}")
+    if model.ddn is not None:
+        row["aspp_conv_ms"] = aspp_conv_ms(torch, model, inputs["images"])
+    emit({"phase": "caddn_forward", "model": stem, "grid_size": [int(v) for v in ds.grid_size],
+          "depth_bins": model.num_bins, "anchors": int(model.anchors.shape[0]),
+          "voxels_per_scan": int(model.centers.shape[0]),
+          "parameters": sum(p.numel() for p in model.parameters()), **row,
+          "train_mode_calibration_peak_mem_gb": calibrate_peak, "card": card})
+    return model, ds, batch
+
+
+def aspp_conv_ms(torch, model, images):
+    """Each ASPP branch's conv (the 1 x 1, the 3 x 3s at rates 12, 24, 36)
+    and the projection on the batch's layer4 map (B, 2048, H/8, W/8), timed
+    by CUDA events on cuDNN as PyTorch picks its algorithm and with cuDNN
+    off (im2col and a GEMM): which shapes take a slow route. Measures only;
+    the DDN runs on cuDNN."""
+    from modest_tpu_torch.utils.device import device_ms
+
+    aspp = model.ddn.classifier[0]
+    with torch.inference_mode():
+        _, y = model.ddn.backbone(images.permute(0, 3, 1, 2))
+        outs = [branch(y) for branch in aspp.convs]
+        cat = torch.cat([*outs[:-1], outs[-1].expand_as(outs[0])], dim=1)
+        convs = [(f"conv{i}_rate{branch[0].dilation[0]}_{tuple(branch[0].kernel_size)}",
+                  branch[0], y) for i, branch in enumerate(aspp.convs[:4])]
+        convs.append(("project_1x1", aspp.project[0], cat))
+        out = {"input_shape": list(y.shape)}
+        for name, conv, x in convs:
+            on = device_ms(lambda: conv(x), x.device, 3)
+            with torch.backends.cudnn.flags(enabled=False):
+                off = device_ms(lambda: conv(x), x.device, 3)
+            out[name] = {"cudnn_ms": on, "cudnn_off_ms": off}
+    return out
+
+
+def caddn_stages(torch, model, inputs):
+    """An eval forward's stage outputs: depth probabilities, the frustum,
+    the lift (u, v, depth bin), the sampled voxels, the BEV map and the head's
+    outputs (decoded boxes included)."""
+    from modest_tpu_torch.models.caddn import sample_frustum
+
+    model.eval()
+    with torch.inference_mode():
+        feats, logits = model.image_features(inputs["images"])
+        frustum = model.frustum(feats, logits)
+        lift = model.lift(inputs["trans_lidar_to_cam"], inputs["trans_cam_to_img"])
+        vox = sample_frustum(frustum, *lift)
+        bev = model.bev_map(vox)
+        out = model.head(model.backbone_2d(bev))
+        probs = torch.softmax(logits, dim=1)[:, :model.num_bins]
+    return {"feats": feats, "probs": probs, "frustum": frustum, "lift": lift, "vox": vox,
+            "bev": bev, "out": out}
+
+
+def lift_cells(torch, frustum_shape, lift):
+    """Each voxel's cell (u0, v0, d0) in a frustum of ``frustum_shape`` (B,
+    H', W', D, C) as ``sample_frustum`` floors it, and whether it is in view;
+    (B, N, 3) and (B, N)."""
+    u, v, db = lift
+    _, h, w, d, _ = frustum_shape
+    inb = (u >= 0) & (u <= w - 1) & (v >= 0) & (v <= h - 1) & (db >= 0) & (db <= d - 1)
+    cells = torch.stack([torch.floor(torch.clamp(u, 0.0, w - 1 - 1e-4)),
+                         torch.floor(torch.clamp(v, 0.0, h - 1 - 1e-4)),
+                         torch.floor(torch.clamp(db, 0.0, d - 1 - 1e-4))], -1)
+    return cells, inb
+
+
+def phase_caddn_card_vs_cpu(torch, np, api, build_network, stem, cfg, ds, model, batch, card):
+    """The same weights on the card and on the CPU, one scan (B = 1), stage
+    by stage: the depth probabilities; the lift (cells and views that part);
+    the sample with the card's frustum and lift handed to the CPU; the BEV
+    map from the card's sample; the head from the card's BEV map (the grid
+    chain's limits) and the CPU's NMS on the card's dense outputs; the final
+    boxes end to end (1:1 >= MIN_BOX_MATCH, or parted only where the CPU's
+    own dense outputs made its NMS keep other boxes)."""
+    from modest_tpu_torch.models.caddn import sample_frustum
+    from modest_tpu_torch.train.loop import model_inputs
+
+    t0 = time.perf_counter()
+    cpu_model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device="cpu", dataset=ds)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    inputs = {k: v[:1] for k, v in model_inputs(batch, cfg.MODEL, eval_mode=True).items()}
+    card_st = caddn_stages(torch, model, inputs)
+    cpu_st = caddn_stages(torch, cpu_model, {k: v.cpu() for k, v in inputs.items()})
+    to_cpu = {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple) else
+                  {kk: vv.cpu() for kk, vv in v.items() if torch.is_tensor(vv)}
+                  if isinstance(v, dict) else v.cpu()) for k, v in card_st.items()}
+
+    prob_err = float((to_cpu["probs"] - cpu_st["probs"]).abs().max())
+    shape = cpu_st["frustum"].shape
+    (c_cells, c_in), (p_cells, p_in) = (lift_cells(torch, shape, to_cpu["lift"]),
+                                        lift_cells(torch, shape, cpu_st["lift"]))
+    in_view = c_in | p_in
+    parted = ((c_cells != p_cells).any(-1) & in_view) | (c_in != p_in)
+    cell_share = float(parted.sum()) / max(int(in_view.sum()), 1)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    with torch.inference_mode():
+        given_vox = sample_frustum(to_cpu["frustum"], *to_cpu["lift"])
+        given_bev = cpu_model.bev_map(to_cpu["vox"])
+        given_out = cpu_model.head(cpu_model.backbone_2d(to_cpu["bev"]))
+    sample_err, bev_err = rel(given_vox, to_cpu["vox"]), rel(given_bev, to_cpu["bev"])
+    feats_err, bev_own_err = rel(to_cpu["feats"], cpu_st["feats"]), rel(to_cpu["bev"],
+                                                                         cpu_st["bev"])
+    vox_scale = float(cpu_st["vox"].abs().max())
+    vox_parted = float(((to_cpu["vox"] - cpu_st["vox"]).abs() > 1e-3 * vox_scale).any(-1)
+                       .float().mean())
+    limits = (("cls_preds", MATCH_SCORE), ("box_preds", MATCH_SIZE), ("dir_cls_preds", MATCH_SCORE))
+    dense_tol = max(float(((to_cpu["out"][k] - given_out[k]).abs()
+                           / (atol + FORWARD_RTOL * given_out[k].abs())).max())
+                    for k, atol in limits)
+    # the same measure on each device's own dense outputs, end to end (reported)
+    dense_tol_own = max(float(((to_cpu["out"][k] - cpu_st["out"][k]).abs()
+                               / (atol + FORWARD_RTOL * cpu_st["out"][k].abs())).max())
+                        for k, atol in limits)
+    post = model.model_cfg.POST_PROCESSING
+    with torch.inference_mode():
+        got = {k: v.cpu() for k, v in api.post_process(card_st["out"], cfg.MODEL).items()
+               if v is not None}
+        given = api.post_process(to_cpu["out"], cfg.MODEL)
+        want = api.post_process(cpu_st["out"], cfg.MODEL)
+    chain = {"dense_tol_used": dense_tol,
+             "finals_given_card_dense": match_finals(np, got, given)["match_frac"],
+             "cpu_finals_own_dense": match_finals(np, given, want)["match_frac"]}
+    match = match_finals(np, got, want)
+    emit({"phase": "caddn_card_vs_cpu", "model": stem, "depth_prob_max_abs_err": prob_err,
+          "depth_prob_atol": CADDN_PROB_ATOL, "lift_cells_parted_share": cell_share,
+          "lift_cells_in_view": int(in_view.sum()), "cell_share_limit": CADDN_CELL_SHARE,
+          "sample_given_card_rel_err": sample_err, "bev_given_card_rel_err": bev_err,
+          "sample_rtol": CADDN_SAMPLE_RTOL, "features_end_to_end_rel_err": feats_err,
+          "bev_end_to_end_rel_err": bev_own_err, "voxels_parted_end_to_end_share": vox_parted,
+          "score_thresh": float(post.SCORE_THRESH), "dense_tol_end_to_end": dense_tol_own,
+          **chain, **match,
+          "chain_s": time.perf_counter() - t0, "card": card})
+    if prob_err > CADDN_PROB_ATOL or cell_share > CADDN_CELL_SHARE:
+        fail(f"caddn {stem} card vs CPU: depth probabilities {prob_err} (limit "
+             f"{CADDN_PROB_ATOL}), lift cells parted {cell_share} (limit {CADDN_CELL_SHARE})")
+    if sample_err > CADDN_SAMPLE_RTOL or bev_err > CADDN_SAMPLE_RTOL:
+        fail(f"caddn {stem} card vs CPU: with the card's inputs the sample parts by "
+             f"{sample_err}, the BEV map by {bev_err} (limit {CADDN_SAMPLE_RTOL})")
+    check_grid_chain(chain, match["match_frac"], match["card_detections"]
+                     + match["cpu_detections"], f"caddn {stem} card vs CPU")
+
+
+def phase_caddn_train(torch, np, dev, root, stem, card):
+    """cli/train.py on one CaDDN dict at full width and its B = 4 for
+    CADDN_TRAIN_EPOCHS epochs (4 steps) at the rate the config's first
+    epochs reach: every loss finite, the depth loss among them; ms a step,
+    data wait, stage split, peak memory. Then cli/test.py on its checkpoint
+    over the training scans: every frame once, finite boxes, the KITTI AP
+    table's numbers finite."""
+    from modest_tpu_torch.cli import test as test_cli
+    from modest_tpu_torch.cli import train as train_cli
+
+    cfg = kitti_config(stem, root)
+    batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    lr = one_cycle_early_lr(cfg.OPTIMIZATION, CADDN_TRAIN_EPOCHS)
+    out = root / f"caddn_{stem}"
+    split = ["DATA_CONFIG.DATA_SPLIT.test", "train", "DATA_CONFIG.INFO_PATH.test",
+             "[kitti_infos_train.pkl]"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train_cli.main(["--cfg_file", str(REPO / KITTI_CFG.format(stem)), "--data_path",
+                            str(root), "--epochs", str(CADDN_TRAIN_EPOCHS), "--fix_random_seed",
+                            "--output_dir", str(out), "--set", "OPTIMIZATION.LR", str(lr)],
+                           stage_times=True)
+    seconds = time.perf_counter() - t0
+    train_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    hist = state.history
+    steps = CADDN_SCANS // batch * CADDN_TRAIN_EPOCHS
+    if len(hist) != steps:
+        fail(f"caddn {stem} train: {len(hist)} steps, not {steps}")
+    check_history(np, hist, f"caddn {stem} train")
+    if any("depth_loss" not in r["metrics"] for r in hist):
+        fail(f"caddn {stem} train: a step without its depth loss")
+    timed = hist[1:]
+    stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    annos, result = test_cli.main(["--cfg_file", str(REPO / KITTI_CFG.format(stem)),
+                                   "--ckpt_dir", str(out / "ckpt"), "--data_path", str(root),
+                                   "--output_dir", str(out / "test"), "--set", *split])
+    test_s = time.perf_counter() - t0
+    ids = (root / "ImageSets" / "train.txt").read_text().split()
+    check_result(np, annos, ids, f"caddn {stem} cli/test.py")
+    ap = {k: v for k, v in result.items() if isinstance(v, float) and k not in (
+        "sec_per_example", "steady_sec_per_example")}
+    emit({"phase": "caddn_train", "model": stem, "batch": batch, "steps": len(hist),
+          "epochs": CADDN_TRAIN_EPOCHS, "lr": lr,
+          "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
+          "timed_steps": len(timed),
+          "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[0]["end_s"]) / len(timed),
+          "scans_per_s": batch * len(timed) / (hist[-1]["end_s"] - hist[0]["end_s"]),
+          "data_wait_ms": sum(r["data_wait_ms"] for r in timed) / len(timed),
+          "stage_ms": stage_ms, "peak_mem_gb": train_peak, "cli_seconds": seconds,
+          "test_seconds": test_s, "test_frames": len(annos),
+          "test_sec_per_example": result["sec_per_example"],
+          "test_detections": int(sum(len(a["score"]) for a in annos)),
+          "test_peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "kitti_ap_keys": len(ap), "kitti_ap_sample": dict(list(ap.items())[:6]),
+          "card": card})
+    if not ap or not all(np.isfinite(v) for v in ap.values()):
+        fail(f"caddn {stem} cli/test.py: the KITTI table holds {ap}")
+
+
+def phase_demo(torch, np, root, card):
+    """cli/demo.py with the flagship PointRCNN dict and random weights on
+    DEMO_FRAMES raw .bin scans, without --save_dir (the card's machine has
+    no matplotlib): 3 + 3 FPS launches a frame, the first frame's 6 launches
+    equal to the plain FPS on their own inputs; then a CaDDN dict must be
+    refused (SystemExit). Returns the launches by kernel."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    from modest_tpu_torch.cli import demo as demo_cli
+    from modest_tpu_torch.ops import pointnet2 as p2
+    from modest_tpu_torch.ops.fps import furthest_point_sample_plain
+
+    scans = root / "demo_scans"
+    scans.mkdir()
+    for path in sorted((root / "training" / "velodyne").iterdir())[:DEMO_FRAMES]:
+        shutil.copy(path, scans)
+    real, launched = p2.furthest_point_sample_cuda, []
+
+    def recording(xyz, npoint):
+        idx = real(xyz, npoint)
+        if len(launched) < 6:
+            launched.append((xyz.clone(), npoint, idx))
+        return idx
+
+    counts = reset_fps_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(p2, "furthest_point_sample_cuda", recording), \
+            contextlib.redirect_stdout(printed):
+        results = demo_cli.main(["--cfg_file", str(REPO / FLAGSHIP_CFG), "--data_path",
+                                 str(scans)])
+    seconds = time.perf_counter() - t0
+    launches = dict(counts)
+    mismatches = [int((idx != furthest_point_sample_plain(xyz, npoint)).sum())
+                  for xyz, npoint, idx in launched]
+    try:
+        demo_cli.main(["--cfg_file", str(REPO / KITTI_CFG.format("CaDDN")), "--data_path",
+                       str(scans)])
+        refused = None
+    except SystemExit as exc:
+        refused = str(exc)
+    emit({"phase": "demo", "frames": len(results), "seconds": seconds,
+          "detections": [len(r["boxes"]) for r in results],
+          "printed_lines": len(printed.getvalue().splitlines()),
+          "fps_kernel_launches": launches,
+          "first_frame_fps_shapes": [[*xyz.shape[:2], npoint] for xyz, npoint, _ in launched],
+          "first_frame_fps_index_mismatches": mismatches, "caddn_refused": refused,
+          "card": card})
+    want = {"fps_cluster_kernel": 3 * DEMO_FRAMES, "fps_warp_kernel": 3 * DEMO_FRAMES}
+    if len(results) != DEMO_FRAMES or launches != want:
+        fail(f"demo: {len(results)} frames launched fps {launches}, not {want}")
+    if len(launched) != 6 or any(mismatches):
+        fail(f"demo: the first frame's FPS indices part from the plain FPS's: {mismatches}")
+    if not refused or "lidar-only" not in refused:
+        fail(f"demo: a CaDDN dict was not refused ({refused})")
+    for r in results:
+        if not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()):
+            fail(f"demo: non-finite boxes in frame {r['frame_id']}")
+    return launches
+
+
+def phase_caddn(torch, np, api, build_network, dev, card):
+    """CaDDN on the card (the dataset, then per dict its forwards, card vs
+    CPU and training with cli/test.py; no FPS launch), then the demo CLI on
+    the same tree's scans. Returns the demo's FPS launches by kernel."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_caddn_"))
+    t0 = time.perf_counter()
+    try:
+        phase_caddn_dataset(tmp, card)
+        counts = reset_fps_counts()
+        for stem in CADDN_STEMS:
+            model, ds, batch = phase_caddn_forward(torch, np, api, build_network, stem, tmp, dev,
+                                                   card)
+            phase_caddn_card_vs_cpu(torch, np, api, build_network, stem,
+                                    kitti_config(stem, tmp), ds, model, batch, card)
+            del model, batch
+            torch.cuda.empty_cache()
+            phase_caddn_train(torch, np, dev, tmp, stem, card)
+            torch.cuda.empty_cache()
+        emit({"phase": "caddn_kernels", "fps_kernel_launches": dict(counts), "card": card})
+        if any(counts.values()):
+            fail(f"CaDDN launched hand kernels {dict(counts)}")
+        demo_launches = phase_demo(torch, np, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "caddn_seconds", "seconds": time.perf_counter() - t0, "card": card})
+    return demo_launches
+
+
 def phase_prep(torch, np, dev, card):
     """The dataset-preparation CLIs on tools/nu_scenes.py's drives, in a temp
     dir: the SDK-free Lyft export, split_traintest, gather_historical_
@@ -3568,6 +4011,7 @@ def main() -> int:
     waymo_row, (waymo_train_launches, waymo_steps, waymo_test_launches) = phase_waymo(
         torch, np, api, build_network, dev, card)
     phase_nuscenes_cbgs(torch, np, api, build_network, dev, card)
+    demo_launches = phase_caddn(torch, np, api, build_network, dev, card)
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pipeline_"))
     try:
@@ -3682,6 +4126,10 @@ def main() -> int:
             **({"kitti": {stage: {key: fps_rows[stage][key] for key in row_keys}
                           for stage in ("kitti_sa1", "train_kitti_sa1")}}
                if kernel == "fps_cluster_kernel" else {}),
+            "demo_launches": demo_launches[kernel], "demo_frames": DEMO_FRAMES,
+            "demo_shapes": "cli/demo.py, the flagship PointRCNN at B=1 on raw .bin scans "
+                           "sampled to 12288 points; the first frame's calls held against "
+                           "the plain FPS (phase demo)",
             "kitti_shapes": "KITTI PointRCNN (16384 points: SA1 kitti_sa1 at B=4, "
                             "train_kitti_sa1 at B=2; its other levels and RoI tower the "
                             "flagship's shapes) and KITTI PV-RCNN's keypoints (pv_keypoints, "

@@ -13,8 +13,8 @@ of the same directory, in the same forms, as are
 ``NUSCENES_BOSTON_POINTRCNN_DYNAMIC_OBJ_FULL`` is
 ``configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml`` whole.
 ``KITTI_<NAME>`` is the ``MODEL`` section of
-``configs/models/kitti_models/<name>.yaml`` (``KITTI_CONFIGS`` the ten whole
-files), ``CBGS_{SECOND,PP}_MULTIHEAD`` the ``MODEL`` sections of
+``configs/models/kitti_models/<name>.yaml`` (``KITTI_CONFIGS`` the twelve whole
+files, CaDDN's two among them), ``CBGS_{SECOND,PP}_MULTIHEAD`` the ``MODEL`` sections of
 ``configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml`` (``CBGS_CONFIGS``
 the two whole files) and ``WAYMO_CONFIGS`` the three files of
 ``configs/models/waymo_models/`` whole, each on its dataset base
@@ -688,6 +688,54 @@ _PILLAR_AUGMENTOR = {"DISABLE_AUG_LIST": ["placeholder"], "AUG_CONFIG_LIST": [
     {**KITTI_DATA_BASE["DATA_AUGMENTOR"]["AUG_CONFIG_LIST"][0],
      "SAMPLE_GROUPS": ["Car:15", "Pedestrian:15", "Cyclist:15"], "LIMIT_WHOLE_SCENE": False},
     *KITTI_DATA_BASE["DATA_AUGMENTOR"]["AUG_CONFIG_LIST"][1:]]}
+# CaDDN (camera only): the compact stride-4 image encoder (CaDDN.yaml) and the
+# reference's DeepLabV3 + ResNet-101 DDN with a 1x1 channel reduce
+# (CaDDN_deeplab.yaml, on CaDDN.yaml); 80 LID depth bins over 2-46.8 m, the
+# frustum sampled into a 280 x 376 x 25 grid of 0.16 m voxels
+KITTI_CADDN = _with_anchors(_grid_model_config(
+    "CaDDN", 2,
+    FFE={"NAME": "DepthFFE", "ENCODER_CHANNELS": [32, 64], "NUM_FEATURES": 64,
+         "DISC_CFG": {"mode": "LID", "num_bins": 80, "depth_min": 2.0, "depth_max": 46.8},
+         "LOSS_CONFIG": {"LOSS_WEIGHTS": {"ddn_loss_weight": 3.0, "fg_weight": 13.0,
+                                          "bg_weight": 1.0}}},
+    MAP_TO_BEV={"NAME": "Conv2DCollapse", "NUM_BEV_FEATURES": 64},
+    BACKBONE_2D={"NAME": "BaseBEVBackbone", "LAYER_NUMS": [10, 10, 10],
+                 "LAYER_STRIDES": [2, 2, 2], "NUM_FILTERS": [64, 128, 256],
+                 "UPSAMPLE_STRIDES": [1, 2, 4], "NUM_UPSAMPLE_FILTERS": [128, 128, 128]}),
+    _kitti_anchors(stride=2))
+KITTI_CADDN_DEEPLAB = {**KITTI_CADDN, "FFE": {
+    **KITTI_CADDN["FFE"],
+    "DDN": {"NAME": "DDNDeepLabV3", "BACKBONE_NAME": "ResNet101", "FEAT_EXTRACT_LAYER": "layer1"},
+    "CHANNEL_REDUCE": {"in_channels": 256, "out_channels": 64, "kernel_size": 1, "stride": 1,
+                       "bias": False}}}
+
+
+def _caddn_data_config():
+    """CaDDN.yaml's DATA_CONFIG: the camera items, the depth-map downsample
+    and the image flip on the KITTI base."""
+    import copy
+
+    data = {**copy.deepcopy(KITTI_DATA_BASE),
+            "POINT_CLOUD_RANGE": [2, -30.08, -3.0, 46.8, 30.08, 1.0],
+            "GET_ITEM_LIST": ["points", "images", "depth_maps", "calib_matricies", "gt_boxes2d"],
+            "DATA_AUGMENTOR": {"DISABLE_AUG_LIST": ["placeholder"], "AUG_CONFIG_LIST": [
+                {"NAME": "random_image_flip", "ALONG_AXIS_LIST": ["horizontal"]}]}}
+    data["DATA_PROCESSOR"] = [
+        {"NAME": "mask_points_and_boxes_outside_range", "REMOVE_OUTSIDE_BOXES": True},
+        {"NAME": "sample_points", "NUM_POINTS": {"train": KITTI_NUM_POINTS,
+                                                 "test": KITTI_NUM_POINTS}},
+        {"NAME": "calculate_grid_size", "VOXEL_SIZE": [0.16, 0.16, 0.16]},
+        {"NAME": "downsample_depth_map", "DOWNSAMPLE_FACTOR": 4},
+    ]
+    data["IMAGE_PAD"] = [384, 1248]
+    return data
+
+
+def _caddn_full(model):
+    return {"CLASS_NAMES": list(KITTI_CLASS_NAMES), "DATA_CONFIG": _caddn_data_config(),
+            "MODEL": model, "OPTIMIZATION": _kitti_optimization(4, 0.001)}
+
+
 KITTI_CONFIGS = {  # file stem under configs/models/kitti_models → the whole file
     "pointrcnn": _kitti_full(KITTI_POINTRCNN, 2, 0.01, voxel_size=None),
     "pointrcnn_iou": _kitti_full(KITTI_POINTRCNN_IOU, 3, 0.01, voxel_size=None),
@@ -702,6 +750,8 @@ KITTI_CONFIGS = {  # file stem under configs/models/kitti_models → the whole f
     "PartA2": _kitti_full(KITTI_PART_A2, 2, 0.01),
     "PartA2_free": _kitti_full(KITTI_PART_A2_FREE, 4, 0.01),
     "voxel_rcnn_car": _kitti_full(KITTI_VOXEL_RCNN_CAR, 2, 0.01, classes=["Car"]),
+    "CaDDN": _caddn_full(KITTI_CADDN),
+    "CaDDN_deeplab": _caddn_full(KITTI_CADDN_DEEPLAB),
 }
 
 # ---------------------------------------------------------------------------

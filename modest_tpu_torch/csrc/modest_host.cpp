@@ -1,9 +1,10 @@
 // Native host-side ops for the data pipeline: point-cloud IO, FOV filtering,
-// rotated point-in-box tests and rotated BEV overlaps (a Sutherland–Hodgman
-// polygon clip), with a C ABI loaded by ctypes from
+// rotated point-in-box tests, rotated BEV overlaps (a Sutherland–Hodgman
+// polygon clip), the KITTI eval's matcher and PNG row un-filtering, with a C ABI loaded by ctypes from
 // modest_tpu_torch/utils/native.py. The port's own copy of the JAX
-// package's host library, built by g++ at first use into
-// build/modest_tpu_torch/ with the same flags, so both give the same bits.
+// package's host library (the PNG un-filter is the port's own), built by
+// g++ at first use into build/modest_tpu_torch/ with the same flags, so both
+// give the same bits.
 
 #include <cmath>
 #include <cstdint>
@@ -227,6 +228,50 @@ void mh_match_stats(const double* overlaps, int64_t n_det, int64_t n_gt,
         out[t * 3 + 2] = fn;
     }
     delete[] assigned;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// PNG row un-filtering (PNG spec §9): src holds h rows of (1 filter byte +
+// stride bytes), out receives the h × stride raw bytes. Sub, Average and
+// Paeth read the un-filtered byte bpp to the left, Up, Average and Paeth the
+// row above, so the loop runs in order along each row. Returns 0, or -(y + 1)
+// for a row y with an unknown filter type.
+// ---------------------------------------------------------------------------
+int64_t mh_png_unfilter(const uint8_t* src, int64_t h, int64_t stride, int64_t bpp,
+                        uint8_t* out) {
+    for (int64_t y = 0; y < h; y++) {
+        const uint8_t ft = src[y * (stride + 1)];
+        const uint8_t* line = src + y * (stride + 1) + 1;
+        uint8_t* cur = out + y * stride;
+        const uint8_t* prev = y > 0 ? out + (y - 1) * stride : nullptr;
+        for (int64_t i = 0; i < stride; i++) {
+            const int a = i >= bpp ? cur[i - bpp] : 0;
+            const int b = prev ? prev[i] : 0;
+            const int c = (prev && i >= bpp) ? prev[i - bpp] : 0;
+            int pred;
+            switch (ft) {
+                case 0: pred = 0; break;
+                case 1: pred = a; break;
+                case 2: pred = b; break;
+                case 3: pred = (a + b) >> 1; break;
+                case 4: {
+                    const int p = a + b - c;
+                    const int pa = p > a ? p - a : a - p;
+                    const int pb = p > b ? p - b : b - p;
+                    const int pc = p > c ? p - c : c - p;
+                    pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+                    break;
+                }
+                default: return -(y + 1);
+            }
+            cur[i] = (uint8_t)(line[i] + pred);
+        }
+    }
+    return 0;
 }
 
 }  // extern "C"

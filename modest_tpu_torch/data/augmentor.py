@@ -4,7 +4,8 @@
 gt_sampling pastes database object crops into the scene (road-plane snapped,
 BEV-collision rejected); world flip/rotation/scaling follow. Host-side numpy,
 drawing from ``np.random`` in the JAX package's order, so one seed gives the
-same scenes. The camera models' image flip is not ported.
+same scenes. CaDDN's ``random_image_flip`` flips the image, the depth map
+and the 2D boxes and mirrors the 3D boxes through the image plane.
 """
 from __future__ import annotations
 
@@ -128,6 +129,7 @@ class DataBaseSampler:
         gt_boxes = data_dict["gt_boxes"][mask]
         gt_names = data_dict["gt_names"][mask]
         points = data_dict["points"]
+        calib = data_dict.get("calib")  # may be popped by the road-plane branch
 
         mv_height = None
         if self.sampler_cfg.get("USE_ROAD_PLANE", False) and "road_plane" in data_dict:
@@ -161,6 +163,22 @@ class DataBaseSampler:
         data_dict["points"] = np.concatenate([obj_points, points])
         data_dict["gt_names"] = np.concatenate([gt_names, sampled_names])
         data_dict["gt_boxes"] = np.concatenate([gt_boxes, sampled_boxes])
+        if data_dict.get("gt_boxes2d") is not None:
+            # row-aligned with gt_boxes: the kept originals, then each sampled
+            # box's projected corners' extent (clipped to the image), as in JAX
+            b2d = data_dict["gt_boxes2d"][mask[: len(data_dict["gt_boxes2d"])]]
+            if calib is not None:
+                corners = box_np.boxes_to_corners_3d(sampled_boxes[:, :7]).reshape(-1, 3)
+                img = calib.project_rect_to_image(calib.lidar_to_rect(corners)).reshape(-1, 8, 2)
+                new2d = np.concatenate([img.min(axis=1), img.max(axis=1)], axis=1).astype(
+                    np.float32)
+                if data_dict.get("image_shape") is not None:
+                    h, w = int(data_dict["image_shape"][0]), int(data_dict["image_shape"][1])
+                    new2d[:, [0, 2]] = np.clip(new2d[:, [0, 2]], 0, w - 1)
+                    new2d[:, [1, 3]] = np.clip(new2d[:, [1, 3]], 0, h - 1)
+            else:
+                new2d = np.zeros((len(sampled_boxes), 4), np.float32)
+            data_dict["gt_boxes2d"] = np.concatenate([b2d, new2d]).astype(np.float32)
         return data_dict
 
 
@@ -203,6 +221,34 @@ def global_rotation(gt_boxes, points, rot_range):
                 vel[np.newaxis], np.array([angle])
             )[0][:, :2]
     return gt_boxes, points
+
+
+def random_image_flip_horizontal(image, depth_map, gt_boxes, calib, gt_boxes2d=None):
+    """With probability 1/2 (one ``np.random.choice`` draw, as in JAX) flip
+    the image and depth map left-right; the 3D boxes' centres mirror through
+    the image plane (u → W − u at their depth) and their headings negate,
+    the lidar points stay put (reference augmentor_utils.py:80-115), and the
+    2D boxes mirror with the image (u1, u2 → W − u2, W − u1)."""
+    if not np.random.choice([False, True], replace=False, p=[0.5, 0.5]):
+        return image, depth_map, gt_boxes, gt_boxes2d
+    image = np.ascontiguousarray(np.fliplr(image))
+    if depth_map is not None:
+        depth_map = np.ascontiguousarray(np.fliplr(depth_map))
+    gt_boxes = gt_boxes.copy()
+    if len(gt_boxes):
+        rect = calib.lidar_to_rect(gt_boxes[:, :3])
+        img_pts = calib.project_rect_to_image(rect)
+        u = image.shape[1] - img_pts[:, 0]
+        uvd = np.stack([u, img_pts[:, 1], rect[:, 2]], 1)
+        gt_boxes[:, :3] = calib.rect_to_lidar(calib.project_image_to_rect(uvd))
+        gt_boxes[:, 6] = -gt_boxes[:, 6]
+    if gt_boxes2d is not None and len(gt_boxes2d):
+        gt_boxes2d = gt_boxes2d.copy()
+        w = image.shape[1]
+        u1, u2 = gt_boxes2d[:, 0].copy(), gt_boxes2d[:, 2].copy()
+        gt_boxes2d[:, 0] = w - u2
+        gt_boxes2d[:, 2] = w - u1
+    return image, depth_map, gt_boxes, gt_boxes2d
 
 
 def global_scaling(gt_boxes, points, scale_range):
@@ -251,6 +297,17 @@ class DataAugmentor:
                 gt, pts = global_rotation(gt, pts, rot)
             elif name == "random_world_scaling":
                 gt, pts = global_scaling(gt, pts, cfg.WORLD_SCALE_RANGE)
+            elif name == "random_image_flip":
+                if list(cfg.ALONG_AXIS_LIST) != ["horizontal"]:
+                    raise NotImplementedError(f"random_image_flip along {cfg.ALONG_AXIS_LIST}")
+                img, dm, gt, b2d = random_image_flip_horizontal(
+                    data_dict["images"], data_dict.get("depth_maps"), gt, data_dict["calib"],
+                    data_dict.get("gt_boxes2d"))
+                data_dict["images"] = img
+                if dm is not None:
+                    data_dict["depth_maps"] = dm
+                if b2d is not None:
+                    data_dict["gt_boxes2d"] = b2d
             else:
                 raise NotImplementedError(name)
             data_dict["gt_boxes"], data_dict["points"] = gt, pts
@@ -265,4 +322,6 @@ class DataAugmentor:
             m = data_dict.pop("gt_boxes_mask")
             data_dict["gt_boxes"] = data_dict["gt_boxes"][m]
             data_dict["gt_names"] = data_dict["gt_names"][m]
+            if data_dict.get("gt_boxes2d") is not None:
+                data_dict["gt_boxes2d"] = data_dict["gt_boxes2d"][m[: len(data_dict["gt_boxes2d"])]]
         return data_dict

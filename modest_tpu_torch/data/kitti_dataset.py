@@ -5,8 +5,11 @@ pcdet/datasets/kitti/kitti_dataset.py + dataset.py).
 Host-side numpy; every sample has a fixed shape after the sample_points
 processor, so batches stack into dense (B, N, 4) tensors. Predictions become
 KITTI annos of numpy arrays (``generate_prediction_dicts``), so a
-``result.pkl`` of either package reads in the other. The camera models'
-items (images, depth maps) are not ported.
+``result.pkl`` of either package reads in the other. CaDDN's camera items
+(``GET_ITEM_LIST``): ``images`` (the image_2 PNG read by ``utils/png.py``,
+no image library, zero-padded to ``IMAGE_PAD``), ``depth_maps`` (z-buffered
+from the scan), ``calib_matricies`` (``trans_lidar_to_cam``,
+``trans_cam_to_img``) and ``gt_boxes2d``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,10 @@ def png_shape(path) -> np.ndarray:
     assert head[:8] == b"\x89PNG\r\n\x1a\n", f"not a png: {path}"
     w, h = struct.unpack(">II", head[16:24])
     return np.array([h, w], dtype=np.int32)
+
+
+# GET_ITEM_LIST's items: the camera ones are CaDDN's
+ITEMS = ("points", "images", "depth_maps", "calib_matricies", "gt_boxes2d")
 
 
 def drop_info_with_name(info: dict, name: str) -> dict:
@@ -56,10 +63,9 @@ class KittiDataset:
             [x.strip() for x in open(split_file).readlines()] if split_file.exists() else None
         )
 
-        unported = set(dataset_cfg.get("GET_ITEM_LIST", ["points"])) - {"points"}
-        if unported:
-            raise NotImplementedError(f"modest_tpu_torch: dataset items {sorted(unported)} "
-                                      f"are not ported")
+        unknown = set(dataset_cfg.get("GET_ITEM_LIST", ["points"])) - set(ITEMS)
+        if unknown:
+            raise ValueError(f"KittiDataset: unknown GET_ITEM_LIST items {sorted(unknown)}")
         self.point_feature_encoder = PointFeatureEncoder(dataset_cfg.POINT_FEATURE_ENCODING)
         self.data_augmentor = (
             DataAugmentor(self.root_path, dataset_cfg.DATA_AUGMENTOR, self.class_names, logger)
@@ -278,9 +284,60 @@ class KittiDataset:
             points = points[fov]
         input_dict["points"] = points
 
+        item_list = list(self.dataset_cfg.get("GET_ITEM_LIST", ["points"]))
+        if "images" in item_list:
+            input_dict["images"] = self.get_image(sample_idx)
+        if "depth_maps" in item_list:
+            input_dict["depth_maps"] = self.get_depth_map(points, calib)
+        if "calib_matricies" in item_list:
+            l2c = np.eye(4, dtype=np.float32)
+            l2c[:3, :3] = calib.R0 @ calib.V2C[:, :3]
+            l2c[:3, 3] = calib.R0 @ calib.V2C[:, 3]
+            input_dict["trans_lidar_to_cam"] = l2c
+            input_dict["trans_cam_to_img"] = calib.P2.astype(np.float32)
+        if "gt_boxes2d" in item_list and "annos" in info:
+            input_dict["gt_boxes2d"] = np.asarray(
+                drop_info_with_name(info["annos"], name="DontCare")["bbox"],
+                np.float32).reshape(-1, 4)
+
         data_dict = self.prepare_data(input_dict)
         data_dict["image_shape"] = img_shape
         return data_dict
+
+    def _image_pad(self):
+        return tuple(self.dataset_cfg.get("IMAGE_PAD", (384, 1248)))
+
+    def get_image(self, idx):
+        """image_2 PNG → (H_pad, W_pad, 3) f32 in [0, 1], zero-padded at the
+        bottom and right (cropped past it) to the fixed ``IMAGE_PAD`` shape;
+        the reference pads each batch to its largest image. No ImageNet
+        normalisation, as in the JAX package."""
+        from ..utils.png import read_png_rgb
+
+        img = read_png_rgb(self.root_split_path / "image_2" / f"{idx}.png").astype(
+            np.float32) / 255.0
+        hp, wp = self._image_pad()
+        out = np.zeros((hp, wp, 3), np.float32)
+        h, w = min(img.shape[0], hp), min(img.shape[1], wp)
+        out[:h, :w] = img[:h, :w]
+        return out
+
+    def get_depth_map(self, points, calib):
+        """(H_pad, W_pad) f32 depth map z-buffered from the lidar scan (0 =
+        no return): the nearest rect depth of the points that round to each
+        pixel. The reference reads training/depth_2 PNGs made offline from
+        the same projection."""
+        hp, wp = self._image_pad()
+        rect = calib.lidar_to_rect(points[:, :3])
+        img_pts = calib.project_rect_to_image(rect)
+        depth = rect[:, 2]
+        u = np.round(img_pts[:, 0]).astype(np.int64)
+        v = np.round(img_pts[:, 1]).astype(np.int64)
+        ok = (depth > 0) & (u >= 0) & (u < wp) & (v >= 0) & (v < hp)
+        dm = np.full(hp * wp, np.inf, np.float32)
+        np.minimum.at(dm, v[ok] * wp + u[ok], depth[ok])
+        dm[~np.isfinite(dm)] = 0.0
+        return dm.reshape(hp, wp)
 
     def prepare_data(self, data_dict):
         """Augment → class-filter → encode → process (reference dataset.py:109-170)."""
@@ -294,6 +351,8 @@ class KittiDataset:
             selected = [i for i, n in enumerate(data_dict["gt_names"]) if n in self.class_names]
             data_dict["gt_boxes"] = data_dict["gt_boxes"][selected]
             data_dict["gt_names"] = data_dict["gt_names"][selected]
+            if data_dict.get("gt_boxes2d") is not None:
+                data_dict["gt_boxes2d"] = data_dict["gt_boxes2d"][selected]
             gt_classes = np.array(
                 [self.class_names.index(n) + 1 for n in data_dict["gt_names"]], np.int32
             )

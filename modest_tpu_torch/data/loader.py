@@ -2,7 +2,9 @@
 
 Every sample already has a fixed shape, so a batch is a dense dict of numpy
 arrays: points (B, N, 3+C) f32, gt_boxes (B, MAX_GT, W) f32 zero-padded, W the
-widest sample's (8, or 10 with nuScenes' velocities).
+widest sample's (8, or 10 with nuScenes' velocities), and CaDDN's camera
+items stacked (images (B, H, W, 3), depth_maps, the calibration matrices,
+gt_boxes2d (B, MAX_GT, 4) zero-padded).
 
 With ``num_workers > 0`` batches are built ahead of use by worker
 processes (the augmentation path is many small numpy calls and holds the
@@ -22,6 +24,8 @@ import numpy as np
 
 
 MAX_GT_DEFAULT = 64
+# the camera items (CaDDN), zero-padded to max_gt rows for gt_boxes2d
+CAMERA_KEYS = ("images", "depth_maps", "trans_lidar_to_cam", "trans_cam_to_img", "gt_boxes2d")
 
 # a worker process's dataset and pad size ({} in the parent; set by _worker_init)
 _WORKER = {}
@@ -49,6 +53,15 @@ def collate_batch(samples: list[dict], max_gt: int = MAX_GT_DEFAULT) -> dict:
     if "metadata" in samples[0]:  # nuScenes token / Waymo context, used by eval writers
         batch["metadata"] = [s["metadata"] for s in samples]
     batch["points"] = np.stack([s["points"] for s in samples]).astype(np.float32)
+    for key in CAMERA_KEYS[:-1]:  # CaDDN's items, stacked when the dataset gives them
+        if key in samples[0]:
+            batch[key] = np.stack([s[key] for s in samples]).astype(np.float32)
+    if "gt_boxes2d" in samples[0]:
+        b2d = np.zeros((len(samples), max_gt, 4), np.float32)
+        for i, s in enumerate(samples):
+            n = min(len(s["gt_boxes2d"]), max_gt)
+            b2d[i, :n] = s["gt_boxes2d"][:n]
+        batch["gt_boxes2d"] = b2d
     if "gt_boxes" in samples[0]:
         width = max((s["gt_boxes"].shape[1] for s in samples), default=8)
         gt = np.zeros((len(samples), max_gt, width), np.float32)
@@ -167,14 +180,16 @@ class DataLoader:
 
 
 def batch_to_device(batch: dict, device) -> dict:
-    """The batch with its ``points`` and ``gt_boxes`` as tensors on
-    ``device``: copied through pinned memory without blocking on a CUDA
-    device, wrapped without a copy on the CPU."""
+    """The batch with its ``points``, ``gt_boxes`` and camera items as
+    tensors on ``device``: copied through pinned memory without blocking on
+    a CUDA device, wrapped without a copy on the CPU."""
     import torch  # here, so the spawned workers that import this module skip torch
 
     dev = torch.device(device)
     out = dict(batch)
-    for key in ("points", "gt_boxes"):
+    for key in ("points", "gt_boxes", *CAMERA_KEYS):
+        if key not in batch:
+            continue
         t = torch.from_numpy(batch[key])
         if dev.type == "cuda":
             t = t.pin_memory().to(dev, non_blocking=True)

@@ -5,8 +5,9 @@ numpy, before batching; ``sample_points`` makes every sample a fixed
 (NUM_POINTS, 4) array, so a batch stacks into one dense tensor. The steps
 draw from ``np.random`` in the JAX package's order. The grid detectors
 voxelize on the device (``models/voxelize.py``): ``transform_points_to_voxels``
-and ``calculate_grid_size`` only record the grid here. The camera model's
-depth-map step is not ported and raises ``NotImplementedError``.
+and ``calculate_grid_size`` only record the grid here.
+``downsample_depth_map`` (CaDDN) takes the f × f block means of the depth
+map.
 """
 from __future__ import annotations
 
@@ -79,6 +80,14 @@ def sample_points(data_dict, num_points: int):
     return data_dict
 
 
+def downsample_depth_map(depth_map, factor: int):
+    """The ``factor`` × ``factor`` block means of an (H, W) depth map,
+    cropped to whole blocks (skimage's downscale_local_mean, the
+    reference's): the no-return zeros count in the mean."""
+    h, w = (depth_map.shape[0] // factor) * factor, (depth_map.shape[1] // factor) * factor
+    return depth_map[:h, :w].reshape(h // factor, factor, w // factor, factor).mean(axis=(1, 3))
+
+
 class PointFeatureEncoder:
     """absolute_coordinates_encoding (reference point_feature_encoder.py)."""
 
@@ -117,7 +126,7 @@ class DataProcessor:
         for cfg in processor_cfgs:
             if cfg.NAME not in ("mask_points_and_boxes_outside_range", "shuffle_points",
                                 "sample_points", "transform_points_to_voxels",
-                                "calculate_grid_size"):
+                                "calculate_grid_size", "downsample_depth_map"):
                 raise NotImplementedError(f"modest_tpu_torch: processor {cfg.NAME} is not ported")
             self.steps.append((cfg.NAME, cfg))
             if cfg.NAME in ("transform_points_to_voxels", "calculate_grid_size"):
@@ -142,4 +151,7 @@ class DataProcessor:
                 # the grid is in __init__; the caps are recorded as the JAX package does
                 data_dict["max_voxels"] = int(cfg.MAX_NUMBER_OF_VOXELS[self.mode])
                 data_dict["max_points_per_voxel"] = int(cfg.MAX_POINTS_PER_VOXEL)
+            elif name == "downsample_depth_map" and data_dict.get("depth_maps") is not None:
+                data_dict["depth_maps"] = downsample_depth_map(
+                    data_dict["depth_maps"], int(cfg.get("DOWNSAMPLE_FACTOR", 4)))
         return data_dict

@@ -1,10 +1,12 @@
 """Model-family dispatch: forward, loss and post-processing — port of
 ``modest_tpu/models/api.py`` for the detectors the port has: PointRCNN, the
 grid detectors (PointPillar, SECONDNet, single or grouped anchor head),
-PVRCNN, SECONDNetIoU, VoxelRCNN, PartA2 and the anchor-free Part-A2 (NAME
-PointRCNN with the UNetV2 backbone). The two-stage heads share the
-refined-box post-processing (SECOND-IoU's "refined" boxes are its RoIs,
-scored by its IoU branch)."""
+PVRCNN, SECONDNetIoU, VoxelRCNN, PartA2, the anchor-free Part-A2 (NAME
+PointRCNN with the UNetV2 backbone) and the camera detector CaDDN. The
+two-stage heads share the refined-box post-processing (SECOND-IoU's
+"refined" boxes are its RoIs, scored by its IoU branch); CaDDN's one-stage
+anchor head takes the grid detectors' (JAX's ``post_process`` sends CaDDN
+down the refined-box path, which reads RoI keys CaDDN has none of)."""
 from __future__ import annotations
 
 import torch
@@ -13,7 +15,7 @@ from .pointrcnn import pointrcnn_loss
 from .pointrcnn import post_process as _pointrcnn_post_process
 
 PORTED = ("PointRCNN", "PointPillar", "SECONDNet", "PVRCNN", "SECONDNetIoU", "SECONDIoU",
-          "VoxelRCNN", "PartA2", "PartA2Net")
+          "VoxelRCNN", "PartA2", "PartA2Net", "CaDDN")
 # the detectors whose train forward samples RoIs (and takes ``roi_draws``)
 SAMPLES_ROIS = ("PointRCNN", "PVRCNN", "VoxelRCNN", "PartA2", "PartA2Net")
 
@@ -27,6 +29,12 @@ def is_parta2_free(model_cfg) -> bool:
             and model_cfg.get("BACKBONE_3D", {}).get("NAME", "") == "UNetV2")
 
 
+def is_camera_model(model_cfg) -> bool:
+    """CaDDN: its forward takes a dict of camera inputs (``train/loop.py::
+    model_inputs``), not a point tensor."""
+    return model_cfg.NAME == "CaDDN"
+
+
 def samples_rois(model_cfg) -> bool:
     return model_cfg.NAME in SAMPLES_ROIS
 
@@ -37,14 +45,26 @@ def _check_ported(model_cfg):
                                   f"not {model_cfg.NAME}")
 
 
-def apply_train(model, model_cfg, points, gt_boxes, roi_draws=None, on_stage=None):
+def apply_train(model, model_cfg, points, gt_boxes, roi_draws=None, on_stage=None,
+                dropout=None):
     """Train-mode forward of ``model`` (put in train mode) on ``points``
     (B, N, 3+C) and zero-padded ``gt_boxes`` (B, M, 8), with autograd; the
     batch norms update their running statistics as a side effect.
     ``roi_draws`` are the RoI sampler's draws of the detectors that sample
-    RoIs (``SAMPLES_ROIS``); the others draw none."""
+    RoIs (``SAMPLES_ROIS``); the others draw none. For CaDDN ``points`` is
+    the dict of camera inputs (images, trans_lidar_to_cam, trans_cam_to_img
+    and the supervision, depth_maps and gt_boxes2d, which ride along in the
+    outputs to ``compute_loss``), and ``dropout`` the DeepLab ASPP's keep
+    mask or generator."""
     _check_ported(model_cfg)
     model.train()
+    if is_camera_model(model_cfg):
+        out = model(points["images"], points["trans_lidar_to_cam"], points["trans_cam_to_img"],
+                    gt_boxes, dropout=dropout, on_stage=on_stage)
+        for key in ("depth_maps", "gt_boxes2d"):
+            if key in points:
+                out[key] = points[key]
+        return out
     if not samples_rois(model_cfg):
         return model(points, gt_boxes, on_stage=on_stage)
     return model(points, gt_boxes, roi_draws=roi_draws, on_stage=on_stage)
@@ -77,22 +97,29 @@ def compute_loss(out, gt_boxes, model_cfg, num_class: int = 1):
         from .second_iou import second_iou_loss
 
         return second_iou_loss(out, gt_boxes, model_cfg, num_class)
+    if is_camera_model(model_cfg):
+        from .caddn import caddn_loss
+
+        return caddn_loss(out, gt_boxes, model_cfg, num_class)
     return pointrcnn_loss(out, gt_boxes, model_cfg, num_class)
 
 
 def apply_eval(model, model_cfg, points, on_stage=None):
     """Eval forward of ``model`` (put in eval mode) on ``points`` (B, N, 3+C),
-    without autograd."""
+    or CaDDN's dict of camera inputs, without autograd."""
     _check_ported(model_cfg)
     model.eval()
     with torch.inference_mode():
+        if is_camera_model(model_cfg):
+            return model(points["images"], points["trans_lidar_to_cam"],
+                         points["trans_cam_to_img"], on_stage=on_stage)
         return model(points, on_stage=on_stage)
 
 
 def post_process(out, model_cfg):
     _check_ported(model_cfg)
     with torch.inference_mode():
-        if is_grid_model(model_cfg):
+        if is_grid_model(model_cfg) or is_camera_model(model_cfg):
             from .grid_detectors import grid_post_process
 
             return grid_post_process(out, model_cfg.POST_PROCESSING)

@@ -4,12 +4,13 @@ pcdet checkpoints.
 ``state_dict_from_jax(params, batch_stats)`` (PointRCNN),
 ``grid_state_dict_from_jax(params, batch_stats, model_cfg)`` (PointPillar,
 SECONDNet), ``pvrcnn_state_dict_from_jax``, ``second_iou_state_dict_from_jax``,
-``voxelrcnn_state_dict_from_jax``, ``parta2_state_dict_from_jax`` and
+``voxelrcnn_state_dict_from_jax``, ``parta2_state_dict_from_jax``,
 ``parta2_free_state_dict_from_jax`` (same arguments; the JAX package has no
-pcdet route for these, nor has the port) take
+pcdet route for these, nor has the port) and ``caddn_state_dict_from_jax`` take
 the flax param and batch-stat trees (nested mappings of arrays) and return
 the port's ``state_dict``. ``state_dict_from_pcdet``
-brings a pcdet ``model_state`` to the port's layouts. The port's keys are
+brings a pcdet ``model_state`` to the port's layouts (a CaDDN's, or a bare
+torchvision DeepLabV3 state, through ``caddn_state_dict_from_pcdet``). The port's keys are
 pcdet's keys, so the layout rules are those of a pcdet checkpoint:
 
 - a flax ``Dense`` kernel is (in, out); ``nn.Linear.weight`` is (out, in);
@@ -388,6 +389,113 @@ def parta2_free_state_dict_from_jax(params, batch_stats, model_cfg):
     return _tensors(sd)
 
 
+def _ddn_state_from_jax(P, S):
+    """flax ``DDNDeepLabV3`` → the port's (torchvision's) DeepLabV3 keys."""
+    sd = {}
+
+    def conv(key, node, bias=False):
+        sd[f"{key}.weight"] = _conv2d(node["kernel"])
+        if bias:
+            sd[f"{key}.bias"] = node["bias"]
+
+    conv("backbone.conv1", P["conv1"])
+    sd.update(_bn_entries("backbone.bn1", P["bn1"], S["bn1"]))
+    for name in P:
+        m = re.fullmatch(r"layer(\d+)_(\d+)", name)
+        if m is None:
+            continue
+        t, blk, st = f"backbone.layer{m.group(1)}.{m.group(2)}", P[name], S[name]
+        for i in (1, 2, 3):
+            conv(f"{t}.conv{i}", blk[f"conv{i}"])
+            sd.update(_bn_entries(f"{t}.bn{i}", blk[f"bn{i}"], st[f"bn{i}"]))
+        if "down_conv" in blk:
+            conv(f"{t}.downsample.0", blk["down_conv"])
+            sd.update(_bn_entries(f"{t}.downsample.1", blk["down_bn"], st["down_bn"]))
+    aspp, ast = P["aspp"], S["aspp"]
+    for i in range(4):
+        conv(f"classifier.0.convs.{i}.0", aspp[f"conv{i}"])
+        sd.update(_bn_entries(f"classifier.0.convs.{i}.1", aspp[f"bn{i}"], ast[f"bn{i}"]))
+    conv("classifier.0.convs.4.1", aspp["conv_pool"])
+    sd.update(_bn_entries("classifier.0.convs.4.2", aspp["bn_pool"], ast["bn_pool"]))
+    conv("classifier.0.project.0", aspp["project"])
+    sd.update(_bn_entries("classifier.0.project.1", aspp["bn_project"], ast["bn_project"]))
+    conv("classifier.1", P["head_conv"])
+    sd.update(_bn_entries("classifier.2", P["head_bn"], S["head_bn"]))
+    conv("classifier.4", P["head_cls"], bias=True)
+    return sd
+
+
+def caddn_state_dict_from_jax(params, batch_stats, model_cfg):
+    """JAX ``CaDDN`` (params, batch_stats) → the port's ``state_dict``, with
+    either image encoder: the compact ``ImageEncoder`` (``Conv_i`` /
+    ``BatchNorm_i`` → ``encoder.convs.i`` / ``encoder.bns.i``, the last conv
+    → ``encoder.head``) or the DeepLab DDN (``ddn.*``, torchvision's names)
+    and its ``channel_reduce``; then ``bev_collapse`` (its input channels z·C
+    + c on both sides), the BEV backbone and the head."""
+    P, S = _plain(params), _plain(batch_stats)
+    sd = {}
+    if "ddn" in P:
+        sd.update(_prefixed("ddn", _ddn_state_from_jax(P["ddn"], S["ddn"])))
+        sd["channel_reduce.conv.weight"] = _conv2d(P["channel_reduce"]["kernel"])
+        if "bias" in P["channel_reduce"]:
+            sd["channel_reduce.conv.bias"] = P["channel_reduce"]["bias"]
+        sd.update(_bn_entries("channel_reduce.bn", P["channel_reduce_bn"],
+                              S["channel_reduce_bn"]))
+    else:
+        enc, est = P["encoder"], S["encoder"]
+        convs = _numbered(enc, "Conv")
+        for i in convs:
+            key = "encoder.head" if i == convs[-1] else f"encoder.convs.{i}"
+            sd[f"{key}.weight"] = _conv2d(enc[f"Conv_{i}"]["kernel"])
+            sd[f"{key}.bias"] = enc[f"Conv_{i}"]["bias"]
+        for i in _numbered(enc, "BatchNorm"):
+            sd.update(_bn_entries(f"encoder.bns.{i}", enc[f"BatchNorm_{i}"],
+                                  est[f"BatchNorm_{i}"]))
+    sd["bev_collapse.weight"] = np.ascontiguousarray(P["bev_collapse"]["kernel"].T)
+    sd["bev_collapse.bias"] = P["bev_collapse"]["bias"]
+    sd.update(_prefixed("backbone_2d", _bev_state_from_jax(
+        P["backbone_2d"], S["backbone_2d"], model_cfg.BACKBONE_2D)))
+    for name, ours in (("conv_cls", "Conv_0"), ("conv_box", "Conv_1"),
+                       ("conv_dir_cls", "Conv_2")):
+        if ours in P["dense_head"]:
+            sd[f"dense_head.{name}.weight"] = _conv2d(P["dense_head"][ours]["kernel"])
+            sd[f"dense_head.{name}.bias"] = P["dense_head"][ours]["bias"]
+    return _tensors(sd)
+
+
+DDN_PCDET_PREFIX = "vfe.ffn.ddn.model."
+
+
+def caddn_state_dict_from_pcdet(model_state, model):
+    """A torchvision ``deeplabv3_resnet*`` state (``backbone.*``,
+    ``classifier.*``; the checkpoint the reference starts its DDN from) or a
+    pcdet CaDDN ``model_state`` (``vfe.ffn.ddn.model.*``,
+    ``vfe.ffn.channel_reduce.{conv,bn}.*``) in the port's keys for the CaDDN
+    ``model`` (``ddn.*``, ``channel_reduce.*``), as the JAX package's
+    ``convert_caddn_ddn_state`` carries it. The classifier's last layer
+    (``classifier.4``) is dropped when its class count is not the model's
+    depth bins + 1, as the reference's ``filter_pretrained_dict`` drops it;
+    torchvision's ``aux_classifier`` has no counterpart and is dropped. The
+    other keys (pcdet's ``backbone_2d``, ``dense_head``, ``map_to_bev``) pass
+    as they are."""
+    bins = int(model.model_cfg.FFE.DISC_CFG.num_bins) + 1
+    out = {}
+    for key, value in model_state.items():
+        if key.startswith(DDN_PCDET_PREFIX):
+            key = key[len(DDN_PCDET_PREFIX):]
+        elif key.startswith("vfe.ffn.channel_reduce."):
+            out["channel_reduce." + key[len("vfe.ffn.channel_reduce."):]] = value
+            continue
+        elif not key.startswith(("backbone.", "classifier.", "aux_classifier.")):
+            out[key] = value
+            continue
+        if key.startswith("aux_classifier.") or (
+                key.startswith("classifier.4.") and value.shape[0] != bins):
+            continue
+        out["ddn." + key] = value
+    return out
+
+
 def spconv_layout(model_state) -> str:
     """``"spconv1"`` ((kz, ky, kx, in, out)) or ``"spconv2"`` ((out, kz, ky,
     kx, in)) for a pcdet SECOND ``model_state``, decided from the
@@ -402,13 +510,17 @@ def spconv_layout(model_state) -> str:
 
 
 def state_dict_from_pcdet(model_state, model):
-    """A pcdet ``model_state`` in the port's layouts for ``model``. Only a
-    SECONDNet needs changes: spconv 2.x sparse weights go to 1.x's layout,
-    and the first BEV conv's input channels go from pcdet's c·D + z to the
-    port's z·C + c (D height slices of C channels). Other models and keys
-    pass as they are."""
+    """A pcdet ``model_state`` in the port's layouts for ``model``. A
+    SECONDNet's spconv 2.x sparse weights go to 1.x's layout, and its first
+    BEV conv's input channels go from pcdet's c·D + z to the port's z·C + c
+    (D height slices of C channels); a CaDDN's DDN keys take the port's
+    prefix (``caddn_state_dict_from_pcdet``, which also reads a bare
+    torchvision DeepLabV3 state). Other models and keys pass as they are."""
+    name = getattr(model, "model_cfg", {}).get("NAME", "")
+    if name == "CaDDN":
+        return caddn_state_dict_from_pcdet(model_state, model)
     out = dict(model_state)
-    if getattr(model, "model_cfg", {}).get("NAME", "") != "SECONDNet":
+    if name != "SECONDNet":
         return out
     if "backbone_3d.conv_input.0.weight" in model_state \
             and spconv_layout(model_state) == "spconv2":

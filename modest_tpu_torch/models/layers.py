@@ -124,11 +124,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that trains as flax's ``nn.BatchNorm(momentum=0.99,
     epsilon=1e-3)`` does over a channel-last map (``BEVBackbone`` of
     ``modest_tpu/models/grid_detectors.py``): statistics over (B, H, W), the
-    fast biased variance, r ← 0.99 r + 0.01 · batch. Eval mode is
-    ``nn.BatchNorm2d``'s; the keys are its keys."""
+    fast biased variance, r ← 0.99 r + 0.01 · batch. ``eps=1e-5,
+    momentum=0.1`` is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``
+    (CaDDN's image encoders). Eval mode is ``nn.BatchNorm2d``'s; the keys are
+    its keys."""
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-3, momentum=0.01)
+    def __init__(self, num_features: int, eps: float = 1e-3, momentum: float = 0.01):
+        super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x):
         if not self.training:

@@ -3,21 +3,25 @@ image library.
 
 The port's copy of ``tests/synth_kitti.py::make_dataset``: the same
 velodyne, label, calib and plane files from the same seed. Images are PNG
-headers only (signature, IHDR, IEND): the dataset reads nothing of an image
-but its size. ``full_density`` gives scans of ~72k–90k points with 8–20
+headers only (signature, IHDR, IEND), which is all a lidar model's dataset
+reads of them, or with ``pixels`` real 8-bit RGB PNGs (``utils/png.py``)
+for the camera model: uniform noise with each labelled object's 2D box
+painted in its class's colour, from a generator of its own seeded from
+``seed``, so every other file is the same either way. ``full_density`` gives scans of ~72k–90k points with 8–20
 ``Dynamic`` objects each, the size of a Lyft scan, with road planes on
 which gt sampling can paste objects; ``kitti_classes`` makes the objects
 KITTI's Car, Pedestrian and Cyclist.
 """
 from __future__ import annotations
 
+import argparse
 import os
 import struct
-import zlib
 
 import numpy as np
 
 from ..utils import box_np, kitti_io
+from ..utils.png import SIGNATURE, chunk, write_png
 
 P2 = np.array([[700.0, 0, 600, 0], [0, 700.0, 200, 0], [0, 0, 1.0, 0]])
 V2C = np.array([[0.0, -1, 0, 0], [0, 0, -1, 0], [1.0, 0, 0, 0]])
@@ -32,22 +36,32 @@ KITTI_SIZES = {"Car": (3.9, 1.6, 1.56), "Pedestrian": (0.8, 0.6, 1.73),
                "Cyclist": (1.76, 0.6, 1.73)}
 KITTI_POINT_SHARE = {"Car": 1.0, "Pedestrian": 0.25, "Cyclist": 0.4}
 KITTI_XY_RANGE = ((10, 60), (-8, 8))
+# pixels: each class's box colour, and the pixel generator's seed offset
+BOX_COLOURS = {"Dynamic": (220, 40, 40), "Car": (220, 40, 40), "Pedestrian": (40, 200, 60),
+               "Cyclist": (50, 80, 230)}
+PIXEL_SEED_OFFSET = 7919
 
 
 def make_calib_obj():
     return kitti_io.Calibration({"P2": P2, "P3": P2, "R0_rect": R0, "Tr_velo_to_cam": V2C})
 
 
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
 def write_png_header(path, h: int, w: int):
     """A PNG of (h, w) 8-bit RGB with no pixel data: signature, IHDR, IEND."""
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr) + _chunk(b"IEND", b""))
+        f.write(SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IEND", b""))
+
+
+def write_image(path, img_boxes, names, rng):
+    """An IMG_SHAPE RGB PNG of uniform noise with each 2D box [u1 v1 u2 v2]
+    filled with its class's colour."""
+    h, w = IMG_SHAPE
+    pix = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    for name, box in zip(names, img_boxes):
+        u1, v1, u2, v2 = (int(round(float(c))) for c in box)
+        pix[max(v1, 0):min(v2, h), max(u1, 0):min(u2, w)] = BOX_COLOURS.get(name, (255, 255, 0))
+    write_png(path, pix)
 
 
 def _write_calib(path):
@@ -60,7 +74,7 @@ def _write_calib(path):
 
 def make_dataset(root, n_train=4, n_val=2, seed=0, ground_z=-1.8, n_ground=4000, n_obj=300,
                  n_cars=(1, 3), x_range=(8, 45), y_range=(-8, 8), full_density=False,
-                 kitti_classes=False):
+                 kitti_classes=False, pixels=False):
     """Creates root/training/{velodyne,calib,label_2,image_2,planes} and
     ImageSets. Each frame: a ground plane and ``n_cars`` (low, high
     exclusive) 'Dynamic' cars of ``n_obj`` points ahead of the camera (lidar
@@ -69,7 +83,8 @@ def make_dataset(root, n_train=4, n_val=2, seed=0, ground_z=-1.8, n_ground=4000,
     ``kitti_classes`` makes each object a Car, Pedestrian or Cyclist of
     ``KITTI_SIZES`` (±10 %) with its ``KITTI_POINT_SHARE`` of ``n_obj``
     points, centred in ``KITTI_XY_RANGE``; left off, the files are the same
-    byte for byte. Returns the lidar boxes by frame."""
+    byte for byte. ``pixels`` writes real images (the module docstring).
+    Returns the lidar boxes by frame."""
     if full_density:
         n_ground, n_obj, n_cars, x_range, y_range = (
             FULL_DENSITY[k] for k in ("n_ground", "n_obj", "n_cars", "x_range", "y_range"))
@@ -81,6 +96,7 @@ def make_dataset(root, n_train=4, n_val=2, seed=0, ground_z=-1.8, n_ground=4000,
     # boxes out of the point-cloud range; the default keeps its files
     plane_d = -ground_z if full_density else ground_z
     rng = np.random.RandomState(seed)
+    pixel_rng = np.random.RandomState(seed + PIXEL_SEED_OFFSET)
     root = str(root)
     for sub in ["velodyne", "calib", "label_2", "image_2", "planes"]:
         os.makedirs(os.path.join(root, "training", sub), exist_ok=True)
@@ -117,14 +133,17 @@ def make_dataset(root, n_train=4, n_val=2, seed=0, ground_z=-1.8, n_ground=4000,
         name = f"{gid:06d}"
         kitti_io.save_velo_scan(os.path.join(root, "training", "velodyne", f"{name}.bin"), scan)
         _write_calib(os.path.join(root, "training", "calib", f"{name}.txt"))
-        write_png_header(os.path.join(root, "training", "image_2", f"{name}.png"),
-                         IMG_SHAPE[0], IMG_SHAPE[1])
         kitti_io.save_plane(os.path.join(root, "training", "planes", f"{name}.txt"),
                             np.array([0.0, -1.0, 0.0, plane_d]))
         lines = []
         boxes = np.array(boxes).reshape(-1, 7)
         cam = box_np.boxes3d_lidar_to_kitti_camera(boxes.copy(), calib)
         img_boxes = box_np.boxes3d_kitti_camera_to_imageboxes(cam.copy(), calib, IMG_SHAPE)
+        image = os.path.join(root, "training", "image_2", f"{name}.png")
+        if pixels:
+            write_image(image, img_boxes, names, pixel_rng)
+        else:
+            write_png_header(image, IMG_SHAPE[0], IMG_SHAPE[1])
         for cls, b, ib in zip(names, cam, img_boxes):
             x, y, z, l, h, w, ry = b
             alpha = -np.arctan2(x, z) + ry
@@ -145,3 +164,23 @@ def make_dataset(root, n_train=4, n_val=2, seed=0, ground_z=-1.8, n_ground=4000,
     with open(os.path.join(root, "ImageSets", "val.txt"), "w") as f:
         f.write("\n".join(val_ids) + "\n")
     return gt
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="write a synthetic KITTI-format dataset")
+    parser.add_argument("root")
+    parser.add_argument("--n_train", type=int, default=4)
+    parser.add_argument("--n_val", type=int, default=2)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--full_density", action="store_true")
+    parser.add_argument("--kitti_classes", action="store_true")
+    parser.add_argument("--pixels", action="store_true", help="real images (noise and boxes)")
+    args = parser.parse_args(argv)
+    boxes = make_dataset(args.root, n_train=args.n_train, n_val=args.n_val, seed=args.seed,
+                         full_density=args.full_density, kitti_classes=args.kitti_classes,
+                         pixels=args.pixels)
+    print(f"{len(boxes)} frames, {sum(len(b) for b in boxes.values())} objects in {args.root}")
+
+
+if __name__ == "__main__":
+    main()

@@ -22,6 +22,24 @@ from ..ops.iou3d import boxes_iou3d
 from .state import train_step
 
 
+CAMERA_INPUTS = ("images", "trans_lidar_to_cam", "trans_cam_to_img", "depth_maps",
+                 "gt_boxes2d")
+
+
+def model_inputs(batch, model_cfg=None, eval_mode: bool = False):
+    """A batch's model input: the point tensor for the lidar detectors, the
+    dict of camera inputs for CaDDN (dispatched on the model config, so a
+    lidar model may read a dataset that also loads images; without a config,
+    on whether the batch holds images). Eval leaves out the train-only
+    supervision, depth_maps and gt_boxes2d."""
+    camera = (model_api.is_camera_model(model_cfg) if model_cfg is not None
+              else "images" in batch)
+    if not camera:
+        return batch["points"]
+    keys = CAMERA_INPUTS[:3] if eval_mode else CAMERA_INPUTS
+    return {k: batch[k] for k in keys if k in batch}
+
+
 class _StageEvents:
     """CUDA events at the boundaries of one step's stages."""
 
@@ -68,8 +86,8 @@ def train_model(state, model_cfg, loader, *, device, start_epoch: int, total_epo
             if events:
                 events.mark("start")
             step, lr = state.step, state.optimizer.current_lr()
-            out = train_step(state, model_cfg, batch["points"], batch["gt_boxes"], seed=seed,
-                             on_stage=events.mark if events else None)
+            out = train_step(state, model_cfg, model_inputs(batch, model_cfg), batch["gt_boxes"],
+                             seed=seed, on_stage=events.mark if events else None)
             keys = list(out)
             metrics = dict(zip(keys, torch.stack([out[k].float() for k in keys]).tolist()))
             rec = {"epoch": epoch, "step": step, "metrics": metrics,
@@ -161,8 +179,9 @@ def eval_one_epoch(model, model_cfg, loader, dataset, class_names, *, device, re
     t0 = time.time()
     t_first, n_first = None, 0
     for batch in prefetch_to_device(loader, device):
-        final = model_api.post_process(model_api.apply_eval(model, model_cfg, batch["points"]),
-                                       model_cfg)
+        final = model_api.post_process(
+            model_api.apply_eval(model, model_cfg, model_inputs(batch, model_cfg, eval_mode=True)),
+            model_cfg)
         fresh = [i for i, fid in enumerate(batch["frame_id"]) if fid not in seen]
         if "gt_boxes" in batch and fresh:
             sub = torch.as_tensor(fresh, device=batch["points"].device)

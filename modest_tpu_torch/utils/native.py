@@ -78,6 +78,8 @@ def get_lib():
         lib.mh_match_stats.argtypes = [c.c_void_p, c.c_int64, c.c_int64, c.c_void_p, c.c_void_p,
                                        c.c_void_p, c.c_double, c.c_void_p, c.c_int64,
                                        c.c_void_p]
+        lib.mh_png_unfilter.restype = c.c_int64
+        lib.mh_png_unfilter.argtypes = [c.c_void_p, c.c_int64, c.c_int64, c.c_int64, c.c_void_p]
         _lib = lib
         return _lib
 
@@ -180,4 +182,23 @@ def match_stats(overlaps, scores, ignored_gt, ignored_det, min_overlap, threshol
     out = np.zeros((len(th), 3), np.int64)
     lib.mh_match_stats(_ptr(ov), len(sc), len(ig), _ptr(sc), _ptr(ig), _ptr(idt),
                        float(min_overlap), _ptr(th), len(th), _ptr(out))
+    return out
+
+
+def png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray | None:
+    """The (h, stride) uint8 rows of a PNG's inflated IDAT stream ``raw`` (h
+    rows of a filter byte and ``stride`` bytes) with their filters undone,
+    or None without the library: the caller then runs
+    ``utils/png.py::unfilter_rows``. Raises on an unknown filter type."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(raw, np.uint8)
+    if src.size != h * (stride + 1) or bpp < 1:
+        raise ValueError(f"png_unfilter: {src.size} bytes for {h} rows of {stride} "
+                         f"(bpp {bpp})")
+    out = np.empty((h, stride), np.uint8)
+    rc = lib.mh_png_unfilter(_ptr(src), h, stride, bpp, _ptr(out))
+    if rc < 0:
+        raise ValueError(f"png: row {-rc - 1} has an unknown filter type")
     return out

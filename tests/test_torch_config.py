@@ -171,8 +171,11 @@ KITTI_STEMS = ["pointrcnn", "pointrcnn_iou", "second", "pointpillar", "second_mu
                "pv_rcnn", "second_iou", "PartA2", "PartA2_free", "voxel_rcnn_car"]
 
 
+CADDN_STEMS = ["CaDDN", "CaDDN_deeplab"]
+
+
 @pytest.mark.parametrize("section", ["CLASS_NAMES", "DATA_CONFIG", "MODEL", "OPTIMIZATION"])
-@pytest.mark.parametrize("stem", KITTI_STEMS)
+@pytest.mark.parametrize("stem", [*KITTI_STEMS, *CADDN_STEMS])
 def test_kitti_dicts_equal_the_jax_loaders_yaml(stem, section):
     """configs.py ships each KITTI file whole, configs/datasets/kitti_dataset.yaml
     merged in, as modest_tpu.utils.config reads it; ``KITTI_<NAME>`` is its
@@ -323,6 +326,36 @@ def test_kitti_and_cbgs_dicts_build_on_the_cpu(stem):
         stride = model_cfg["DENSE_HEAD"]["ANCHOR_GENERATOR_CONFIG"][0]["feature_map_stride"]
         per_loc = 2 * len(model_cfg["DENSE_HEAD"]["ANCHOR_GENERATOR_CONFIG"])
         assert model.anchors.shape == ((gs[0] // stride) * (gs[1] // stride) * per_loc, 7)
+
+
+@pytest.mark.parametrize("stem", CADDN_STEMS)
+def test_caddn_dicts_build_on_the_cpu(stem):
+    """``build_network(..., device="cpu")`` builds both CaDDN dicts at full
+    width on the geometry their dataset records (a 280 × 376 × 25 grid of
+    0.16 m voxels, 80 depth bins, 3 classes): the encoder each names, the
+    BEV collapse's 25 · 64 inputs, the anchors of a stride-2 map."""
+    import types
+
+    from modest_tpu_torch import configs
+    from modest_tpu_torch.data.processor import DataProcessor
+    from modest_tpu_torch.models import build_network
+    from modest_tpu_torch.models.caddn import CaDDN
+
+    full = Config(configs.KITTI_CONFIGS[stem])
+    proc = DataProcessor(full.DATA_CONFIG.DATA_PROCESSOR, full.DATA_CONFIG.POINT_CLOUD_RANGE,
+                         training=False)
+    assert proc.grid_size.tolist() == [280, 376, 25]
+    dataset = types.SimpleNamespace(point_cloud_range=full.DATA_CONFIG.POINT_CLOUD_RANGE,
+                                    voxel_size=proc.voxel_size, grid_size=proc.grid_size)
+    model = build_network(full.MODEL, len(full.CLASS_NAMES), device="cpu", dataset=dataset)
+    assert isinstance(model, CaDDN) and not model.training
+    assert (model.ddn is not None) == (stem == "CaDDN_deeplab")
+    assert model.bev_collapse.in_features == 25 * 64
+    assert model.anchors.shape == (140 * 188 * 6, 7)
+    assert model.centers.shape == (280 * 376 * 25, 4)
+    if stem == "CaDDN_deeplab":
+        assert len(model.ddn.backbone.layer3) == 23
+        assert model.ddn.classifier[4].out_channels == 81
 
 
 @pytest.mark.parametrize("pairs", [
