@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen paths, each at full size from fixed seeds:
+Seventeen paths, each at full size from fixed seeds:
 
 * the flagship detector's eval forward plus post-processing (PointRCNN,
   configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
@@ -11,6 +11,9 @@ Sixteen paths, each at full size from fixed seeds:
 * its training: the train CLI (cli/train.py) at full width and depth, B = 2
   scans of 12288 points with gt sampling and world augmentation, on 16
   synthetic Lyft-sized scans written to a temporary directory;
+* its multi-process training: cli/train.py as two processes sharing the
+  card (--launcher manual, gloo), a global batch of 4 (2 a process) on the
+  same scans, then the evaluation merged by process 0;
 * the label-free seed path: the PP-score CLI (pre_compute_pp_score) over a
   synthetic multi-traversal dataset written to a temporary directory (5
   traversals of 8 frames and 16 origin frames of ~89.6k points, the
@@ -113,6 +116,21 @@ Phases, each printing one JSON line:
    (train_overfit); one step's point-head losses and backbone and
    point-head gradients on the card must equal the CPU path's within the
    stated tolerances, and >= 98% of its sampled RoIs (train_card_vs_cpu);
+   multi-process training (ddp_train: cli/train.py as 2 processes on the
+   card at a global batch of 4 for 2 epochs at ROUND_LR, then
+   --eval_after_train on the train scans: every step's losses finite, the
+   processes' weights and buffers equal (bound 0), checkpoints written by
+   process 0 alone, the merged result.pkl holding each frame once, 3 + 3
+   FPS launches a step in each process; global scans/s after two steps,
+   data wait, the gradient all-reduce's ms, collectives a step, peak
+   memory per process); one step of the 2 processes against one process
+   on the whole batch (ddp_step_vs_single: in float64 the losses within
+   1e-5 relative, the gradient norm within 1e-4, each parameter's update
+   within 1e-3 of its norm; in float32 the point head's losses within 1e-5
+   and the rest printed; the processes equal; both FPS kernels equal to the
+   plain FPS on each process's rows); the port's process group on NCCL at world size 1, one step
+   through its collectives equal bit for bit to the step with no group
+   (nccl_world1);
 4b. grid detectors, each of PointPillars and SECOND: the forward +
    post_process (grid_forward: scans/s over 8 batches after a warm-up,
    stage ms by CUDA events, peak memory, kept boxes, and SECOND's kept
@@ -520,6 +538,28 @@ CADDN_SAMPLE_RTOL = 1e-5
 # cli/demo.py: the flagship PointRCNN dict with random weights on DEMO_FRAMES
 # raw .bin scans of the CaDDN tree, 3 + 3 FPS launches a frame
 DEMO_FRAMES = 4
+# multi-process training: DDP_WORLD processes of cli/train.py sharing the one
+# card (gloo), the flagship at a global batch of DDP_BATCH on the train
+# phase's scans for DDP_EPOCHS epochs at ROUND_LR, the merged evaluation on
+# the same scans; each process is bounded by DDP_TIMEOUT_S
+DDP_WORLD, DDP_BATCH, DDP_EPOCHS = 2, 4, 2
+DDP_TIMEOUT_S = 600
+# one step of DDP_WORLD processes against one process on the whole batch:
+# losses within DDP_LOSS_RTOL, the gradient norm within DDP_GRAD_NORM_RTOL,
+# each parameter's update within DDP_UPDATE_RTOL of its norm. The step is
+# plain SGD, whose update is the clipped gradient: Adam's first update is
+# about ±lr for every entry whatever its size, so a float32 rounding apart
+# flips near-zero entries by 2·lr, which says nothing of the distributed step.
+# The bounds hold the step in float64 (FPS on a float32 copy of the
+# coordinates, as the kernel takes): in float32 the two summation orders'
+# rounding moves near-ties of the RoI head's decisions (max-pool sources,
+# whose backward then routes to another neighbour; sampled RoIs), so on the
+# card its classification loss parts by ~1e-3 and its gradients by up to
+# half a tensor's norm (on the CPU at 1/16 of the flagship's points the
+# float32 gradients are 1.2% apart, float64's 2.8e-14). In float32 the
+# point head's losses, upstream of those decisions, are held; the rest is
+# printed
+DDP_LOSS_RTOL, DDP_GRAD_NORM_RTOL, DDP_UPDATE_RTOL = 1e-5, 1e-4, 1e-3
 
 
 def emit(obj) -> None:
@@ -1170,6 +1210,371 @@ def phase_train_card_vs_cpu(torch, np, dev, root, card):
     if r["sampled_roi_match"] < MIN_ROI_MATCH:
         fail(f"train card vs CPU: {r['sampled_roi_match']:.4f} of the sampled RoIs agree "
              f"(< {MIN_ROI_MATCH})")
+
+
+def run_ranks(fn_name: str, args_by_rank, root, where: str) -> None:
+    """``chip_smoke.<fn_name>(*args)`` in one new interpreter per rank, all
+    started together; fails the phase when one exits non-zero (the others
+    are killed at once) or they have not all ended within DDP_TIMEOUT_S.
+    Each rank's output goes to ``root/<where>_rank<r>.log``."""
+    procs, logs = [], []
+    for rank, args in enumerate(args_by_rank):
+        code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+                f"chip_smoke.{fn_name}(*{tuple(args)!r})")
+        logs.append(open(root / f"{where}_rank{rank}.log", "w"))
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                                      stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.time() + DDP_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) or time.time() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            tail = (root / f"{where}_rank{r}.log").read_text()[-3000:]
+            print(f"chip_smoke: {where} rank {r} exited {procs[r].returncode}:\n{tail}",
+                  file=sys.stderr, flush=True)
+        fail(f"{where}: ranks {bad} failed or did not end within {DDP_TIMEOUT_S} s")
+
+
+def ddp_shape(world: int):
+    """(global batch, epochs) of phase ddp_train with ``world`` processes:
+    2 scans a process, as many steps as with DDP_WORLD."""
+    return DDP_BATCH // DDP_WORLD * world, DDP_EPOCHS * world // DDP_WORLD
+
+
+def ddp_train_argv(root, out, port: int, rank: int, world: int):
+    batch, epochs = ddp_shape(world)
+    return ["--cfg_file", str(REPO / FLAGSHIP_CFG), "--data_path", str(root), "--batch_size",
+            str(batch), "--epochs", str(epochs), "--fix_random_seed", "--output_dir",
+            str(out), "--eval_after_train", "--launcher", "manual", "--coordinator",
+            f"127.0.0.1:{port}", "--num_processes", str(world), "--process_id", str(rank),
+            "--set", "OPTIMIZATION.LR", str(ROUND_LR), "DATA_CONFIG.DATA_SPLIT.test", "train",
+            "DATA_CONFIG.INFO_PATH.test", "[kitti_infos_train.pkl]"]
+
+
+def ddp_train_rank(rank: int, port: int, root: str, out: str, world: int) -> None:
+    """Process ``rank`` of phase ddp_train: cli/train.py with ``--launcher
+    manual``; writes ``out/rank<r>.json`` (its steps, FPS launches in
+    training and in the evaluation, checkpoint writes, collectives, peak
+    memory, backend) and ``out/state_rank<r>.pth`` (its final weights and
+    batch-norm buffers)."""
+    import torch
+    import torch.distributed as dist
+
+    from modest_tpu_torch.cli import train as train_cli
+    from modest_tpu_torch.parallel import mesh
+
+    torch.set_num_threads(1)  # as torchrun and cli/train.py's --num_devices set each process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out)
+    writes, real_save = [], torch.save
+
+    def counted_save(obj, f, *args, **kwargs):  # the checkpoints this process writes
+        writes.append(str(f))
+        return real_save(obj, f, *args, **kwargs)
+
+    counts = reset_fps_counts()
+    at_eval, real_eval = {}, train_cli.eval_one_epoch
+
+    def eval_after_train(model, model_cfg, loader, *args, **kwargs):
+        at_eval.update(launches=dict(counts), batches=len(loader), backend=dist.get_backend())
+        return real_eval(model, model_cfg, loader, *args, **kwargs)
+
+    torch.save, train_cli.eval_one_epoch = counted_save, eval_after_train
+    mesh.calls.update(dict.fromkeys(mesh.calls, 0))
+    torch.cuda.reset_peak_memory_stats()
+    state = train_cli.main(ddp_train_argv(root, out, port, rank, world), stage_times=True)
+    torch.save = real_save
+    train_launches = at_eval["launches"]
+    report = {"rank": rank, "history": state.history, "train_launches": train_launches,
+              "eval_launches": {k: counts[k] - train_launches[k] for k in counts},
+              "eval_batches": at_eval["batches"], "backend": at_eval["backend"],
+              "checkpoint_writes": writes, "collectives": dict(mesh.calls),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
+               out / f"state_rank{rank}.pth")
+
+
+def phase_ddp_train(torch, np, root, card, world: int = DDP_WORLD):
+    """cli/train.py as ``world`` processes (``--launcher manual``; on the one
+    card, gloo; one card each where there are as many, NCCL): the flagship
+    whole at full width, 2 scans a process, then ``--eval_after_train`` on
+    the train scans, merged by rank 0."""
+    from modest_tpu_torch.parallel.multihost import free_port
+
+    batch, epochs = ddp_shape(world)
+    out = root / f"ddp_run_{world}"
+    out.mkdir()
+    port = free_port()
+    t0 = time.perf_counter()
+    run_ranks("ddp_train_rank", [(r, port, str(root), str(out), world) for r in range(world)],
+              root, f"ddp_train_{world}")
+    seconds = time.perf_counter() - t0
+    reports = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+    steps = TRAIN_SCANS // batch * epochs
+    backend = "gloo" if torch.cuda.device_count() < world else "nccl"
+    states = [torch.load(out / f"state_rank{r}.pth") for r in range(world)]
+    rank_gap = max(float((states[0][k].double() - s[k].double()).abs().max())
+                   for s in states[1:] for k in states[0])
+    with open(out / "eval" / f"epoch_{epochs}" / "val" / "result.pkl", "rb") as f:
+        frames = [a["frame_id"] for a in pickle.load(f)]
+    want_frames = [f"{i:06d}" for i in range(TRAIN_SCANS)]
+    hist = reports[0]["history"]
+    timed = hist[2:]
+    stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
+    per_step = {"fps_cluster_kernel": 3 * steps, "fps_warp_kernel": 3 * steps}
+    row = {"phase": "ddp_train", "processes": world, "global_batch": batch,
+           "points_per_scan": N_POINTS, "steps": [len(r["history"]) for r in reports],
+           "epochs": epochs, "lr": ROUND_LR, "backend": [r["backend"] for r in reports],
+           "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
+           "global_scans_per_s": batch * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"]),
+           "timed_steps": len(timed),
+           "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[1]["end_s"]) / len(timed),
+           "data_wait_ms": [sum(s["data_wait_ms"] for s in r["history"][2:]) / len(timed)
+                            for r in reports],
+           "stage_ms": stage_ms, "grad_reduce_ms": stage_ms.get("grad_reduce"),
+           "collectives_per_step": {k: v / steps for k, v in reports[0]["collectives"].items()},
+           "peak_mem_gb": [r["peak_mem_gb"] for r in reports],
+           "rank_param_max_abs_diff": rank_gap, "rank_param_bound": 0.0,
+           "checkpoint_writes": [len(r["checkpoint_writes"]) for r in reports],
+           "ckpt_files": sorted(p.name for p in (out / "ckpt").iterdir()),
+           "result_frames": len(frames), "result_unique_frames": len(set(frames)),
+           "fps_train_launches": [r["train_launches"] for r in reports],
+           "fps_eval_launches": [r["eval_launches"] for r in reports],
+           "eval_batches": [r["eval_batches"] for r in reports],
+           "seconds": seconds, "card": card}
+    emit(row)
+    for r in reports:
+        if len(r["history"]) != steps:
+            fail(f"ddp_train: rank {r['rank']} took {len(r['history'])} steps, not {steps}")
+        check_history(np, r["history"], f"ddp_train rank {r['rank']}")
+        if r["train_launches"] != per_step:
+            fail(f"ddp_train: rank {r['rank']} launched the fps kernels "
+                 f"{r['train_launches']} times in {steps} steps, not 3 + 3 a step")
+        n = r["eval_batches"]
+        if r["eval_launches"] != {"fps_cluster_kernel": 3 * n, "fps_warp_kernel": 3 * n}:
+            fail(f"ddp_train: rank {r['rank']}'s {n} eval batches launched {r['eval_launches']}")
+        if r["backend"] != backend:  # gloo where the processes share a card
+            fail(f"ddp_train: backend {r['backend']}, not {backend}")
+    if rank_gap != 0.0:
+        fail(f"ddp_train: the processes' weights part by {rank_gap}")
+    if row["checkpoint_writes"] != [epochs] + [0] * (world - 1) or row["ckpt_files"] != [
+            f"checkpoint_epoch_{e}.pth" for e in range(1, epochs + 1)]:
+        fail(f"ddp_train: checkpoint writes {row['checkpoint_writes']}, files {row['ckpt_files']}")
+    if frames != want_frames:
+        fail(f"ddp_train: the merged result.pkl holds {frames}, not each train frame once")
+    return [r["train_launches"] for r in reports], steps, [r["eval_launches"] for r in reports]
+
+
+def ddp_batch(torch, root):
+    """The train loader's first global batch of DDP_BATCH scans (CPU)."""
+    import numpy as np
+
+    from modest_tpu_torch.configs import POINTRCNN_DYNAMIC_OBJ_FULL
+    from modest_tpu_torch.data.loader import build_dataloader
+    from modest_tpu_torch.utils.config import Config
+
+    cfg = Config(POINTRCNN_DYNAMIC_OBJ_FULL)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    np.random.seed(666)
+    _, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, DDP_BATCH, training=True)
+    batch = next(iter(loader))
+    return {k: torch.from_numpy(batch[k]) for k in ("points", "gt_boxes")}
+
+
+def ddp_step(torch, dev, batch, rank: int = 0, world: int = 1, dtype=None):
+    """One SGD step of the seed-1 flagship on this process's rows of
+    ``batch`` in ``dtype`` (float32 when None; in float64 FPS samples a
+    float32 copy of the coordinates); (the weights before, the metrics, the
+    state dict after)."""
+    from modest_tpu_torch.configs import POINTRCNN_DYNAMIC_OBJ_FULL
+    from modest_tpu_torch.models import build_network
+    from modest_tpu_torch.ops import pointnet2
+    from modest_tpu_torch.train.state import create_train_state, train_step
+    from modest_tpu_torch.utils.config import Config
+
+    dtype = dtype or torch.float32
+    cfg = Config(POINTRCNN_DYNAMIC_OBJ_FULL)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), device=dev, seed=1).to(dtype)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    opt = Config({**cfg.OPTIMIZATION.to_dict(), "OPTIMIZER": "sgd"})
+    state = create_train_state(model, opt, int(cfg.OPTIMIZATION.NUM_EPOCHS) * TRAIN_SCANS)
+    b = batch["points"].shape[0] // world
+    rows = slice(rank * b, (rank + 1) * b)
+    fps = pointnet2.furthest_point_sample
+    pointnet2.furthest_point_sample = lambda xyz, npoint: fps(xyz.float(), npoint)
+    try:
+        metrics = train_step(state, cfg.MODEL, batch["points"][rows].to(dev, dtype),
+                             batch["gt_boxes"][rows].to(dev, dtype))
+    finally:
+        pointnet2.furthest_point_sample = fps
+    return before, {k: float(v.detach()) for k, v in metrics.items()}, model.state_dict()
+
+
+def ddp_step_rank(rank: int, port: int, batch_file: str, out: str) -> None:
+    """Process ``rank`` of phase ddp_step_vs_single: one step on its rows of
+    the global batch in a group of DDP_WORLD on the card; writes its metrics
+    and state dict to ``out/step_rank<r>.pth``."""
+    import torch
+
+    from modest_tpu_torch.parallel.multihost import shutdown, start_process_group
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = start_process_group(f"127.0.0.1:{port}", DDP_WORLD, rank, "cuda")
+    batch = torch.load(batch_file)
+    b = DDP_BATCH // DDP_WORLD
+    fps = fps_levels_vs_plain(torch, batch["points"][rank * b:(rank + 1) * b, :, :3].to(dev))
+    steps = {}
+    try:
+        for dtype in (torch.float32, torch.float64):
+            _, metrics, sd = ddp_step(torch, dev, batch, rank, DDP_WORLD, dtype)
+            steps[str(dtype)] = {"metrics": metrics, "state": {k: v.cpu() for k, v in sd.items()}}
+    finally:
+        shutdown()
+    torch.save({"steps": steps, "fps": fps}, Path(out) / f"step_rank{rank}.pth")
+
+
+def fps_levels_vs_plain(torch, xyz):
+    """Both FPS kernels against the plain FPS on a process's first batch:
+    the backbone's four levels chained on ``xyz`` (B, N, 3), each level's
+    indices compared (SA1–SA3 take the cluster kernel, SA4 the warp
+    kernel)."""
+    from modest_tpu_torch.configs import POINTRCNN_DYNAMIC_OBJ
+    from modest_tpu_torch.ops.fps import furthest_point_sample_cuda, furthest_point_sample_plain
+
+    rows = []
+    for npoint in POINTRCNN_DYNAMIC_OBJ["BACKBONE_3D"]["SA_CONFIG"]["NPOINTS"]:
+        before = dict(furthest_point_sample_cuda.launches)
+        got = furthest_point_sample_cuda(xyz, npoint).long()
+        want = furthest_point_sample_plain(xyz, npoint).long()
+        kernel = [k for k, v in furthest_point_sample_cuda.launches.items() if v != before[k]]
+        rows.append({"B": xyz.shape[0], "N": xyz.shape[1], "npoint": npoint, "kernel": kernel,
+                     "mismatches": int((got != want).sum())})
+        xyz = torch.gather(xyz, 1, want[..., None].expand(-1, -1, 3)).contiguous()
+    return rows
+
+
+def phase_ddp_step_vs_single(torch, np, dev, root, card):
+    """One step from the same weights: DDP_WORLD processes, each on its rows
+    of a global batch of DDP_BATCH with the global batch's RoI draws and
+    batch-norm statistics, against one process on the whole batch, in
+    float32 and in float64; each process first holds both FPS kernels
+    against the plain FPS on its rows (``fps_levels_vs_plain``). Returns the
+    FPS rows."""
+    from modest_tpu_torch.parallel.multihost import free_port
+
+    batch = ddp_batch(torch, root)
+    batch_file = root / "ddp_batch.pth"
+    torch.save(batch, batch_file)
+    port = free_port()
+    run_ranks("ddp_step_rank", [(r, port, str(batch_file), str(root)) for r in range(DDP_WORLD)],
+              root, "ddp_step")
+    got = [torch.load(root / f"step_rank{r}.pth") for r in range(DDP_WORLD)]
+    fps = [g["fps"] for g in got]
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        before, want_m, want_sd = ddp_step(torch, dev, batch, dtype=dtype)
+        mine = [g["steps"][str(dtype)] for g in got]
+        got_m, got_sd = mine[0]["metrics"], mine[0]["state"]
+        loss_err = {k: abs(got_m[k] - want_m[k]) / max(abs(want_m[k]), 1e-12)
+                    for k in want_m if k != "grad_norm"}
+        update_err = {}
+        for k, p0 in before.items():
+            want_u = want_sd[k].double() - p0.double()
+            got_u = got_sd[k].to(dev).double() - p0.double()
+            update_err[k] = float((got_u - want_u).norm()) / max(float(want_u.norm()), 1e-30)
+        buffers = [k for k in want_sd if k not in before and want_sd[k].dtype.is_floating_point]
+        worst = max(update_err, key=update_err.get)
+        rows[str(dtype).split(".")[-1]] = {
+            "metrics": got_m, "single_metrics": want_m, "loss_rel_err": loss_err,
+            "grad_norm_rel_err": abs(got_m["grad_norm"] - want_m["grad_norm"])
+            / want_m["grad_norm"],
+            "update_rel_err_max": update_err[worst], "update_rel_err_worst": worst,
+            "bn_buffer_rel_err_max": max(
+                float((got_sd[k].to(dev) - want_sd[k]).norm())
+                / max(float(want_sd[k].norm()), 1e-30) for k in buffers),
+            "ranks_equal": all(torch.equal(got_sd[k], m["state"][k]) for m in mine[1:]
+                               for k in got_sd) and all(m["metrics"] == got_m for m in mine[1:])}
+    emit({"phase": "ddp_step_vs_single", "processes": DDP_WORLD, "global_batch": DDP_BATCH,
+          "optimizer": "sgd", **rows, "loss_rtol": DDP_LOSS_RTOL,
+          "grad_norm_rtol": DDP_GRAD_NORM_RTOL, "update_rtol": DDP_UPDATE_RTOL,
+          "bounds_on": "float64 (losses, gradient norm, updates); float32 (the point head's "
+                       "losses, upstream of the RoI head's decisions)",
+          "fps_vs_plain": fps, "card": card})
+    if any(r["mismatches"] for ranks in fps for r in ranks) or {
+            k for ranks in fps for r in ranks for k in r["kernel"]} != {"fps_cluster_kernel",
+                                                                        "fps_warp_kernel"}:
+        fail(f"ddp_step_vs_single: the FPS kernels on the processes' batches: {fps}")
+    for name, row in rows.items():
+        if not row["ranks_equal"]:
+            fail(f"ddp_step_vs_single: the processes' {name} steps differ")
+    f32, f64 = rows["float32"], rows["float64"]
+    point = {k: f32["loss_rel_err"][k] for k in ("point_loss_cls", "point_loss_box")}
+    if max(point.values()) > DDP_LOSS_RTOL:
+        fail(f"ddp_step_vs_single: float32 point-head losses part by {point}")
+    if max(f64["loss_rel_err"].values()) > DDP_LOSS_RTOL:
+        fail(f"ddp_step_vs_single: float64 losses part by {f64['loss_rel_err']}")
+    if f64["grad_norm_rel_err"] > DDP_GRAD_NORM_RTOL:
+        fail(f"ddp_step_vs_single: gradient norms part by {f64['grad_norm_rel_err']}")
+    if f64["update_rel_err_max"] > DDP_UPDATE_RTOL:
+        fail(f"ddp_step_vs_single: {f64['update_rel_err_worst']}'s update parts by "
+             f"{f64['update_rel_err_max']} of its norm")
+    return fps
+
+
+def phase_nccl_world1(torch, np, dev, root, card):
+    """The port's process group on NCCL at world size 1 and one train step
+    through its collectives (the loss normalizers' sums, the gradient
+    all-reduce, the metrics' sum), against the same step with no group: bit
+    for bit. Both run with deterministic algorithms (the backward's
+    scatter-adds otherwise add in atomic order), and the step without a
+    group runs twice to show the card repeats itself."""
+    import torch.distributed as dist
+
+    from modest_tpu_torch.parallel import mesh
+    from modest_tpu_torch.parallel.multihost import free_port, shutdown, start_process_group
+
+    batch = {k: v[:TRAIN_BATCH] for k, v in ddp_batch(torch, root).items()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, plain_m, plain_sd = ddp_step(torch, dev, batch)
+        _, again_m, again_sd = ddp_step(torch, dev, batch)
+        start_process_group(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+        try:
+            backend = dist.get_backend()
+            mesh.calls.update(dict.fromkeys(mesh.calls, 0))
+            _, group_m, group_sd = ddp_step(torch, dev, batch)
+            calls = dict(mesh.calls)
+        finally:
+            shutdown()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    repeats = plain_m == again_m and all(torch.equal(plain_sd[k], again_sd[k]) for k in plain_sd)
+    differ = [k for k in plain_sd if not torch.equal(plain_sd[k], group_sd[k])]
+    emit({"phase": "nccl_world1", "backend": backend, "collectives": calls,
+          "metrics_equal": group_m == plain_m, "tensors_differ": differ,
+          "plain_step_repeats": repeats, "metrics": group_m, "card": card})
+    if backend != "nccl" or calls["reduce_gradients"] != 1 or calls["global_sum"] == 0:
+        fail(f"nccl_world1: backend {backend}, collectives {calls}")
+    if not repeats:
+        fail("nccl_world1: the step without a group gave other bits on its second run")
+    if differ or group_m != plain_m:
+        fail(f"nccl_world1: the step in the group differs at {differ[:5]} "
+             f"(metrics equal: {group_m == plain_m})")
 
 
 def shipped_config(path, root):
@@ -3997,6 +4402,10 @@ def main() -> int:
         train_launches, train_steps = phase_train(torch, np, dev, tmp, card)
         phase_train_overfit(torch, np, dev, tmp, card)
         phase_train_card_vs_cpu(torch, np, dev, tmp, card)
+        torch.cuda.empty_cache()
+        ddp_launches, ddp_steps, ddp_eval_launches = phase_ddp_train(torch, np, tmp, card)
+        ddp_fps = phase_ddp_step_vs_single(torch, np, dev, tmp, card)
+        phase_nccl_world1(torch, np, dev, tmp, card)
         phase_grid(torch, np, api, build_network, dev, tmp, card)
         pv_row, (pv_train_launches, pv_steps, pv_test_batches) = phase_pv_rcnn(
             torch, np, api, build_network, dev, tmp, card)
@@ -4126,6 +4535,16 @@ def main() -> int:
             **({"kitti": {stage: {key: fps_rows[stage][key] for key in row_keys}
                           for stage in ("kitti_sa1", "train_kitti_sa1")}}
                if kernel == "fps_cluster_kernel" else {}),
+            "ddp_train_launches": [n[kernel] for n in ddp_launches],
+            "ddp_train_steps": ddp_steps,
+            "ddp_eval_launches": [n[kernel] for n in ddp_eval_launches],
+            "ddp_mismatches": sum(r["mismatches"] for rows in ddp_fps for r in rows
+                                  if kernel in r["kernel"]),
+            "ddp_shapes": "phase ddp_train: launches of each of the 2 processes sharing the "
+                          "card (B=2 of a global 4, the train_* rows' shapes) over its steps, "
+                          "then over its batches of the merged eval; ddp_mismatches: the "
+                          "indices against the plain FPS on each process's first batch "
+                          "(phase ddp_step_vs_single)",
             "demo_launches": demo_launches[kernel], "demo_frames": DEMO_FRAMES,
             "demo_shapes": "cli/demo.py, the flagship PointRCNN at B=1 on raw .bin scans "
                            "sampled to 12288 points; the first frame's calls held against "

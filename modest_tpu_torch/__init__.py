@@ -18,5 +18,7 @@ boxes (``pipeline.clustering``, ``pipeline.box_fit``, ``pipeline.seed_labels``,
 ``cli.combine_labels``, ``cli.gen_gt_mask``) and the driver
 (``cli.self_train``); and the grid detectors PointPillars and SECOND
 (``models.voxelize``, ``models.sparse_conv``, ``models.grid_detectors``),
-which train, test and self-train through the same entry points.
+which train, test and self-train through the same entry points. Training
+and evaluation also run data-parallel in several processes, one device each
+(``parallel``: the JAX package's sharded step over the global batch).
 """

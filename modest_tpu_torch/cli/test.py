@@ -12,13 +12,18 @@ range-bucketed R40 AP. ``--ckpt_dir`` holds the train CLI's checkpoints;
 train CLI's ``--pretrained_model`` does; ``--eval_all`` evaluates every
 checkpoint of ``--ckpt_dir`` and then waits up to ``--max_waiting_mins`` for
 new ones, keeping the epochs done in ``eval_list_<split>.txt``. Runs on the
-card unless ``--device cpu``; without CUDA the default raises. One process
-on one device: ``--num_devices`` > 1 raises. ``--set`` comes last.
+card unless ``--device cpu``; without CUDA the default raises.
+``--num_devices N`` evaluates in N processes on this host, one card each (or
+N on the CPU with ``--device cpu``), each on its shard of the split at a
+global batch of ``--batch_size`` or ``BATCH_SIZE_PER_GPU`` × N; rank 0
+merges the shards and evaluates, and ``main`` returns None once they all
+have ended. ``--set`` comes last.
 """
 from __future__ import annotations
 
 import argparse
 import datetime
+import sys
 import time
 from pathlib import Path
 
@@ -26,6 +31,8 @@ import numpy as np
 
 from ..data.loader import build_dataloader
 from ..models import build_network
+from ..parallel.mesh import broadcast_object, world
+from ..parallel.multihost import init_multihost, shutdown, spawn_local
 from ..train.checkpoint import CheckpointManager, load_params_partial
 from ..train.loop import eval_one_epoch
 from ..utils.config import cfg_from_list
@@ -45,7 +52,7 @@ def parse_args(argv=None):
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--extra_tag", type=str, default="default")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="1 only: multi-device eval is not ported")
+                        help="evaluate in this many processes on this host, one device each")
     parser.add_argument("--data_path", type=str, default=None)
     parser.add_argument("--output_dir", type=str, default=None)
     parser.add_argument("--save_to_file", action="store_true")
@@ -60,13 +67,32 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    """Evaluate; returns (det_annos, results) of the last epoch evaluated."""
+    """Evaluate; returns (det_annos, results) of the last epoch evaluated
+    (None with ``--num_devices`` > 1: the results are in the output
+    directory)."""
     args = parse_args(argv)
-    if (args.num_devices or 1) > 1:
-        raise NotImplementedError("modest_tpu_torch evaluates in one process on one device")
     if not (args.ckpt_dir or args.torch_ckpt):
         raise ValueError("--ckpt_dir or --torch_ckpt is required")
-    device = resolve_device(args.device)
+    if (args.num_devices or 1) > 1:
+        spawn_local(_spawned_rank, args.num_devices, args.device,
+                    (sys.argv[1:] if argv is None else list(argv),))
+        return None
+    return _test(args, resolve_device(args.device))
+
+
+def _spawned_rank(rank: int, nprocs: int, coordinator: str, argv):
+    """Process ``rank`` of the ``--num_devices`` processes that ``main``
+    starts."""
+    args = parse_args(argv)
+    device = init_multihost(coordinator, nprocs, rank, args.device)
+    try:
+        _test(args, device)
+    finally:
+        shutdown()
+
+
+def _test(args, device):
+    rank, size = world()
     cfg = load_model_config(args.cfg_file)
     cfg.TAG = Path(args.cfg_file).stem
     if args.set_cfgs is not None:
@@ -77,7 +103,7 @@ def main(argv=None):
 
     out_root = (Path(args.output_dir) if args.output_dir
                 else Path("output") / cfg.TAG / args.extra_tag)
-    batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU) * size
     eval_set, eval_loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
                                              training=False, num_workers=args.workers)
     model = build_network(cfg.MODEL, num_class=len(cfg.CLASS_NAMES), device=device,
@@ -87,8 +113,8 @@ def main(argv=None):
     def eval_epoch(epoch):
         result_dir = out_root / "eval" / f"epoch_{epoch}" / split
         result_dir.mkdir(parents=True, exist_ok=True)
-        logger = create_logger(
-            result_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt")
+        log_file = result_dir / f"log_eval_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt"
+        logger = create_logger(log_file if rank == 0 else None, rank)
         logger.info(f"evaluating epoch {epoch} on split {split}; device: {device}")
         return eval_one_epoch(model, cfg.MODEL, eval_loader, eval_set, cfg.CLASS_NAMES,
                               device=device, result_dir=result_dir, logger=logger,
@@ -115,9 +141,11 @@ def main(argv=None):
         last_new = time.time()
         results = None
         while True:
+            # rank 0's view of the directory decides for every process
             pending = sorted(set(manager.epochs()) - done)
+            waited = (time.time() - last_new) / 60
+            pending, waited = broadcast_object((pending, waited))
             if not pending:
-                waited = (time.time() - last_new) / 60
                 if waited > args.max_waiting_mins:
                     print(f"no new checkpoint for {waited:.1f} min: exiting")
                     return results
@@ -126,7 +154,8 @@ def main(argv=None):
             epoch = manager.restore_model(model, pending[0])
             results = eval_epoch(epoch)
             done.add(epoch)
-            record.write_text("".join(f"{e}\n" for e in sorted(done)))
+            if rank == 0:
+                record.write_text("".join(f"{e}\n" for e in sorted(done)))
             last_new = time.time()
     finally:
         eval_loader.close()

@@ -4,18 +4,27 @@ tools/train.py).
 Usage:
   python -m modest_tpu_torch.cli.train --cfg_file configs/models/lyft_models/pointrcnn_dynamic_obj.yaml \\
       [--batch_size B] [--epochs E] [--extra_tag TAG] [--fix_random_seed] [--device cpu] \\
-      [--merge_all_iters_to_one_epoch] [--output_dir DIR] [--set KEY VALUE ...]
+      [--merge_all_iters_to_one_epoch] [--output_dir DIR] [--num_devices N] \\
+      [--launcher {none,slurm,manual} --coordinator HOST:PORT --num_processes N --process_id I] \\
+      [--set KEY VALUE ...]
 
 Runs on the card unless ``--device cpu``; without CUDA the default raises.
 Every detector config of ``configs/models/lyft_models/`` trains (PointRCNN,
 PointPillars, SECOND, PV-RCNN, SECOND-IoU, Voxel R-CNN, Part-A2), and
 ``configs/models/nuscenes_boston_models/pointrcnn_dynamic_obj.yaml``. When ``--cfg_file`` names a config that ships as a dict
 (``configs.SHIPPED_MODEL_CONFIGS``) no YAML parser is needed; any other file
-is read with PyYAML. One process on one device: multi-process training
-(``--launcher``, ``--num_devices`` > 1) is not ported and raises. A run
-resumes from the newest checkpoint in its output directory;
-``--eval_after_train`` then evaluates the trained weights on the test split
-(``eval/epoch_<E>/val/result.pkl``), as ``cli/test.py`` does.
+is read with PyYAML. A run resumes from the newest checkpoint in its output
+directory; ``--eval_after_train`` then evaluates the trained weights on the
+test split (``eval/epoch_<E>/val/result.pkl``), as ``cli/test.py`` does.
+
+Data-parallel training, one process per device, computes the JAX package's
+sharded step over the global batch (``--batch_size``, or
+``BATCH_SIZE_PER_GPU`` × the processes): ``--num_devices N`` starts N
+processes on this host, one card each (or N on the CPU with ``--device
+cpu``), and returns when all have ended; ``--launcher manual`` (with
+``--coordinator``, ``--num_processes``, ``--process_id``) or ``slurm`` (from
+SLURM's environment) makes this process one of them. Rank 0 writes the
+checkpoints, the metrics and the log file, and the merged evaluation.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import copy
 import dataclasses
 import datetime
 import logging
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +41,8 @@ import numpy as np
 from ..configs import SHIPPED_MODEL_CONFIGS
 from ..data.loader import build_dataloader
 from ..models import build_network
+from ..parallel.mesh import broadcast_parameters, world
+from ..parallel.multihost import init_multihost, shutdown, spawn_local
 from ..train.checkpoint import CheckpointManager, load_params_partial
 from ..train.loop import eval_one_epoch, train_model
 from ..train.metrics import MetricsLogger
@@ -41,9 +53,11 @@ from ..utils.device import resolve_device
 REPO = Path(__file__).resolve().parents[2]
 
 
-def create_logger(log_file=None):
+def create_logger(log_file=None, rank: int = 0):
+    """The package's logger, to the console and ``log_file``; a process
+    other than rank 0 logs warnings only."""
     logger = logging.getLogger("modest_tpu_torch")
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if rank == 0 else logging.WARNING)
     logger.handlers.clear()
     fmt = logging.Formatter("%(asctime)s  %(levelname)5s  %(message)s")
     sh = logging.StreamHandler()
@@ -86,9 +100,14 @@ def parse_config(argv=None):
                              "in one dispatch with results equal to single steps; here every "
                              "step is dispatched on its own")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="1 only: multi-device training is not ported")
+                        help="start this many processes on this host, one device each")
     parser.add_argument("--launcher", choices=["none", "slurm", "manual"], default="none",
-                        help="none only: multi-process training is not ported")
+                        help="this process is one of several: slurm reads SLURM's "
+                             "environment, manual the three flags below")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="host:port of process 0's rendezvous")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--max_gt", type=int, default=64)
     parser.add_argument("--data_path", type=str, default=None,
                         help="override DATA_CONFIG.DATA_PATH")
@@ -111,12 +130,41 @@ def parse_config(argv=None):
 def main(argv=None, stage_times: bool = False):
     """Train; returns the ``TrainState`` with ``history`` (the loop's per-step
     records) and ``start_epoch``. ``stage_times`` adds CUDA-event stage
-    times to every step's record."""
+    times to every step's record. With ``--num_devices`` > 1 the processes
+    it starts train and this returns None once they all have ended; the
+    results are in the output directory."""
     args, cfg = parse_config(argv)
-    if args.launcher != "none" or (args.num_devices or 1) > 1:
-        raise NotImplementedError("modest_tpu_torch trains in one process on one device; "
-                                  "multi-process training is not ported")
-    device = resolve_device(args.device)
+    if args.launcher == "none" and (args.num_devices or 1) > 1:
+        spawn_local(_spawned_rank, args.num_devices, args.device,
+                    (sys.argv[1:] if argv is None else list(argv), stage_times))
+        return None
+    if args.launcher != "none" and (args.num_devices or 1) > 1:
+        raise ValueError("a launched process drives one device: --num_devices > 1 starts "
+                         "processes of its own and takes no --launcher")
+    return _run(args, cfg, stage_times)
+
+
+def _spawned_rank(rank: int, nprocs: int, coordinator: str, argv, stage_times: bool):
+    """Process ``rank`` of the ``--num_devices`` processes that ``main``
+    starts."""
+    args, cfg = parse_config(argv)
+    args.launcher, args.num_devices = "manual", None
+    args.coordinator, args.num_processes, args.process_id = coordinator, nprocs, rank
+    _run(args, cfg, stage_times)
+
+
+def _run(args, cfg, stage_times: bool):
+    """Train in this process: one of a process group under a launcher."""
+    device = (init_multihost(args.coordinator, args.num_processes, args.process_id, args.device)
+              if args.launcher != "none" else resolve_device(args.device))
+    try:
+        return _train(args, cfg, device, stage_times)
+    finally:
+        shutdown()
+
+
+def _train(args, cfg, device, stage_times: bool):
+    rank, size = world()
     if args.fix_random_seed:
         np.random.seed(666)
         args.workers = 0
@@ -124,10 +172,15 @@ def main(argv=None, stage_times: bool = False):
     out_root = (Path(args.output_dir) if args.output_dir
                 else Path("output") / cfg.TAG / args.extra_tag)
     out_root.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(out_root / f"log_train_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt")
+    log_file = out_root / f"log_train_{datetime.datetime.now():%Y%m%d-%H%M%S}.txt"
+    logger = create_logger(log_file if rank == 0 else None, rank)
     logger.info(f"config: {args.cfg_file}; output: {out_root}; device: {device}")
+    if size > 1:
+        import torch.distributed as dist
 
-    batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+        logger.info(f"{size} processes, backend {dist.get_backend()}")
+
+    batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU) * size
     epochs = args.epochs or int(cfg.OPTIMIZATION.NUM_EPOCHS)
     train_set, train_loader = build_dataloader(
         cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size, training=True, logger=logger,
@@ -151,8 +204,9 @@ def main(argv=None, stage_times: bool = False):
     elif args.pretrained_model is not None:
         n_loaded, n_skipped = load_params_partial(model, args.pretrained_model, logger=logger)
         logger.info(f"pretrained transfer: {n_loaded} tensors loaded, {n_skipped} kept at init")
+    broadcast_parameters(model)
 
-    metrics_logger = MetricsLogger(out_root)
+    metrics_logger = MetricsLogger(out_root) if rank == 0 else None
     try:
         history = train_model(
             state, cfg.MODEL, train_loader, device=device, start_epoch=start_epoch,
@@ -161,7 +215,8 @@ def main(argv=None, stage_times: bool = False):
             merge_all_iters_to_one_epoch=args.merge_all_iters_to_one_epoch,
             metrics_logger=metrics_logger, stage_times=stage_times)
     finally:
-        metrics_logger.close()
+        if metrics_logger is not None:
+            metrics_logger.close()
         train_loader.close()
     if manager.latest_epoch() != epochs:  # the interval saves may already cover it
         manager.save(state, epochs)

@@ -14,6 +14,10 @@ receives the dataset once, pickled. Each batch is built under a seed derived
 from (loader seed, epoch, batch index), so the batches are the same for any
 worker count, 0 included. ``prefetch_to_device`` copies a batch's arrays
 into pinned memory and onto the device without blocking, one batch ahead.
+
+In a process group (``parallel/``) ``build_dataloader`` gives each process
+its shard of every global batch: all shuffle one order and process p keeps
+every nproc-th sample from p, in batches of the global batch / nproc.
 """
 from __future__ import annotations
 
@@ -91,7 +95,7 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, max_gt: int = MAX_GT_DEFAULT,
                  drop_last: bool = True, seed: int = 0, num_workers: int = 0,
-                 use_procs: bool | None = None):
+                 process_shard: tuple | None = None, use_procs: bool | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -100,15 +104,30 @@ class DataLoader:
         self.seed = seed
         self.epoch = 0
         self.num_workers = num_workers
+        # (process_id, num_processes): every process shuffles the SAME global
+        # order (shared seed) then keeps its interleaved slice — the
+        # DistributedSampler contract; batch_size is the per-process batch
+        self.process_shard = process_shard
         self.use_procs = use_procs
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
 
-    def __len__(self):
+    def _local_count(self):
         n = len(self.dataset)
+        if self.process_shard is not None:
+            pid, nproc = self.process_shard
+            n = len(range(pid, n, nproc))
+        return n
+
+    def __len__(self):
         if self.drop_last:
-            return n // self.batch_size
+            # the whole global batches: every process takes as many batches
+            # (a process-sharded JAX loader gives the first processes one
+            # more when the split is not a multiple of the processes)
+            nproc = self.process_shard[1] if self.process_shard is not None else 1
+            return len(self.dataset) // (self.batch_size * nproc)
+        n = self._local_count()
         return (n + self.batch_size - 1) // self.batch_size
 
     def _batch_indices(self):
@@ -116,18 +135,22 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(order)
-        for start in range(0, len(order), self.batch_size):
+        if self.process_shard is not None:
+            pid, nproc = self.process_shard
+            order = order[pid::nproc]
+        stop = len(self) * self.batch_size if self.drop_last else len(order)
+        for start in range(0, stop, self.batch_size):
             idx = order[start : start + self.batch_size]
-            if len(idx) < self.batch_size:
-                if self.drop_last:
-                    return
+            if len(idx) < self.batch_size:  # never with drop_last (``stop``)
                 # pad the tail batch by wrapping (keeps static shapes); the
                 # eval loop de-dupes by frame_id
                 idx = np.concatenate([idx, order[: self.batch_size - len(idx)]])
             yield idx
 
     def _seed_for(self, batch_i: int) -> int:
-        # per-batch augmentation stream: identical output for any worker count
+        # per-batch augmentation stream: identical output for any worker
+        # count; no rank in it, so every process's batch i starts from one
+        # seed (as in the JAX package; pcdet's workers differ by rank)
         return (self.seed * 1_000_003 + self.epoch * 100_019 + batch_i) % (2**31)
 
     def _build(self, idx, batch_i: int):
@@ -212,6 +235,10 @@ def prefetch_to_device(loader, device):
 def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None, training=True,
                      logger=None, total_epochs=1, merge_all_iters_to_one_epoch=False,
                      max_gt: int = MAX_GT_DEFAULT, num_workers: int = 0):
+    """The dataset of ``dataset_cfg`` and its loader of global batches of
+    ``batch_size``; in a process group, this process's shard of each."""
+    from ..parallel.mesh import world  # here: spawned workers import this module
+
     name = dataset_cfg.get("DATASET", "KittiDataset")
     if name == "NuScenesDataset":
         from .nuscenes_dataset import NuScenesDataset as dataset_cls
@@ -223,6 +250,17 @@ def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None, train
                           root_path=root_path, logger=logger)
     if merge_all_iters_to_one_epoch:
         dataset.merge_all_iters_to_one_epoch(True, total_epochs)
+    # with a process group each process loads its shard of every global batch
+    pid, nproc = world()
+    process_shard = None
+    if nproc > 1:
+        if batch_size % nproc:
+            raise ValueError(f"global batch_size {batch_size} must divide evenly across "
+                             f"{nproc} processes — a silent floor would change the "
+                             "effective batch/LR schedule")
+        process_shard = (pid, nproc)
+        batch_size //= nproc
     loader = DataLoader(dataset, batch_size, shuffle=training, max_gt=max_gt,
-                        drop_last=training, num_workers=num_workers)
+                        drop_last=training, num_workers=num_workers,
+                        process_shard=process_shard)
     return dataset, loader

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.mesh import global_sum
 from ..utils.config import Config
 from .box_coders import ResidualCoder
 from .grid_detectors import (
@@ -305,7 +306,7 @@ def caddn_depth_loss(depth_logits, depth_maps, d_min: float, d_max: float, num_b
         w = w * torch.where(inside.any(dim=1), fg_weight, bg_weight)
     one_hot = F.one_hot(target, num_bins + 1).to(depth_logits.dtype)
     per = sigmoid_focal_loss(depth_logits, one_hot, w)
-    return per.sum() / torch.clamp_min(w.sum(), 1.0)
+    return per.sum() / torch.clamp_min(global_sum(w.sum()), 1.0)
 
 
 def caddn_loss(out, gt_boxes, cfg, num_class: int = 1, depth_maps=None):

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.mesh import global_batch, rank_rows
 from .layers import BatchNorm2d
 
 RESNET_BLOCKS = {"ResNet50": (3, 4, 6, 3), "ResNet101": (3, 4, 23, 3)}
@@ -110,7 +111,8 @@ class ASPP(nn.Module):
 
     def forward(self, x, dropout=None):
         """``dropout`` (train mode): a bool keep mask of the output's shape,
-        or a ``torch.Generator`` to draw it from (the global one when None)."""
+        or a ``torch.Generator`` to draw it from (the global one when None)
+        for the global batch's rows."""
         outs = [conv(x) for conv in self.convs]
         outs[-1] = outs[-1].expand_as(outs[0])  # a 1 × 1 map's bilinear resize is a broadcast
         conv, bn, relu, _ = self.project
@@ -118,7 +120,11 @@ class ASPP(nn.Module):
         if not self.training:
             return y
         if not isinstance(dropout, torch.Tensor):
-            dropout = torch.rand(y.shape, generator=dropout, device=y.device) >= DROPOUT
+            # drawn for the global batch, as JAX's sharded step draws it; this
+            # process keeps its rows
+            b = y.shape[0]
+            u = torch.rand((global_batch(b), *y.shape[1:]), generator=dropout, device=y.device)
+            dropout = rank_rows(u, b) >= DROPOUT
         return torch.where(dropout, y / (1.0 - DROPOUT), 0.0)
 
 

@@ -28,6 +28,7 @@ from torch import nn
 
 from ..ops.box_torch import limit_period
 from ..ops.iou3d import boxes_iou3d, boxes_iou_bev, multi_classes_nms, nms_bev
+from ..parallel.mesh import global_batch
 from ..utils.config import Config
 from .box_coders import ResidualCoder
 from .layers import BatchNorm2d, Conv2d, MaskedBatchNorm
@@ -587,7 +588,6 @@ def grid_detector_loss(out, cfg, num_class: int = 1):
     cls_preds, box_preds = out["cls_preds"], out["box_preds"]
     labels, reg_targets = out["box_cls_labels"], out["box_reg_targets"]
     anchors = out["anchors"][None]
-    b = cls_preds.shape[0]
     if cls_preds.shape[-1] != num_class:
         raise ValueError(f"cls_preds have {cls_preds.shape[-1]} class columns, the loss was "
                          f"asked for num_class={num_class}")
@@ -598,6 +598,7 @@ def grid_detector_loss(out, cfg, num_class: int = 1):
     cls_w = (negatives.float() + positives.float()) / pos_norm
     reg_w = positives.float() / pos_norm
     one_hot = nn.functional.one_hot(labels.long().clamp_min(0), num_class + 1)[..., 1:].float()
+    b = global_batch(cls_preds.shape[0])  # the per-sample sums are averaged over the global batch
     cls_loss = sigmoid_focal_loss(cls_preds, one_hot, cls_w).sum() / b * lw.cls_weight
 
     if out.get("box_coder_sincos", False):

@@ -15,6 +15,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..parallel.mesh import global_sum, world
+
 
 class BatchNorm(nn.BatchNorm1d):
     """``nn.BatchNorm1d`` that trains as flax's ``nn.BatchNorm(momentum=0.9,
@@ -46,9 +48,18 @@ def _flax_train_norm(bn, x, dims, shape):
     """flax's train-mode batch norm over ``dims`` of ``x``: the fast biased
     variance, the running statistics moved by it, and (x − mean) ·
     (rsqrt(var + eps) · weight) + bias; per-channel vectors are viewed as
-    ``shape``."""
-    mean = x.mean(dim=dims)
-    var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+    ``shape``. In a process group of several processes the statistics are
+    the global batch's, from (Σx, Σx², count) summed over the processes in
+    one all-reduce, as JAX's sharded step takes them."""
+    if world()[1] > 1:
+        c = bn.num_features
+        count = x.new_full((1,), x.numel() / c)
+        stats = global_sum(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims), count]))
+        mean = stats[:c] / stats[-1]
+        var = torch.clamp_min(stats[c:2 * c] / stats[-1] - mean * mean, 0.0)
+    else:
+        mean = x.mean(dim=dims)
+        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
     _update_running(bn, mean, var)
     return ((x - mean.view(shape)) * (torch.rsqrt(var + bn.eps) * bn.weight).view(shape)
             + bn.bias.view(shape))
@@ -160,8 +171,9 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     ``forward(x (..., C), mask (...))``. In train mode the statistics cover
     every masked row of the whole batch (the population the reference's
     BN1d sees), with the two-pass biased variance Σw(x − mean)² / Σw, and the
-    running statistics move by r ← 0.99 r + 0.01 · batch. Unmasked rows come
-    out 0. The keys are ``nn.BatchNorm1d``'s (pcdet's ``norm_fn``, eps 1e-3,
+    running statistics move by r ← 0.99 r + 0.01 · batch; in a process group
+    of several processes the statistics are the global batch's. Unmasked rows
+    come out 0. The keys are ``nn.BatchNorm1d``'s (pcdet's ``norm_fn``, eps 1e-3,
     momentum 0.01)."""
 
     def __init__(self, num_features: int):
@@ -173,9 +185,15 @@ class MaskedBatchNorm(nn.BatchNorm1d):
         mf = mask.reshape(-1)
         if self.training:
             w = mf.to(xf.dtype)[:, None]
-            cnt = torch.clamp_min(w.sum(), 1.0)
-            mean = (xf * w).sum(0) / cnt
-            var = (torch.square(xf - mean) * w).sum(0) / cnt
+            if world()[1] > 1:  # the global batch's masked rows: (Σwx, Σw), then Σw(x − mean)²
+                sums = global_sum(torch.cat([(xf * w).sum(0), w.sum().reshape(1)]))
+                cnt = torch.clamp_min(sums[-1], 1.0)
+                mean = sums[:c] / cnt
+                var = global_sum((torch.square(xf - mean) * w).sum(0)) / cnt
+            else:
+                cnt = torch.clamp_min(w.sum(), 1.0)
+                mean = (xf * w).sum(0) / cnt
+                var = (torch.square(xf - mean) * w).sum(0) / cnt
             _update_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from ..ops.roiaware_pool3d import roiaware_cells, roiaware_pool3d
+from ..parallel.mesh import global_sum
 from ..utils.config import Config
 from .box_coders import PointResidualCoder, ResidualCoder
 from .grid_detectors import MAX_VOXELS, TwoStageGridDetector, grid_detector_loss
@@ -276,10 +277,11 @@ def parta2_loss(out, gt_boxes, cfg, num_class: int = 1):
     seg_t = out["seg_targets"]
     w = valid.float()
     seg_per = sigmoid_focal_loss(out["seg_logits"][..., None], seg_t[..., None], w)[..., 0]
-    loss_seg = seg_per.sum() / w.sum().clamp_min(1.0) * float(lw.point_cls_weight)
+    loss_seg = seg_per.sum() / global_sum(w.sum()).clamp_min(1.0) * float(lw.point_cls_weight)
     fw = ((seg_t > 0.5) & valid).float()
     part_per = binary_cross_entropy(out["part_reg"], out["part_targets"]).sum(-1)
-    loss_part = (part_per * fw).sum() / fw.sum().clamp_min(1.0) * float(lw.point_part_weight)
+    loss_part = ((part_per * fw).sum() / global_sum(fw.sum()).clamp_min(1.0)
+                 * float(lw.point_part_weight))
     loss_cls, loss_reg, loss_corner = rcnn_refinement_loss(out, cfg)
     total = loss1 + loss_seg + loss_part + loss_cls + loss_reg + loss_corner
     metrics = dict(metrics)
@@ -299,7 +301,7 @@ def parta2_free_loss(out, gt_boxes, cfg, num_class: int = 1):
         box_weight=float(lw.point_box_weight), code_weights=list(lw.code_weights))
     fw = ((out["seg_targets"] > 0.5) & out["voxel_valid"]).float()
     part_per = binary_cross_entropy(out["part_reg"], out["part_targets"]).sum(-1)
-    loss_part = ((part_per * fw).sum() / fw.sum().clamp_min(1.0)
+    loss_part = ((part_per * fw).sum() / global_sum(fw.sum()).clamp_min(1.0)
                  * float(lw.get("point_part_weight", 1.0)))
     rw = cfg.ROI_HEAD.LOSS_CONFIG.LOSS_WEIGHTS
     loss_rcnn_cls, loss_rcnn_reg, loss_corner = roi_head_loss(

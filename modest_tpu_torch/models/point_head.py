@@ -9,6 +9,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.box_torch import enlarge_box3d, points_in_boxes_index
+from ..parallel.mesh import global_sum
 from .box_coders import PointResidualCoder
 from .layers import FCHead
 from .losses import sigmoid_focal_loss, weighted_smooth_l1
@@ -53,13 +54,15 @@ def assign_point_targets(points_xyz, gt_boxes, box_coder: PointResidualCoder,
 def point_head_loss(cls_preds, box_preds, cls_labels, box_labels, num_class: int,
                     cls_weight=1.0, box_weight=1.0, code_weights=None):
     """Focal cls + smooth-L1 reg (reference point_head_template.py:131-191).
-    Returns (loss_cls, loss_box, the clipped positive count)."""
+    Returns (loss_cls, loss_box, the clipped positive count). The counts are
+    the global batch's (``global_sum``): in a process group each loss is this
+    process's share."""
     cls_preds = cls_preds.reshape(-1, num_class)
     cls_labels = cls_labels.reshape(-1)
     positives = cls_labels > 0
     negatives = cls_labels == 0
     cls_w = (negatives.float() + 1.0 * positives.float())
-    pos_norm = positives.sum().float().clamp_min(1.0)
+    pos_norm = global_sum(positives.sum().float()).clamp_min(1.0)
     cls_w = cls_w / pos_norm
     one_hot = F.one_hot(cls_labels.long().clamp_min(0), num_class + 1)[:, 1:].to(cls_preds.dtype)
     loss_cls = sigmoid_focal_loss(cls_preds, one_hot, cls_w).sum() * cls_weight
@@ -67,7 +70,7 @@ def point_head_loss(cls_preds, box_preds, cls_labels, box_labels, num_class: int
     box_preds = box_preds.reshape(-1, box_preds.shape[-1])
     box_labels = box_labels.reshape(-1, box_labels.shape[-1])
     reg_w = positives.float()
-    reg_w = reg_w / reg_w.sum().clamp_min(1.0)
+    reg_w = reg_w / global_sum(reg_w.sum()).clamp_min(1.0)
     loss_box = weighted_smooth_l1(box_preds[None], box_labels[None], reg_w[None],
                                   code_weights).sum() * box_weight
     return loss_cls, loss_box, pos_norm

@@ -29,6 +29,7 @@ from torch import nn
 from ..ops import pointnet2 as p2
 from ..ops.box_torch import points_in_boxes_index
 from ..ops.pointnet2_stack import query_and_group_masked
+from ..parallel.mesh import global_mean
 from .box_coders import ResidualCoder
 from .grid_detectors import MAX_VOXELS, GridDetector, grid_detector_loss
 from .layers import FCHead, SharedMLP
@@ -258,8 +259,8 @@ def pvrcnn_loss(out, gt_boxes, cfg, num_class: int = 1):
     seg_target = (points_in_boxes_index(out["keypoints"], gt_boxes[..., :7], gt_valid)
                   >= 0).float()
     pkw_w = float(cfg.POINT_HEAD.LOSS_CONFIG.LOSS_WEIGHTS.point_cls_weight)
-    loss_pkw = binary_cross_entropy(torch.sigmoid(out["pkw_logits"][..., 0]),
-                                    seg_target).mean() * pkw_w
+    loss_pkw = global_mean(binary_cross_entropy(torch.sigmoid(out["pkw_logits"][..., 0]),
+                                                seg_target)) * pkw_w
     rw = cfg.ROI_HEAD.LOSS_CONFIG.LOSS_WEIGHTS
     loss_rcnn_cls, loss_rcnn_reg, loss_corner = roi_head_loss(
         out["rcnn_cls"], out["rcnn_reg"], out["roi_targets"], ResidualCoder(),

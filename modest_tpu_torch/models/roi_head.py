@@ -17,6 +17,7 @@ from torch import nn
 from ..ops import pointnet2 as p2
 from ..ops.box_torch import rotate_points_along_z
 from ..ops.iou3d import boxes_iou3d, nms_bev
+from ..parallel.mesh import global_sum
 from .box_coders import ResidualCoder
 from .layers import FCHead, SharedMLP
 from .losses import binary_cross_entropy, corner_loss_lidar, weighted_smooth_l1
@@ -238,7 +239,8 @@ def roi_head_loss(rcnn_cls, rcnn_reg, targets, box_coder: ResidualCoder,
     """BCE over the sampled RoIs' labels (−1 ignored), smooth-L1 on the
     residuals against RoI anchors at the origin with heading 0, and the
     corner loss of the decoded foreground boxes (reference
-    roi_head_template.py:133-228). Returns (cls, reg, corner) losses."""
+    roi_head_template.py:133-228). Returns (cls, reg, corner) losses, each
+    normalized by the global batch's counts (``global_sum``)."""
     code_size = box_coder.code_size
     labels = targets["rcnn_cls_labels"].reshape(-1)
     reg_valid = targets["reg_valid_mask"].reshape(-1)
@@ -249,10 +251,10 @@ def roi_head_loss(rcnn_cls, rcnn_reg, targets, box_coder: ResidualCoder,
     probs = torch.sigmoid(rcnn_cls.reshape(-1))
     cls_valid = (labels >= 0).float()
     bce = binary_cross_entropy(probs, labels.clamp_min(0).float())
-    loss_cls = (bce * cls_valid).sum() / cls_valid.sum().clamp_min(1.0) * cls_weight
+    loss_cls = (bce * cls_valid).sum() / global_sum(cls_valid.sum()).clamp_min(1.0) * cls_weight
 
     fg_f = (reg_valid > 0).float()
-    fg_sum = fg_f.sum().clamp_min(1.0)
+    fg_sum = global_sum(fg_f.sum()).clamp_min(1.0)
     zeros3 = torch.zeros_like(rois[:, 0:3])
     rois_anchor = torch.cat([zeros3, rois[:, 3:6], torch.zeros_like(rois[:, 6:7])], -1)
     reg_targets = box_coder.encode(gt_ct, rois_anchor)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.iou3d import boxes_iou3d
+from ..parallel.mesh import global_mean
 from .grid_detectors import MAX_VOXELS, TwoStageGridDetector, grid_detector_loss
 from .layers import FCHead, SharedMLP
 from .losses import sigmoid_ce_with_logits
@@ -84,7 +85,7 @@ def second_iou_loss(out, gt_boxes, cfg, num_class: int = 1):
     loss1, metrics = grid_detector_loss(out, cfg, num_class)
     target = (2.0 * out["iou_targets"] - 0.5).clamp(0.0, 1.0)
     per = sigmoid_ce_with_logits(out["rcnn_iou"][..., 0], target)
-    loss_iou = per.mean() * float(cfg.ROI_HEAD.LOSS_CONFIG.LOSS_WEIGHTS.rcnn_iou_weight)
+    loss_iou = global_mean(per) * float(cfg.ROI_HEAD.LOSS_CONFIG.LOSS_WEIGHTS.rcnn_iou_weight)
     total = loss1 + loss_iou
     metrics = dict(metrics)
     metrics.update(loss=total, iou_loss=loss_iou)

@@ -5,7 +5,8 @@
 ``model_state`` (the state dict, whose keys are pcdet's) and
 ``optimizer_state``, and ``format``: ``FORMAT``, which tells this package's
 files from pcdet's (whose SECOND layouts differ, ``models/convert.py``). The
-newest ``max_to_keep`` files are kept.
+newest ``max_to_keep`` files are kept. In a process group rank 0 writes
+them and every process reads them.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import re
 from pathlib import Path
 
 import torch
+
+from ..parallel.mesh import barrier, world
 
 _NAME = re.compile(r"checkpoint_epoch_(\d+)\.pth")
 FORMAT = "modest_tpu_torch"
@@ -37,15 +40,20 @@ class CheckpointManager:
         return epochs[-1] if epochs else None
 
     def save(self, state, epoch: int, extra: dict | None = None) -> Path:
-        payload = {"epoch": epoch, "model_state": state.model.state_dict(),
-                   "optimizer_state": state.optimizer.state_dict(), "extra": extra or {},
-                   "format": FORMAT}
+        """Write epoch ``epoch``'s checkpoint and drop the oldest past
+        ``max_to_keep``. In a process group only rank 0 writes (the
+        processes hold the same state), then every process waits for it."""
         path = self.path(epoch)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, path)  # a reader never sees half a file
-        for old in self.epochs()[:-self.max_to_keep]:
-            self.path(old).unlink()
+        if world()[0] == 0:
+            payload = {"epoch": epoch, "model_state": state.model.state_dict(),
+                       "optimizer_state": state.optimizer.state_dict(), "extra": extra or {},
+                       "format": FORMAT}
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, path)  # a reader never sees half a file
+            for old in self.epochs()[:-self.max_to_keep]:
+                self.path(old).unlink()
+        barrier()
         return path
 
     def _load(self, epoch: int | None):

@@ -5,8 +5,9 @@ Each step's metrics are read back to the host once per step (one
 synchronisation), so every step's loss is logged and checked; with
 ``stage_times`` each step also records CUDA-event times of its stages. The
 eval loop reads each batch's final boxes and its recall counts back once.
-One process on one device: the JAX loop's multi-process merge of results
-is not ported.
+In a process group each process trains on its shard of every global batch
+(``train/state.py`` keeps the global step) and evaluates its shard of the
+test split; rank 0 merges the annos and the recall counts and evaluates.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import torch
 from ..data.loader import prefetch_to_device
 from ..models import api as model_api
 from ..ops.iou3d import boxes_iou3d
+from ..parallel.mesh import world
+from ..parallel.multihost import merge_results_dist
 from .state import train_step
 
 
@@ -170,7 +173,10 @@ def eval_one_epoch(model, model_cfg, loader, dataset, class_names, *, device, re
     **AP}): ``sec_per_example`` counts from the loop's start, loader start-up
     included; ``steady_sec_per_example`` from the end of the first batch to
     the end of the last, over the frames after the first batch (None with
-    one batch)."""
+    one batch). In a process group ``loader`` holds this process's shard:
+    the shards meet in ``result_dir/merge_tmp`` (``merge_results_dist``),
+    process 0 returns the merged annos and the summed recall (the times
+    are its own shard's), the others (None, {})."""
     log = logger.info if logger else print
     det_annos = []
     seen = set()
@@ -203,6 +209,19 @@ def eval_one_epoch(model, model_cfg, loader, dataset, class_names, *, device, re
     steady = ((t_end - t_first) / (len(det_annos) - n_first)
               if len(det_annos) > n_first else None)
     log(f"eval: {len(det_annos)} frames, {sec_per_example:.4f} sec_per_example")
+
+    if world()[1] > 1:
+        # merge the processes' shards; only process 0 evaluates and saves
+        merge_dir = Path(result_dir or ".") / "merge_tmp"
+        merged = merge_results_dist(det_annos, merge_dir)
+        merged_rec = merge_results_dist([recall_dict], merge_dir / "recall")
+        if merged is None:  # not process 0
+            return None, {}
+        det_annos = [a for a in merged if a is not None]
+        recall_dict = {}
+        for rd in merged_rec:
+            for k, v in rd.items():
+                recall_dict[k] = recall_dict.get(k, 0) + v
 
     if recall_dict.get("gt", 0) > 0:
         for t in thresh_list:

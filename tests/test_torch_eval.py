@@ -10,8 +10,9 @@ then agree within what the unmatched boxes allow: a box can change one
 gt's recall at each threshold, and the AP by at most 100 / (valid gt) per
 unmatched box for each recall sample it moves; with every box matched both
 are equal. Then cli/test.py (``--ckpt_dir``, ``--eval_all`` over two
-checkpoints, ``--torch_ckpt``) and its refusals: the card by default, one
-device only (``--eval_after_train`` is in tests/test_torch_train_cli.py).
+checkpoints, ``--torch_ckpt``) and its refusals: the card by default, a
+card for each process (``--eval_after_train`` is in
+tests/test_torch_train_cli.py).
 """
 import copy
 import pickle
@@ -248,13 +249,12 @@ def test_test_cli_torch_ckpt(env, ckpts, tmp_path):
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--ckpt_dir", "ckpt"], RuntimeError, "CUDA is not available"),
-    (["--ckpt_dir", "ckpt", "--device", "cpu", "--num_devices", "2"], NotImplementedError,
-     "one device"),
+    (["--ckpt_dir", "ckpt", "--num_devices", "2"], RuntimeError, "CUDA cards are visible"),
     (["--device", "cpu"], ValueError, "--ckpt_dir or --torch_ckpt"),
 ])
 def test_test_cli_refusals(env, tmp_path, extra, error, match):
-    """The card by default (raises without CUDA unless --device cpu), one
-    device only, and a checkpoint is required."""
+    """The card by default (raises without CUDA unless --device cpu), a
+    card for each of --num_devices, and a checkpoint is required."""
     if error is RuntimeError and torch.cuda.is_available():
         pytest.skip("this host has a card; the refusal needs a host without one")
     _, _, cfg_file = env

@@ -1,8 +1,8 @@
 """The port's train CLI on tests/synth_kitti.py data with the tiny config on
 the CPU: a run writes checkpoints and metrics, a second run resumes from
 them, a pcdet-keyed .pth loads as a pretrained model, --eval_after_train
-evaluates, and what is not ported (multi-process) or not present (CUDA)
-raises."""
+evaluates, and what cannot run (several processes without a rendezvous) or
+is not present (CUDA) raises."""
 import copy
 import json
 import pickle
@@ -124,13 +124,16 @@ def test_eval_after_train_evaluates(tiny_env, tmp_path):
     assert {"boxes_lidar", "score", "location"} <= set(annos[0])
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--launcher", "slurm"], "one process"),
-    (["--num_devices", "2"], "one process"),
+@pytest.mark.parametrize("extra,error,match", [
+    (["--launcher", "manual", "--num_processes", "2"], ValueError, "coordinator address"),
+    (["--launcher", "manual", "--num_devices", "2"], ValueError, "drives one device"),
 ])
-def test_unported_options_raise(tiny_env, tmp_path, extra, match):
+def test_unported_options_raise(tiny_env, tmp_path, extra, error, match):
+    """Multi-process training is ported (tests/test_torch_parallel*.py); what
+    still raises: several processes without a rendezvous, and a launched
+    process asked to start processes of its own."""
     root, cfg_file = tiny_env
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         run(cfg_file, tmp_path, 1, *extra)
 
 
