@@ -241,11 +241,14 @@ Phases, each printing one JSON line:
    fallbacks and the windowed and dense times; then hold the kNN kernels
    against their plain version on the same windows, at k = w/4 and on
    eightfold duplicate points (packed keys equal);
-10. run tools/gather_probe.py (every probe's result checked); then hold both
-   gather kernels against their plain versions at the probe's shapes
-   (equal), with the one PyTorch call for each timed beside them (CUDA
-   events and torch.profiler device time), and check that an index outside
-   the table is refused;
+10. run tools/gather_probe.py (every probe's result checked); then time
+   each gather kernel's launch floor (device time on one element) and hold
+   both kernels against their plain versions (equal) at the probe's shapes
+   and on every branch of take: uniform indices and a band wider than its
+   shared window (the read-only path), idx at storage offset 1, sizes that
+   are no multiple of 4; with the one PyTorch call for each timed beside
+   them (CUDA events and torch.profiler device time); and check that an
+   index outside the table is refused in either branch;
 11. list the kernels with their launches on the main paths, errors and
    times. Each path's launch counts are set to 0 just before it and read
    just after.
@@ -388,6 +391,8 @@ KNN_OPS_PER_PAIR = 10
 KNN_ITERS = 10     # timed calls per shape in tools/knn_bench.py
 GATHER_ITERS = 10  # timed calls per probe in tools/gather_probe.py
 SECTOR_BYTES = 32  # the smallest piece of device memory a read moves
+GATHER_WIDE_BAND = 32768  # a band four times take_kernel's 8192-entry shared window
+GATHER_FLOOR_REPS = 50  # profiled calls on one element for a gather kernel's launch floor
 # the DBSCAN edge stage's and propagation's kernels, each launched once per call
 EDGE_KERNELS = ("kth_kernel", "edge_kernel")
 PROP_KERNELS = ("init_kernel", "compress_kernel", "union_kernel", "flatten_kernel",
@@ -601,6 +606,39 @@ def kernel_device_ms(fn, reps: int, kernel):
             dev_us = getattr(evt, "self_device_time_total", None)
             total_us += float(dev_us if dev_us is not None else evt.self_cuda_time_total)
     return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def kernel_launch_device_ms(fn, reps: int, kernel: str, tries: int = 3):
+    """Device time per launch of the CUDA kernel whose name holds ``kernel``,
+    which each call of ``fn`` launches once: the mean over the launches that
+    torch.profiler recorded in ``reps`` calls, profiled again (at most
+    ``tries`` windows) while a window recorded fewer than ``reps``. Late in a
+    long run of profiled phases a window can lose device records, which
+    ``kernel_device_ms``'s sum over ``reps`` calls would read as a shorter
+    kernel. None when no window recorded one."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    per_launch = None
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evts = [evt for evt in prof.key_averages()
+                if kernel in evt.key and evt.device_type.name == "CUDA"]
+        count, total_us = 0, 0.0
+        for evt in evts:
+            dev_us = getattr(evt, "self_device_time_total", None)
+            total_us += float(dev_us if dev_us is not None else evt.self_cuda_time_total)
+            count += evt.count
+        if count:
+            per_launch = total_us / 1e3 / count
+            if count >= reps:
+                break
+    return per_launch
 
 
 def fps_bound(b: int, n: int, npoint: int):
@@ -4286,32 +4324,62 @@ def phase_gather(torch, dev, card):
     return launches
 
 
-def phase_gather_vs_plain(torch, np, dev, card):
-    """Both gather kernels against their plain twins at the probe's shapes,
-    with the one PyTorch call that computes each (timed only)."""
-    from modest_tpu_torch.ops import gather
+def gather_cases(torch, dev):
+    """(kernel, probe, table, idx): the probe's shapes, then take's read-only
+    branch at the probe's full size (uniform indices over the whole table,
+    and a band wider than the kernel's shared window), all timed."""
+    import numpy as np
+
     from modest_tpu_torch.tools import gather_probe as gp
-    from modest_tpu_torch.utils.device import device_ms
 
     idx_h, labels_h, _ = gp.probe_data()
     idx = torch.from_numpy(idx_h).to(dev)
     labels = torch.from_numpy(labels_h).to(dev)
+    uniform = np.random.RandomState(1).randint(0, gp.N, size=(gp.N, gp.K)).astype(np.int32)
+    wide = gp.probe_data(w=GATHER_WIDE_BAND)[0]
     cases = [("take", "full", labels, idx),
-             ("take", "small", labels[:1024].contiguous(), (idx[:256] % 1024).contiguous())]
+             ("take", "small", labels[:1024].contiguous(), (idx[:256] % 1024).contiguous()),
+             ("take", "uniform", labels, torch.from_numpy(uniform).to(dev)),
+             ("take", "wide_band", labels, torch.from_numpy(wide).to(dev))]
     for r in (8, 256):
         cases.append(("take_along_axis", f"rows_{r}", labels[:gp.W].repeat(r, 1).contiguous(),
                       (idx[:r] % gp.W).contiguous()))
+    return cases
+
+
+def phase_gather_vs_plain(torch, np, dev, card):
+    """Both gather kernels against their plain twins at the probe's shapes and
+    on every branch of take (the shared window, the read-only path, an
+    unaligned head, a ragged tail), with the one PyTorch call that computes
+    each (timed only), and each kernel's launch floor: its device time on
+    one element. A row's bound is the byte bound; ``bound_with_floor_ms``
+    is the larger of it and the kernel's floor."""
+    from modest_tpu_torch.ops import gather
+    from modest_tpu_torch.utils.device import device_ms
+
+    floors = {}
+    one = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    errors = torch.zeros(1, dtype=torch.int32, device=dev)
+    for name in ("take", "take_along_axis"):
+        cuda_fn = getattr(gather, f"{name}_cuda")
+        tab = one.view(1) if name == "take" else one
+        floors[name] = kernel_launch_device_ms(lambda: cuda_fn(tab, one, errors),
+                                               GATHER_FLOOR_REPS, f"{name}_kernel")
+        emit({"phase": "gather_floor", "kernel": name, "table": list(tab.shape), "idx": [1, 1],
+              "reps": GATHER_FLOOR_REPS, "kernel_device_ms": floors[name], "card": card})
+    gather.raise_on_errors(errors, "gather_floor")
+    cases = gather_cases(torch, dev)
     rows = {}
     for name, probe, tab, ix in cases:
         cuda_fn = getattr(gather, f"{name}_cuda")
         plain_fn = getattr(gather, f"{name}_plain")
-        errors = torch.zeros(1, dtype=torch.int32, device=dev)
         got, want = cuda_fn(tab, ix), plain_fn(tab, ix)
         torch.cuda.synchronize()
         mismatches = int((got != want).sum())
         max_abs_err = int((got.long() - want.long()).abs().max())
         ms = device_ms(lambda: cuda_fn(tab, ix, errors), dev, 20)
-        kernel_ms = kernel_device_ms(lambda: cuda_fn(tab, ix, errors), 20, f"{name}_kernel")
+        kernel_ms = kernel_launch_device_ms(lambda: cuda_fn(tab, ix, errors), 20,
+                                            f"{name}_kernel")
         gather.raise_on_errors(errors, name)
         plain_ms = device_ms(lambda: plain_fn(tab, ix), dev, 5)
         if name == "take":  # the library call: one index, int32 indices as they are
@@ -4337,20 +4405,42 @@ def phase_gather_vs_plain(torch, np, dev, card):
                "table_sectors_touched": table_sectors, "mismatches": mismatches,
                "max_abs_err": max_abs_err, "ms": ms, "kernel_device_ms": kernel_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "launch_floor_ms": floors[name],
+               "bound_with_floor_ms": max(bound_ms, floors[name] or 0.0),
                "library_ms": library_ms, "library_device_ms": library_device_ms, "card": card}
         emit(row)
         if mismatches:
             fail(f"{name} kernel disagrees with its plain version at {probe}: {mismatches}")
         rows[(name, probe)] = row
-    # an out-of-range index is refused, not clamped
-    bad = idx[:4].clone()
-    bad[1, 3] = labels.shape[0]
-    try:
-        gather.take_cuda(labels, bad)
-    except IndexError:
-        pass
-    else:
-        fail("take_cuda accepted an index outside its table")
+    # take's edges, bit for bit: idx at storage offset 1 (an unaligned head,
+    # then a ragged tail), sizes that are no multiple of 4, one index
+    labels, idx, uniform = cases[0][2], cases[0][3], cases[2][3]
+    flat = idx.reshape(-1)
+    n, k = idx.shape
+    edges = {"offset_1": flat[1:1 + (n - 1) * k].view(n - 1, k),
+             "odd_size": idx[:1023, :7].contiguous(), "offset_1_three": flat[1:4],
+             "one": flat[:1]}
+    for probe, ix in edges.items():
+        got, want = gather.take_cuda(labels, ix), gather.take_plain(labels, ix)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        emit({"phase": "gather_edges", "kernel": "take", "probe": probe, "idx": list(ix.shape),
+              "storage_offset": ix.storage_offset(), "mismatches": mismatches, "card": card})
+        if mismatches or got.shape != ix.shape:
+            fail(f"take kernel disagrees with its plain version at {probe}: {mismatches}")
+    # an out-of-range index is refused, not clamped: in a staged tile, in a
+    # tile that gathers through the read-only path, and below 0
+    for probe, src, at, value in (("staged", idx, (1, 3), labels.shape[0]),
+                                  ("read_only", uniform, (5, 5), labels.shape[0]),
+                                  ("negative", idx, (2, 7), -1)):
+        bad = src[:64].clone()
+        bad[at] = value
+        try:
+            gather.take_cuda(labels, bad)
+        except IndexError:
+            pass
+        else:
+            fail(f"take_cuda accepted an index outside its table ({probe})")
     return rows
 
 
@@ -4630,7 +4720,8 @@ def main() -> int:
         "replaces": "scripts_dev/gather_probe.py:119", "launches": gather_launches["take"],
         **{key: gather_rows[("take", "full")][key] for key in (
             "max_abs_err", "mismatches", "ms", "kernel_device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_device_ms")},
+            "bound_by", "launch_floor_ms", "bound_with_floor_ms", "library_ms",
+            "library_device_ms")},
         "shapes": "table (131072,), idx (131072, 70); launches over tools/gather_probe.py",
     }, {
         "name": "take_along_axis", "route": "cuda", "source": "modest_tpu_torch/csrc/gather.cu",
@@ -4638,7 +4729,8 @@ def main() -> int:
         "launches": gather_launches["take_along_axis"],
         **{key: gather_rows[("take_along_axis", "rows_256")][key] for key in (
             "max_abs_err", "mismatches", "ms", "kernel_device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_device_ms")},
+            "bound_by", "launch_floor_ms", "bound_with_floor_ms", "library_ms",
+            "library_device_ms")},
         "shapes": "tab (256, 4096), idx (256, 70); launches over tools/gather_probe.py",
     }]})
     print(card, flush=True)

@@ -9,6 +9,7 @@ from modest_tpu.models import box_coders as jbc
 from modest_tpu.ops import iou3d as jiou
 from modest_tpu_torch.models import box_coders as tbc
 from modest_tpu_torch.ops import iou3d as tiou
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _boxes(rng, n, spread=20.0):

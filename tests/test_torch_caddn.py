@@ -22,6 +22,7 @@ from modest_tpu_torch.models.convert import caddn_state_dict_from_jax
 from modest_tpu_torch.models.grid_detectors import grid_post_process
 from modest_tpu_torch.utils.config import Config
 from tests.torch_detector_pair import seeded
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 D_MIN, D_MAX = 2.0, 46.8
 PCR = [0, -8, -3, 16, 8, 1]

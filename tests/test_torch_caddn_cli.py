@@ -15,6 +15,7 @@ from modest_tpu_torch.configs import KITTI_CLASS_NAMES, KITTI_CONFIGS
 from modest_tpu_torch.data.kitti_dataset import create_kitti_infos
 from modest_tpu_torch.tools import synth_kitti
 from modest_tpu_torch.utils.config import Config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

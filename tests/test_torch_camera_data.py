@@ -30,6 +30,7 @@ from modest_tpu_torch.utils import native, png
 from modest_tpu_torch.utils.config import Config
 
 import synth_kitti
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 def _filter_rows(pix: np.ndarray, filters) -> bytes:
     """The raw IDAT stream of (H, W, C) uint8 ``pix`` with row y filtered by

@@ -28,6 +28,7 @@ from modest_tpu_torch.utils.config import Config
 from tests.test_nuscenes_waymo import TINY_MULTIHEAD
 from tests.test_torch_multihead import cbgs_second_cfg
 from tests.torch_detector_pair import MAX_VOXELS, run_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"rtol": 1e-4, "atol": 1e-4}
 NUM_POINTS = 2048

@@ -12,6 +12,7 @@ import pytest
 from modest_tpu.utils.config import Config as JConfig
 from modest_tpu.utils.config import cfg_from_kv_overrides as j_cfg_from_kv_overrides
 from modest_tpu_torch.utils.config import Config, cfg_from_kv_overrides, parse_value
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 yaml = pytest.importorskip("yaml")
 

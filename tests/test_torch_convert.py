@@ -13,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.slow
 

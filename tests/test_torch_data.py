@@ -23,6 +23,7 @@ from modest_tpu_torch.utils import native as tnative
 from modest_tpu_torch.utils.config import Config
 
 import synth_kitti
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NUM_POINTS = 512
 AUGS = ("gt_sampling", "random_world_flip", "random_world_rotation", "random_world_scaling")

@@ -19,6 +19,7 @@ from modest_tpu.ops import pallas_dbscan as PD
 from modest_tpu.pipeline import clustering as C
 from modest_tpu_torch.ops import dbscan as TD
 from modest_tpu_torch.tools.tie_graph import tie_chain_graph
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RADIUS, EPS, MIN_SAMPLES = 2.0, 0.1, 10
 R2, EPS32 = np.float32(RADIUS * RADIUS), np.float32(EPS)

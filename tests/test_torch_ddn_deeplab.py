@@ -20,6 +20,7 @@ from modest_tpu_torch.utils.config import Config
 from tests.test_torch_caddn import GS, PCR, VS, camera_batch, tiny_cfg
 from tests.test_torch_convert import _build_torch_ddn
 from tests.torch_detector_pair import seeded
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NUM_BINS = 8
 H, W = 64, 96

@@ -42,6 +42,7 @@ from modest_tpu_torch.utils.config import Config
 
 from test_pointrcnn_model import tiny_model_cfg
 from test_torch_slice import _jax_model, _match_1to1, _tiny_model_cfg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N_VAL = 5  # at B = 2 the third batch is wrap-padded
 RECALL = [0.3, 0.5, 0.7]

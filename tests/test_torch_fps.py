@@ -14,6 +14,7 @@ from modest_tpu.ops.pallas_fps import furthest_point_sample_pallas
 from modest_tpu.ops.pointnet2 import _furthest_point_sample_xla
 from modest_tpu_torch.ops import pointnet2 as tp2
 from modest_tpu_torch.ops.fps import furthest_point_sample_cuda, furthest_point_sample_plain
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize(

@@ -21,6 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from modest_tpu_torch.ops import gather as tg
 from modest_tpu_torch.tools import gather_probe as tprobe
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PROBE = Path(__file__).resolve().parents[1] / "scripts_dev" / "gather_probe.py"
 
@@ -82,6 +83,55 @@ def test_take_along_axis_plain_equals_the_pallas_taa_probe(rows):
     assert got.dtype == np.int32 and got.shape == (rows, 70)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.take_along_axis(tab, sub, 1))
+
+
+def _other_indices(kind, n, rows, k=70, seed=5):
+    """Indices of kinds the probe does not draw (they take the CUDA take
+    kernel's read-only branch): uniform over the whole table, or each row's
+    band as wide as the table itself, clipped at both ends."""
+    rng = np.random.RandomState(seed)
+    if kind == "uniform":
+        return rng.randint(0, n, size=(rows, k)).astype(np.int32)
+    off = rng.randint(-n, n, size=(rows, k))
+    return np.clip(np.arange(rows)[:, None] * (n // rows) + off, 0, n - 1).astype(np.int32)
+
+
+def _at_storage_offset(a, offset):
+    """``a``'s values in a contiguous tensor that starts ``offset`` elements
+    into its storage (at 1, its data is not 16-byte aligned)."""
+    buf = torch.zeros(a.size + offset, dtype=torch.int32)
+    view = buf[offset:].view(a.shape)
+    view.copy_(torch.from_numpy(a))
+    assert view.is_contiguous() and view.storage_offset() == offset
+    return view
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("kind", ["uniform", "clipped_band"])
+def test_take_plain_equals_the_pallas_take_probe_on_other_indices(kind, offset):
+    take_kernel, _ = _probe_kernels()
+    labels, _ = _probe_data(n=2048)
+    idx = _other_indices(kind, 2048, 256)
+    want = _pallas(take_kernel, labels, idx)
+    got = tg.take(torch.from_numpy(labels), _at_storage_offset(idx, offset)).numpy()
+    assert got.dtype == np.int32 and got.shape == (256, 70)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, labels[idx])
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("kind", ["uniform", "clipped_band"])
+def test_take_along_axis_plain_equals_the_pallas_taa_probe_on_other_indices(kind, offset):
+    _, taa_kernel = _probe_kernels()
+    labels, _ = _probe_data()
+    tab = np.tile(labels[None, :512], (8, 1))
+    tab[:, ::3] += np.arange(8, dtype=np.int32)[:, None]  # rows differ
+    idx = _other_indices(kind, 512, 8)
+    want = _pallas(taa_kernel, tab, idx)
+    got = tg.take_along_axis(torch.from_numpy(tab), _at_storage_offset(idx, offset)).numpy()
+    assert got.dtype == np.int32 and got.shape == (8, 70)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.take_along_axis(tab, idx, 1))
 
 
 @pytest.mark.parametrize("bad", [-1, 1024])

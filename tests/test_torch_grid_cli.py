@@ -23,6 +23,7 @@ from modest_tpu_torch.utils.config import Config
 import synth_kitti
 from test_torch_grid_detectors import pillar_model_cfg, second_model_cfg
 from test_torch_self_train import seeded  # noqa: F401  (the module fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # voxel sizes that give a 32 x 32 (x 32) grid on each config's range
 TINY = {"pointpillar": (POINTPILLAR_DYNAMIC_OBJ_FULL, pillar_model_cfg, [2.8, 2.48, 4]),

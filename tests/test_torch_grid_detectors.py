@@ -24,6 +24,7 @@ from modest_tpu_torch.models import build_network
 from modest_tpu_torch.models import grid_detectors as gd
 from modest_tpu_torch.models.convert import grid_state_dict_from_jax, state_dict_from_pcdet
 from modest_tpu_torch.utils.config import Config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PCR = [0, -8, -3, 16, 8, 1]
 MAX_VOXELS = 512

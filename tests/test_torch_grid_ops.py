@@ -22,6 +22,7 @@ from modest_tpu_torch.models import sparse_conv as sc
 from modest_tpu_torch.models import voxelize as vx
 from modest_tpu_torch.models.box_coders import ResidualCoder
 from modest_tpu_torch.models.layers import BatchNorm2d, MaskedBatchNorm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PCR = [0.0, -8.0, -3.0, 16.0, 8.0, 1.0]
 

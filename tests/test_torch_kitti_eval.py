@@ -18,6 +18,7 @@ from modest_tpu_torch.cli import evaluate as evaluate_cli
 from modest_tpu_torch.eval import kitti_eval
 from modest_tpu_torch.tools.synth_kitti import make_dataset
 from modest_tpu_torch.utils import native
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _random_annos(seed, n_frames=24, classes=("Dynamic", "Car")):

@@ -16,6 +16,7 @@ from modest_tpu.ops import pointnet2 as jp2
 from modest_tpu_torch.ops import knn as tk
 from modest_tpu_torch.ops.pointnet2 import nearest_topk
 from modest_tpu_torch.tools import knn_bench
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 QUANTUM = 2.0 ** -11  # the key keeps d² to ~2^-12 relative; allow one more bit
 

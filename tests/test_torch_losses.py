@@ -24,6 +24,7 @@ from modest_tpu_torch.models import point_head as tph
 from modest_tpu_torch.models import roi_head as trh
 from modest_tpu_torch.models.box_coders import PointResidualCoder, ResidualCoder
 from modest_tpu_torch.utils.config import Config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 TARGET_CFG = POINTRCNN_DYNAMIC_OBJ["ROI_HEAD"]["TARGET_CONFIG"]

@@ -24,6 +24,7 @@ from modest_tpu_torch.models.point_head import PointHeadBox
 from modest_tpu_torch.models.pointnet2_backbone import FPModule, SAModuleMSG
 from modest_tpu_torch.models.roi_head import PointRCNNHead
 from modest_tpu_torch.utils.config import Config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -29,6 +29,7 @@ from modest_tpu_torch.models.voxelize import point_voxel_coords, voxelize_sparse
 from modest_tpu_torch.ops import iou3d
 from tests.test_torch_grid_detectors import GEOMETRY, PCR, toy_batch
 from tests.torch_detector_pair import MAX_VOXELS, seeded
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 VS, GS, GT_XY = GEOMETRY["second"]
 KITTI_ANCHORS = [  # kitti_models/second.yaml, at the toy grid's stride

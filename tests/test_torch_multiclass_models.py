@@ -28,6 +28,7 @@ from tests.test_torch_grid_detectors import PCR, second_model_cfg
 from tests.test_torch_multiclass import GS, KITTI_ANCHORS, NAMES, VS, three_class_batch
 from tests.test_torch_pv_rcnn import pvrcnn_model_cfg
 from tests.torch_detector_pair import MAX_VOXELS, bridge_covers_every_leaf, run_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"rtol": 1e-4, "atol": 1e-4}
 

@@ -27,6 +27,7 @@ from modest_tpu_torch.utils.config import Config
 from tests.test_nuscenes_waymo import TINY_MULTIHEAD
 from tests.test_torch_grid_detectors import GEOMETRY, PCR
 from tests.torch_detector_pair import MAX_VOXELS, bridge_covers_every_leaf, run_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"rtol": 1e-4, "atol": 1e-4}
 

@@ -32,6 +32,7 @@ from modest_tpu_torch.tools import synth_infos
 from modest_tpu_torch.utils.config import Config
 from tests.test_nuscenes_waymo import NUSC_CFG, make_nusc_tree
 from tests.test_torch_data import assert_same
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NAMES = ["car", "pedestrian"]
 FULL_POINTS = 3000  # a sweep of the small full-density tree

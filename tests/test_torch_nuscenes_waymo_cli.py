@@ -19,6 +19,7 @@ from modest_tpu_torch.tools import synth_infos
 from modest_tpu_torch.utils.config import Config
 from tests.test_nuscenes_waymo import TINY_MULTIHEAD
 from tests.test_torch_waymo_pv_rcnn import VOXEL_SIZE, waymo_pv_rcnn_cfg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _run(tmp_path, full, steps, extra_test_args=()):

@@ -20,6 +20,7 @@ from modest_tpu.eval import nuscenes_eval as j_nusc
 from modest_tpu.eval import waymo_eval as j_waymo
 from modest_tpu_torch.eval import nuscenes_eval as t_nusc
 from modest_tpu_torch.eval import waymo_eval as t_waymo
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-9
 

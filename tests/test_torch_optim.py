@@ -20,6 +20,7 @@ from modest_tpu.utils.config import Config as JConfig
 from modest_tpu_torch.configs import POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION
 from modest_tpu_torch.train import optim as toptim
 from modest_tpu_torch.utils.config import Config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS = 200
 

@@ -18,6 +18,7 @@ from modest_tpu_torch.configs import (POINTRCNN_DYNAMIC_OBJ, POINTRCNN_DYNAMIC_O
                                       POINTRCNN_DYNAMIC_OBJ_NUM_POINTS)
 from modest_tpu_torch.models import build_network
 from modest_tpu_torch.utils.config import Config, cfg_from_yaml_file
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 FLAGSHIP_YAML = REPO / "configs/models/lyft_models/pointrcnn_dynamic_obj.yaml"

@@ -22,6 +22,7 @@ from modest_tpu_torch.parallel import mesh
 from modest_tpu_torch.parallel import multihost
 
 from test_torch_data import _batches, roots  # noqa: F401  (the module fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SLURM_KEYS = ("SLURM_NTASKS", "SLURM_PROCID", "SLURM_STEP_NODELIST", "SLURM_LOCALID",

@@ -30,6 +30,7 @@ from modest_tpu_torch.utils.config import Config
 
 from test_pointrcnn_model import tiny_model_cfg
 from test_torch_self_train import N_FRAMES, _driver_args, seeded  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 240

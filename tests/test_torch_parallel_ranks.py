@@ -50,6 +50,7 @@ from modest_tpu_torch.tools.synth_kitti import make_dataset
 from modest_tpu_torch.train.loop import eval_one_epoch
 from modest_tpu_torch.train.state import create_train_state, train_step
 from modest_tpu_torch.utils.config import Config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 WORLD = 2
 TIMEOUT_S = 150

@@ -26,6 +26,7 @@ from modest_tpu_torch.utils.config import Config
 from tests.test_torch_grid_detectors import geometry, second_model_cfg
 from tests.torch_detector_pair import (MAX_VOXELS, bridge_covers_every_leaf, jax_model,
                                        port_model, run_jax)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"rtol": 1e-4, "atol": 1e-4}
 YAML = "configs/models/lyft_models/part_a2_dynamic_obj.yaml"

@@ -21,6 +21,7 @@ from modest_tpu_torch.models.voxelize import point_voxel_coords, voxelize_sparse
 from modest_tpu_torch.ops.roiaware_pool3d import roiaware_pool3d
 from tests.test_torch_grid_detectors import PCR, toy_batch
 from tests.torch_detector_pair import GS, GT_XY, MAX_VOXELS, VS, seeded
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"rtol": 1e-4, "atol": 1e-4}
 

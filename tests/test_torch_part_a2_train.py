@@ -16,6 +16,7 @@ from modest_tpu_torch.utils.config import Config
 from tests.test_torch_losses import jax_draws
 from tests.test_torch_part_a2 import parta2_model_cfg
 from tests.torch_detector_pair import MAX_VOXELS, jax_model, port_model, run_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"rtol": 1e-4, "atol": 1e-4}
 

@@ -28,6 +28,7 @@ from tests.test_torch_multiclass_models import _geometry
 from tests.test_torch_grid_detectors import PCR
 from tests.test_torch_part_a2 import parta2_model_cfg
 from tests.torch_detector_pair import MAX_VOXELS, bridge_covers_every_leaf, run_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"rtol": 1e-4, "atol": 1e-4}
 MEAN_SIZES = [[3.9, 1.6, 1.56], [0.8, 0.6, 1.73], [1.76, 0.6, 1.73]]

@@ -20,6 +20,7 @@ from tests.test_torch_multiclass import GS, VS, three_class_batch
 from tests.test_torch_multiclass_models import _geometry
 from tests.test_torch_parta2_free import TOL, parta2_free_model_cfg
 from tests.torch_detector_pair import MAX_VOXELS, run_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

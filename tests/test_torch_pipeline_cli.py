@@ -15,6 +15,7 @@ from modest_tpu.cli import generate_mask as j_generate_mask
 from modest_tpu.cli import pre_compute_pp_score as j_pre_compute_pp_score
 from modest_tpu_torch.cli import generate_mask, pre_compute_pp_score
 from modest_tpu_torch.tools.pipeline_scenes import write_dataset
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PP_DIR = "intermediate_results/lyft_pp_score_fw70_2m_r0.3"
 SEG_DIR = "intermediate_results/lyft_seg_pp_score_fw70_2m_r0.3"

@@ -13,6 +13,7 @@ from modest_tpu.ops import box_jax as jb
 from modest_tpu.ops import pointnet2 as jp2
 from modest_tpu_torch.ops import box_torch as tb
 from modest_tpu_torch.ops import pointnet2 as tp2
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)

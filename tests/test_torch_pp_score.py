@@ -19,6 +19,7 @@ from scipy.spatial import cKDTree
 from modest_tpu.pipeline import pp_score as jpp
 from modest_tpu_torch.pipeline import pp_score as tpp
 from modest_tpu_torch.utils import kitti_io
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 R = 0.3
 SHELL = 1e-4  # m², half-width of the boundary shell where counts may differ

@@ -29,6 +29,7 @@ from modest_tpu_torch.tools import nu_scenes
 from modest_tpu_torch.utils import pose
 from tests.test_nu_tables import build_dataset, mat_to_quat
 from tests.test_preprocessing import straight_line_poses
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _same_tree(a: Path, b: Path):

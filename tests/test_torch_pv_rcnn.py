@@ -38,6 +38,7 @@ from modest_tpu_torch.utils.config import Config
 from tests.test_torch_grid_detectors import GEOMETRY, PCR, geometry, second_model_cfg, toy_batch
 from tests.test_torch_losses import jax_draws
 from tests.test_torch_self_train import seeded  # noqa: F401  (the module fixture)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_VOXELS = 512
 VS, GS, GT_XY = GEOMETRY["second"]

@@ -13,6 +13,7 @@ from scipy.spatial import cKDTree
 
 from modest_tpu.ops import pallas_radius_count as jrc
 from modest_tpu_torch.ops import radius_count as trc
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 R = 0.3
 

@@ -23,6 +23,7 @@ from modest_tpu_torch.pipeline import clustering as tcl
 from modest_tpu_torch.pipeline import seed_labels as tsl
 from modest_tpu_torch.utils.config import Config, parse_value
 from modest_tpu_torch.utils.kitti_io import Calibration
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CALIB = {"P2": np.array([[700.0, 0, 600, 0], [0, 700.0, 200, 0], [0, 0, 1.0, 0]]),
          "P3": np.array([[700.0, 0, 600, 0], [0, 700.0, 200, 0], [0, 0, 1.0, 0]]),

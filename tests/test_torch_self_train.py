@@ -24,6 +24,7 @@ from modest_tpu_torch.utils import kitti_io
 from modest_tpu_torch.utils.config import Config
 
 from test_pointrcnn_model import tiny_model_cfg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N_FRAMES = 3
 

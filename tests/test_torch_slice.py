@@ -21,6 +21,7 @@ from modest_tpu_torch.configs import POINTRCNN_DYNAMIC_OBJ
 from modest_tpu_torch.models import api, build_network
 from modest_tpu_torch.models.convert import state_dict_from_jax
 from modest_tpu_torch.utils.config import Config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _tiny_model_cfg():

@@ -29,6 +29,7 @@ from modest_tpu_torch.utils.config import Config
 
 import synth_kitti
 from test_pointrcnn_model import tiny_model_cfg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

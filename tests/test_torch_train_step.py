@@ -68,12 +68,22 @@ def batch(tmp_path_factory):
     return next(iter(loader))
 
 
+SQUEEZED_STEPS = 10
+STEP_METRICS = ("loss", "point_loss_cls", "point_loss_box", "rcnn_loss_cls", "rcnn_loss_reg",
+                "grad_norm")
+
+
 @pytest.fixture(scope="module")
-def jax_step(batch):
-    """JAX's train step body (train/state.py::_train_step_body, before the
-    optimizer) at step 0, and the key its RoI sampler drew from."""
+def jax_steps(batch):
+    """JAX's train step (train/state.py::_train_step_body with its optimizer,
+    the flagship's one-cycle Adam squeezed into SQUEEZED_STEPS steps),
+    jitted once and run SQUEEZED_STEPS times on the one batch from the tiny
+    model's weights; each step's gradients, losses, statistics, outputs and
+    the key its RoI sampler drew from (``fold_in(PRNGKey(666), step)``).
+    Step 0 is the single step the other tests compare."""
     cfg = JConfig(tiny_model_cfg())
     model, params, stats = jax_model(cfg, seed=0)
+    jopt = joptim.build_optimizer(JConfig(POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION), SQUEEZED_STEPS)
     points, gt = jnp.asarray(batch["points"]), jnp.asarray(batch["gt_boxes"])
     keys = []
     sample = jpointrcnn.sample_rois_for_rcnn
@@ -82,22 +92,41 @@ def jax_step(batch):
         keys.append(key)
         return sample(key, *args)
 
-    step_rng = jax.random.fold_in(jax.random.PRNGKey(666), 0)
+    def step_fn(params, stats, opt_state, step):
+        step_rng = jax.random.fold_in(jax.random.PRNGKey(666), step)
 
-    def loss_fn(p):
-        out, new_bs = japi.apply_train(model, cfg, {"params": p, "batch_stats": stats},
-                                       points, gt, step_rng)
-        loss, metrics = japi.compute_loss(out, gt, cfg, num_class=1)
-        return loss, (metrics, new_bs, out, keys[-1])
+        def loss_fn(p):
+            out, new_bs = japi.apply_train(model, cfg, {"params": p, "batch_stats": stats},
+                                           points, gt, step_rng)
+            loss, metrics = japi.compute_loss(out, gt, cfg, num_class=1)
+            return loss, (metrics, new_bs, out, keys[-1])
+
+        grads, (metrics, new_bs, out, key) = jax.grad(loss_fn, has_aux=True)(params)
+        updates, opt_state = jopt.update(grads, opt_state, params)
+        record = dict(grads=grads, metrics=metrics, grad_norm=optax.global_norm(grads),
+                      new_bs=new_bs, out=out, key=key)
+        return optax.apply_updates(params, updates), new_bs, opt_state, record
 
     jpointrcnn.sample_rois_for_rcnn = recording
     try:
-        grads, (metrics, new_bs, out, key) = jax.jit(jax.grad(loss_fn, has_aux=True))(params)
+        step = jax.jit(step_fn)
+        p, s, opt_state, records = params, stats, jopt.init(params), []
+        for k in range(SQUEEZED_STEPS):
+            p, s, opt_state, record = step(p, s, opt_state, k)
+            records.append(record)
     finally:
         jpointrcnn.sample_rois_for_rcnn = sample
     assert len(keys) == 1
-    return dict(params=params, stats=stats, grads=grads, metrics=metrics, new_bs=new_bs,
-                out=out, key=key)
+    return dict(params=params, stats=stats, steps=records)
+
+
+@pytest.fixture(scope="module")
+def jax_step(jax_steps):
+    """JAX's step 0 before the optimizer: its gradients, losses, statistics
+    and outputs, and the key its RoI sampler drew from."""
+    first = jax_steps["steps"][0]
+    return dict(params=jax_steps["params"], stats=jax_steps["stats"],
+                **{k: first[k] for k in ("grads", "metrics", "new_bs", "out", "key")})
 
 
 @pytest.fixture(scope="module")
@@ -209,64 +238,29 @@ def test_train_step_updates_and_draws_by_step(batch):
     assert all(torch.equal(a[k], b[k]) for k in a) and not torch.equal(a["u_fg"], c["u_fg"])
 
 
-SQUEEZED_STEPS = 10
-STEP_METRICS = ("loss", "point_loss_cls", "point_loss_box", "rcnn_loss_cls", "rcnn_loss_reg",
-                "grad_norm")
-
-
-def test_squeezed_one_cycle_tracks_jax(batch):
+def test_squeezed_one_cycle_tracks_jax(batch, jax_steps):
     """SQUEEZED_STEPS steps on one batch with the flagship's one-cycle Adam
     squeezed into them: JAX's step (train/state.py::_train_step_body with
     its optimizer) and the port's train_step, from the same weights, the
     port taking JAX's sampler draws at every step. Both stay finite and
     agree step by step (on the tests' scenes that includes the
     regression-loss spike the first foreground RoIs bring)."""
-    cfg = JConfig(tiny_model_cfg())
-    model, params, stats = jax_model(cfg, seed=0)
-    jopt = joptim.build_optimizer(JConfig(POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION), SQUEEZED_STEPS)
-    opt_state = jopt.init(params)
-    points, gt = jnp.asarray(batch["points"]), jnp.asarray(batch["gt_boxes"])
-    keys = []
-    sample = jpointrcnn.sample_rois_for_rcnn
-
-    def recording(key, *args):
-        keys.append(key)
-        return sample(key, *args)
-
-    def jax_step(params, stats, opt_state, step):
-        rng = jax.random.fold_in(jax.random.PRNGKey(666), step)
-
-        def loss_fn(p):
-            out, new_bs = japi.apply_train(model, cfg, {"params": p, "batch_stats": stats},
-                                           points, gt, rng)
-            loss, metrics = japi.compute_loss(out, gt, cfg, num_class=1)
-            return loss, (metrics, new_bs, keys[-1])
-
-        grads, (metrics, new_bs, key) = jax.grad(loss_fn, has_aux=True)(params)
-        metrics["grad_norm"] = optax.global_norm(grads)
-        updates, opt_state = jopt.update(grads, opt_state, params)
-        return optax.apply_updates(params, updates), new_bs, opt_state, metrics, key
-
+    params, stats = jax_steps["params"], jax_steps["stats"]
     tcfg = Config(tiny_model_cfg())
     port = build_network(tcfg, 1, device="cpu")
     port.load_state_dict(state_dict_from_jax(params, stats))
     state = create_train_state(port, Config(POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION), SQUEEZED_STEPS)
     tpoints, tgt = torch.from_numpy(batch["points"]), torch.from_numpy(batch["gt_boxes"])
     rh = tcfg.ROI_HEAD
-    jpointrcnn.sample_rois_for_rcnn = recording
-    try:
-        step_fn = jax.jit(jax_step)
-        rows = []
-        for s in range(SQUEEZED_STEPS):
-            lr = state.optimizer.current_lr()
-            params, stats, opt_state, want, key = step_fn(params, stats, opt_state, s)
-            draws = jax_draws(key, 2, int(rh.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE),
-                              int(rh.TARGET_CONFIG.ROI_PER_IMAGE))
-            got = train_step(state, tcfg, tpoints, tgt, roi_draws=draws)
-            rows.append((lr, {k: float(want[k]) for k in STEP_METRICS},
-                         {k: float(got[k]) for k in STEP_METRICS}))
-    finally:
-        jpointrcnn.sample_rois_for_rcnn = sample
+    rows = []
+    for record in jax_steps["steps"]:
+        lr = state.optimizer.current_lr()
+        want = dict(record["metrics"], grad_norm=record["grad_norm"])
+        draws = jax_draws(record["key"], 2, int(rh.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE),
+                          int(rh.TARGET_CONFIG.ROI_PER_IMAGE))
+        got = train_step(state, tcfg, tpoints, tgt, roi_draws=draws)
+        rows.append((lr, {k: float(want[k]) for k in STEP_METRICS},
+                     {k: float(got[k]) for k in STEP_METRICS}))
     assert max(lr for lr, _, _ in rows) == pytest.approx(0.01, rel=1e-6)  # the peak is reached
     for s, (_, want, got) in enumerate(rows):
         assert all(np.isfinite(list(want.values()))), (s, want)

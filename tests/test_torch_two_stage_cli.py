@@ -17,6 +17,7 @@ import yaml
 from modest_tpu_torch.configs import VOXEL_RCNN_DYNAMIC_OBJ_FULL
 from modest_tpu_torch.utils.config import Config
 from tests.test_torch_voxel_rcnn import voxelrcnn_model_cfg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def tiny_full_config(data_path):

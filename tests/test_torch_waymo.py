@@ -26,6 +26,7 @@ from modest_tpu_torch.utils.config import Config
 from tests.test_nuscenes_waymo import WAYMO_CFG, make_waymo_tree
 from tests.test_torch_data import assert_same
 from tests.test_torch_nuscenes import trees_equal
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NAMES = configs.WAYMO_CLASS_NAMES
 FULL_POINTS = 6000

@@ -24,6 +24,7 @@ from modest_tpu_torch.tools import synth_infos
 from modest_tpu_torch.utils.config import Config
 from tests.test_torch_pv_rcnn import pvrcnn_model_cfg
 from tests.torch_detector_pair import MAX_VOXELS, run_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {"rtol": 1e-4, "atol": 1e-4}  # tests/test_torch_pv_rcnn.py's
 NUM_POINTS = 4096
