@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seventeen paths, each at full size from fixed seeds:
+Twenty paths, each at full size from fixed seeds:
 
 * the flagship detector's eval forward plus post-processing (PointRCNN,
   configs/models/lyft_models/pointrcnn_dynamic_obj.yaml, 12288 points per
@@ -13,7 +13,11 @@ Seventeen paths, each at full size from fixed seeds:
   synthetic Lyft-sized scans written to a temporary directory;
 * its multi-process training: cli/train.py as two processes sharing the
   card (--launcher manual, gloo), a global batch of 4 (2 a process) on the
-  same scans, then the evaluation merged by process 0;
+  same scans, then the evaluation merged by process 0; and SECOND
+  (configs/models/lyft_models/second_dynamic_obj.yaml) the same way, each of
+  its two processes started by scripts/torch_multihost_train.sh;
+* the stacked (ragged) FPS of ops/pointnet2_stack.py on padded batches with
+  a count per cloud, at the flagship's width and at 131072 points a cloud;
 * the label-free seed path: the PP-score CLI (pre_compute_pp_score) over a
   synthetic multi-traversal dataset written to a temporary directory (5
   traversals of 8 frames and 16 origin frames of ~89.6k points, the
@@ -26,7 +30,9 @@ Seventeen paths, each at full size from fixed seeds:
   config's first epoch reaches), cli/test.py on the train split at
   B = 4 (the round-0 result.pkl), then cli/self_train.py for round 1
   (combine_labels, the round dataset, infos, one epoch, train-split
-  inference) and once more, when it must skip the finished round;
+  inference) and once more, when it must skip the finished round; then one
+  round with SECOND (configs/models/lyft_models/second_dynamic_obj.yaml)
+  the same way;
 * the grid detectors PointPillars and SECOND
   (configs/models/lyft_models/{pointpillar,second}_dynamic_obj.yaml) at
   full width: their eval forward plus post-processing at B = 4 on the
@@ -46,15 +52,17 @@ Seventeen paths, each at full size from fixed seeds:
   PointRCNN, PointRCNN-IoU, SECOND, PointPillars, SECOND multi-head, PV-RCNN,
   SECOND-IoU, Part-A2, the anchor-free Part-A2, Voxel R-CNN Car) at full
   width on synthetic scans of Cars, Pedestrians and Cyclists: their eval
-  forward plus post-processing at B = 4, and cli/train.py for 8 steps of
-  five of them;
+  forward plus post-processing at B = 4, and cli/train.py for each at its
+  config's batch (8 steps; 10 at PointRCNN-IoU's B = 3) and cli/test.py on
+  its checkpoint;
 * Waymo's three configs (configs/models/waymo_models/{pv_rcnn,second,PartA2}.yaml)
   at full width on a synthetic processed Waymo tree (tools/synth_infos.py,
   ~180,000 points a frame, no-label-zone points dropped, 131072 sampled),
   through build_dataloader: PV-RCNN's eval forward at the config's B = 2
-  (keypoint FPS of 2048 of 131072 points a scan), cli/train.py for 4 steps
-  and cli/test.py under EVAL_METRIC kitti and waymo; SECOND's and
-  Part-A2's eval forward at B = 2;
+  (keypoint FPS of 2048 of 131072 points a scan); SECOND's and Part-A2's
+  eval forward at B = 2; and for each of the three cli/train.py for 4 steps
+  at its config's batch (SECOND's 4, the others' 2) and cli/test.py under
+  EVAL_METRIC kitti and waymo;
 * the nuScenes CBGS grouped heads
   (configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml) fed by
   the nuScenes loader (tools/synth_infos.py: 10 sweeps of ~34,000 points a
@@ -97,6 +105,10 @@ Phases, each printing one JSON line:
    indices must be equal; with event and profiler times, the
    cluster size, the points a thread and the time per step; a cloud of
    N <= 65536 must launch as the table had it before the 32-point range;
+   then the stacked FPS (stack_fps_vs_plain: ragged batches of counts
+   12288 / 9000 / 4096 / 1 → 4096 points, 131072 → 2048 alone and beside
+   70000, and 1000 / 513 / 0 → 256 on the small-cloud kernel; one launch a
+   call, the indices equal to the plain masked FPS's and none at padding);
 3. run the forward + post_process on 4 synthetic scans (the bench.py scene
    recipe) and check the output, the FPS launch count and the stage times;
 4. compare the card's final boxes on one scan with the port's own CPU
@@ -130,7 +142,12 @@ Phases, each printing one JSON line:
    and the rest printed; the processes equal; both FPS kernels equal to the
    plain FPS on each process's rows); the port's process group on NCCL at world size 1, one step
    through its collectives equal bit for bit to the step with no group
-   (nccl_world1);
+   (nccl_world1); after the grid detectors, SECOND as 2 processes, each
+   started by scripts/torch_multihost_train.sh with a stub ``python`` first
+   on its PATH that runs cli/train.py in this interpreter and records what
+   it did (ddp_script: the script's command line, finite losses, gloo, the
+   weights equal (bound 0), checkpoints by process 0 alone, each frame
+   once in the merged result.pkl, no FPS);
 4b. grid detectors, each of PointPillars and SECOND: the forward +
    post_process (grid_forward: scans/s over 8 batches after a warm-up,
    stage ms by CUDA events, peak memory, kept boxes, and SECOND's kept
@@ -165,9 +182,10 @@ Phases, each printing one JSON line:
    added (SECOND's grouped head and second_multihead as grid_card_vs_cpu,
    PV-RCNN's as pv_rcnn_card_vs_cpu, PointRCNN and PartA2_free as
    kitti_card_vs_cpu: forward_chain with the card's RoI-aware cells handed
-   to the CPU), and 8 steps of cli/train.py for PointRCNN, SECOND,
-   second_multihead, PV-RCNN and PartA2_free (kitti_train: every loss
-   finite, the FPS launches the steps take);
+   to the CPU), and for every model cli/train.py at its batch for 8 steps
+   (10 at PointRCNN-IoU's B = 3) and cli/test.py on its checkpoint
+   (kitti_train: every loss finite, the FPS launches the steps and the test
+   batches take, every scan once in the result);
 4d''. Waymo (waymo_dataset: the tree, its gt database, both loaders' batch
    shapes, points (2, 131072, 5) and gt (2, M, 8)); PV-RCNN
    (waymo_pv_rcnn_forward: the warm-up's FPS launch at (2, 131072) → 2048
@@ -178,7 +196,9 @@ Phases, each printing one JSON line:
    4 steps of cli/train.py, one FPS launch a step, then cli/test.py under
    EVAL_METRIC kitti and waymo, each table's keys present, one launch a
    test batch); SECOND (grid_forward, grid_card_vs_cpu) and Part-A2
-   (two_stage_forward, two_stage_card_vs_cpu) at B = 2, no FPS (waymo_grid);
+   (two_stage_forward, two_stage_card_vs_cpu) at B = 2, then each trained
+   and tested as PV-RCNN (waymo_second_train, waymo_PartA2_train), no FPS
+   (waymo_grid);
    then nuScenes (nuscenes_dataset: the tree of 10-sweep keyframes, its gt
    database, both loaders' batch shapes, gt of width 10 and finite) and per
    CBGS head (cbgs_forward: the timed forwards of the test batch with
@@ -235,7 +255,10 @@ Phases, each printing one JSON line:
    8 steps the scores are all but tied, so the NMS keeps whichever box its
    device's rounding ranks first), and combine_labels' label text equal
    on every frame except where a box pair's BEV IoU lies within 1e-5 of
-   the NMS threshold (such pairs are counted);
+   the NMS threshold (such pairs are counted); then the round with SECOND
+   (self_train_second: round 0 and cli/self_train.py's round 1 in a work
+   dir of its own, every stage's outputs, every result.pkl frame once,
+   finite losses in both trainings, >= 1 fused label a frame, no FPS);
 9. run tools/knn_bench.py: per shape the certificate, the slot match
    against the dense exact path (>= 99.9% where certified), the dense
    fallbacks and the windowed and dense times; then hold the kNN kernels
@@ -359,6 +382,15 @@ FPS_KITTI_SHAPES = [("kitti_sa1", BATCH, KITTI_POINTS, 4096),
 FPS_SHAPES = (FPS_PATH_SHAPES + FPS_EXTRA_SHAPES + FPS_TRAIN_SHAPES + FPS_ROUND_SHAPES
               + FPS_PV_SHAPES + FPS_WIDE_SHAPES + FPS_NUSC_SHAPES + FPS_KITTI_SHAPES)
 # the small-cloud kernel's stages of the path
+# the stacked FPS (ops/pointnet2_stack.py::farthest_point_sample_stack): ragged
+# batches of (stage, N_max, counts, npoint) at the flagship's width, at the
+# largest FPS route (131072 points a cloud, alone and beside a shorter one) and
+# at the small-cloud kernel's, with an empty cloud; the padding rows hold
+# points far outside the clouds, which an unmasked FPS would take first
+FPS_STACK_SHAPES = [("stack_flagship", N_POINTS, (12288, 9000, 4096, 1), 4096),
+                    ("stack_wide", 131072, (131072,), 2048),
+                    ("stack_wide_ragged", 131072, (131072, 70000), 2048),
+                    ("stack_small", 1000, (1000, 513, 0), 256)]
 FPS_SMALL_STAGES = ("backbone_sa4", "roi_sa1", "roi_sa2")
 FPS_TRAIN_SMALL_STAGES = ("train_sa4", "train_roi_sa1", "train_roi_sa2")
 # training: the flagship config file (shipped as a dict), a synthetic set of
@@ -406,6 +438,8 @@ MIN_SLOT_MATCH_PCT = 99.9
 # NMS threshold
 ROUND_EPOCHS = 1
 ROUND_EVAL_BATCH = 4
+# the round with SECOND (phase self_train_second), from its shipped dict
+ROUND_SECOND_CFG = "configs/models/lyft_models/second_dynamic_obj.yaml"
 # round 0's cli/train.py runs its one-cycle at the highest rate the first of
 # the config's 60 epochs reaches: at the config's 0.01 squeezed into 8 steps,
 # half of the trainings on an H100 drove the point logits below -20 or to NaN
@@ -478,15 +512,18 @@ NUSC_SCANS = 8
 # KITTI_SCANS synthetic scans of Car, Pedestrian and Cyclist objects
 # (tools/synth_kitti.py kitti_classes) at full width: per model
 # KITTI_TIMED_ITERS timed eval forwards at B = 4 (16384 points a scan for
-# PointRCNN, 65536 for the voxel models), and for KITTI_TRAIN's models
-# cli/train.py for 8 steps at the config's batch, its one-cycle peaking at the
-# highest rate the config's first epochs of 80 reach (the focal-loss NaN,
-# ROADMAP.md Queue 3). FPS launches a forward and a train step, by model
+# PointRCNN, 65536 for the voxel models), and for every model cli/train.py for
+# at least KITTI_TRAIN_STEPS steps at the config's batch (whole epochs of the
+# KITTI_SCANS scans: 8 at B = 2 and 4, 10 at B = 3), its one-cycle peaking at
+# the highest rate the config's first epochs of 80 reach (the focal-loss NaN,
+# ROADMAP.md Queue 3), then cli/test.py on its checkpoint over the training
+# scans. FPS launches a forward, a train step and a test batch, by model
 KITTI_CFG = "configs/models/kitti_models/{}.yaml"
 KITTI_SCANS = 16
 KITTI_TIMED_ITERS = 5
-KITTI_TRAIN = ("pointrcnn", "second", "second_multihead", "pv_rcnn", "PartA2_free")
-KITTI_EVAL_ONLY = ("pointpillar", "second_iou", "PartA2", "pointrcnn_iou", "voxel_rcnn_car")
+KITTI_TRAIN_STEPS = 8
+KITTI_MODELS = ("pointrcnn", "second", "second_multihead", "pv_rcnn", "PartA2_free",
+                "pointpillar", "second_iou", "PartA2", "pointrcnn_iou", "voxel_rcnn_car")
 KITTI_FPS = {"pointrcnn": (3, 3), "pointrcnn_iou": (3, 3), "pv_rcnn": (1, 0)}
 # nuScenes CBGS heads (configs/models/nuscenes_models/cbgs_{second,pp}_multihead.yaml,
 # shipped as dicts) fed by the nuScenes loader: a synthetic tree of
@@ -505,15 +542,19 @@ CBGS_TRAIN_FRAMES, CBGS_VAL_FRAMES = 4, 4
 # replacement) read at the configs' SAMPLED_INTERVAL of 5: WAYMO_TRAIN_FRAMES
 # give 8 train samples (4 steps at the config's B = 2), WAYMO_VAL_FRAMES one
 # test batch. PV-RCNN: WAYMO_TIMED_ITERS timed forwards after a warm-up (one
-# FPS launch each, (2, 131072) -> 2048), card vs CPU, cli/train.py for one
-# epoch at the rate the config's first epoch reaches (the focal-loss NaN,
-# ROADMAP.md Queue 3), cli/test.py under EVAL_METRIC kitti and waymo. SECOND
-# and Part-A2: timed eval forwards at B = 2 and card vs CPU.
+# FPS launch each, (2, 131072) -> 2048), card vs CPU. SECOND and Part-A2:
+# timed eval forwards at B = 2 and card vs CPU. Each of the three:
+# cli/train.py at the config's batch (PV-RCNN and Part-A2 2, SECOND 4) for
+# whole epochs of at least WAYMO_TRAIN_STEPS steps at the rate the config's
+# first epochs reach (the focal-loss NaN, ROADMAP.md Queue 3), then
+# cli/test.py under EVAL_METRIC kitti and waymo.
 WAYMO_CFG = "configs/models/waymo_models/{}.yaml"
 WAYMO_BATCH = 2
 WAYMO_INTERVAL = 5
 WAYMO_TRAIN_FRAMES, WAYMO_VAL_FRAMES = 8 * WAYMO_INTERVAL, 2 * WAYMO_INTERVAL
 WAYMO_TIMED_ITERS = 5
+WAYMO_TRAIN_STEPS = 4
+WAYMO_FPS = {"pv_rcnn": 1}  # cluster-kernel launches a forward, by model
 # the dataset-preparation CLIs on tools/nu_scenes.py's drives: 3 drives of 40
 # sweeps 2 m apart (~27k points a sweep), the PP CLI on the card for 2 origins
 PREP_DRIVES = {"traversals": 3, "frames": 40, "spacing": 2.0, "n_ground": 48000,
@@ -549,6 +590,11 @@ DEMO_FRAMES = 4
 # the same scans; each process is bounded by DDP_TIMEOUT_S
 DDP_WORLD, DDP_BATCH, DDP_EPOCHS = 2, 4, 2
 DDP_TIMEOUT_S = 600
+# SECOND the same way, each process started by scripts/torch_multihost_train.sh
+# (phase ddp_script): DDP_SCRIPT_EPOCHS epochs at the rate the config's first
+# epochs reach
+DDP_SCRIPT_CFG = "configs/models/lyft_models/second_dynamic_obj.yaml"
+DDP_SCRIPT_EPOCHS = 2
 # one step of DDP_WORLD processes against one process on the whole batch:
 # losses within DDP_LOSS_RTOL, the gradient norm within DDP_GRAD_NORM_RTOL,
 # each parameter's update within DDP_UPDATE_RTOL of its norm. The step is
@@ -565,9 +611,14 @@ DDP_TIMEOUT_S = 600
 # point head's losses, upstream of those decisions, are held; the rest is
 # printed
 DDP_LOSS_RTOL, DDP_GRAD_NORM_RTOL, DDP_UPDATE_RTOL = 1e-5, 1e-4, 1e-3
+STARTED = time.monotonic()  # the phase rows' t_s counts from here
 
 
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line; a phase's row also carries ``t_s``,
+    the script's seconds when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.monotonic() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -756,6 +807,70 @@ def phase_fps(torch, inputs, card):
             fail(f"fps kernel disagrees with its plain version at {stage}: {mismatches} indices")
         if n <= PV_POINTS and launch != legacy_launch(n):
             fail(f"fps at N = {n} launches (cluster, P) = {launch}, not {legacy_launch(n)}")
+        rows[stage] = row
+    return rows
+
+
+def stack_fps_bound(counts, npoint: int):
+    """The stacked FPS's bound from the work these counts need: each valid
+    point once a step, each valid coordinate read once, the indices
+    written once."""
+    ops = sum(counts) * max(npoint - 1, 0) * FPS_OPS_PER_POINT_STEP
+    nbytes = sum(counts) * 3 * 4 + len(counts) * npoint * 4
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_stack_fps(torch, dev, card):
+    """stack_fps_vs_plain: ``farthest_point_sample_stack`` on the card at
+    FPS_STACK_SHAPES, its launches counted from 0 over one call (the stacked
+    route: one launch for the batch), then held against its plain masked
+    version on the same inputs (indices equal, none at a padding row) and
+    timed. The clouds are bench scans (the small ones their first points: car
+    clusters) cut to their counts. Returns the rows by stage."""
+    from modest_tpu_torch.ops.fps import cluster_size, per_thread
+    from modest_tpu_torch.ops.pointnet2_stack import (farthest_point_sample_stack,
+                                                      farthest_point_sample_stack_plain)
+    from modest_tpu_torch.tools.scenes import bench_scans
+    from modest_tpu_torch.utils.device import device_ms
+
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    rows = {}
+    for stage, n, counts, npoint in FPS_STACK_SHAPES:
+        b = len(counts)
+        xyz = torch.from_numpy(bench_scans(b, max(n, 3000), seed=7)[:, :n, :3].copy())
+        pad = torch.arange(n)[None, :] >= torch.tensor(counts)[:, None]
+        far = (torch.rand(b, n, 3, generator=gen) - 0.5) * 1000.0
+        xyz = torch.where(pad[..., None], far, xyz).to(dev).contiguous()
+        cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+        counts_now = reset_fps_counts()
+        got = farthest_point_sample_stack(xyz, cnt, npoint)
+        torch.cuda.synchronize()
+        launches = dict(counts_now)
+        want = farthest_point_sample_stack_plain(xyz, cnt, npoint)
+        mismatches = int((got != want).sum())
+        max_abs_err = int((got.long() - want.long()).abs().max())
+        at_padding = int((got.long() >= cnt.clamp_min(1).long()[:, None]).sum())
+        ms = device_ms(lambda: farthest_point_sample_stack(xyz, cnt, npoint), dev, 10)
+        kernel_ms = kernel_device_ms(lambda: farthest_point_sample_stack(xyz, cnt, npoint), 10,
+                                     "fps_")
+        plain_ms = device_ms(lambda: farthest_point_sample_stack_plain(xyz, cnt, npoint), dev, 1)
+        bound_ms, bound_by = stack_fps_bound(counts, npoint)
+        kernel = "fps_cluster_kernel" if cluster_size(n) else "fps_warp_kernel"
+        row = {"phase": "stack_fps_vs_plain", "stage": stage, "B": b, "N": n,
+               "counts": list(counts), "npoint": npoint, "kernel": kernel,
+               "cluster": cluster_size(n) or None, "per_thread": per_thread(n),
+               "fps_kernel_launches": launches, "mismatches": mismatches,
+               "max_abs_err": max_abs_err, "indices_at_padding": at_padding, "ms": ms,
+               "kernel_device_ms": kernel_ms, "us_per_step": ms * 1e3 / max(npoint - 1, 1),
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None, "card": card}
+        emit(row)
+        if mismatches or at_padding:
+            fail(f"stacked fps at {stage}: {mismatches} indices differ from the plain masked "
+                 f"version, {at_padding} at padding rows")
+        if launches != {"fps_cluster_kernel": 0, "fps_warp_kernel": 0, kernel: 1}:
+            fail(f"stacked fps at {stage}: one call launched {launches}, not one {kernel}")
         rows[stage] = row
     return rows
 
@@ -1251,17 +1366,23 @@ def phase_train_card_vs_cpu(torch, np, dev, root, card):
 
 
 def run_ranks(fn_name: str, args_by_rank, root, where: str) -> None:
-    """``chip_smoke.<fn_name>(*args)`` in one new interpreter per rank, all
-    started together; fails the phase when one exits non-zero (the others
-    are killed at once) or they have not all ended within DDP_TIMEOUT_S.
-    Each rank's output goes to ``root/<where>_rank<r>.log``."""
+    """``chip_smoke.<fn_name>(*args)`` in one new interpreter per rank
+    (``run_processes``)."""
+    run_processes([[sys.executable, "-c", f"import sys; sys.path.insert(0, {str(REPO)!r}); "
+                    f"import chip_smoke; chip_smoke.{fn_name}(*{tuple(args)!r})"]
+                   for args in args_by_rank], root, where)
+
+
+def run_processes(cmds, root, where: str, env=None) -> None:
+    """One process per rank running ``cmds[rank]`` from the repository's
+    root, all started together; fails the phase when one exits non-zero
+    (the others are killed at once) or they have not all ended within
+    DDP_TIMEOUT_S. Each rank's output goes to ``root/<where>_rank<r>.log``."""
     procs, logs = [], []
-    for rank, args in enumerate(args_by_rank):
-        code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
-                f"chip_smoke.{fn_name}(*{tuple(args)!r})")
+    for rank, cmd in enumerate(cmds):
         logs.append(open(root / f"{where}_rank{rank}.log", "w"))
-        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
-                                      stdout=logs[-1], stderr=subprocess.STDOUT))
+        procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdout=logs[-1],
+                                      stderr=subprocess.STDOUT))
     deadline = time.time() + DDP_TIMEOUT_S
     try:
         while any(p.poll() is None for p in procs):
@@ -1302,40 +1423,53 @@ def ddp_train_argv(root, out, port: int, rank: int, world: int):
 
 def ddp_train_rank(rank: int, port: int, root: str, out: str, world: int) -> None:
     """Process ``rank`` of phase ddp_train: cli/train.py with ``--launcher
-    manual``; writes ``out/rank<r>.json`` (its steps, FPS launches in
-    training and in the evaluation, checkpoint writes, collectives, peak
-    memory, backend) and ``out/state_rank<r>.pth`` (its final weights and
-    batch-norm buffers)."""
+    manual`` (``train_rank``)."""
+    import torch
+
+    torch.set_num_threads(1)  # as torchrun and cli/train.py's --num_devices set each process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train_rank(ddp_train_argv(root, out, port, rank, world))
+
+
+def train_rank(argv) -> None:
+    """cli/train.py's ``main`` on ``argv`` (a process of a group, with
+    ``--eval_after_train``), the checkpoint writes this process makes
+    counted; writes ``<output_dir>/rank<r>.json`` (the command line, its
+    steps, FPS launches in training and in the evaluation, checkpoint
+    writes, collectives, peak memory, backend) and ``state_rank<r>.pth``
+    (its final weights and batch-norm buffers)."""
     import torch
     import torch.distributed as dist
 
     from modest_tpu_torch.cli import train as train_cli
     from modest_tpu_torch.parallel import mesh
 
-    torch.set_num_threads(1)  # as torchrun and cli/train.py's --num_devices set each process
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    out = Path(out)
+    args, _ = train_cli.parse_config(argv)
+    out, rank = Path(args.output_dir), args.process_id
     writes, real_save = [], torch.save
 
-    def counted_save(obj, f, *args, **kwargs):  # the checkpoints this process writes
+    def counted_save(obj, f, *a, **kw):  # the checkpoints this process writes
         writes.append(str(f))
-        return real_save(obj, f, *args, **kwargs)
+        return real_save(obj, f, *a, **kw)
 
     counts = reset_fps_counts()
     at_eval, real_eval = {}, train_cli.eval_one_epoch
 
-    def eval_after_train(model, model_cfg, loader, *args, **kwargs):
+    def eval_after_train(model, model_cfg, loader, *a, **kw):
         at_eval.update(launches=dict(counts), batches=len(loader), backend=dist.get_backend())
-        return real_eval(model, model_cfg, loader, *args, **kwargs)
+        return real_eval(model, model_cfg, loader, *a, **kw)
 
     torch.save, train_cli.eval_one_epoch = counted_save, eval_after_train
     mesh.calls.update(dict.fromkeys(mesh.calls, 0))
     torch.cuda.reset_peak_memory_stats()
-    state = train_cli.main(ddp_train_argv(root, out, port, rank, world), stage_times=True)
-    torch.save = real_save
+    try:
+        state = train_cli.main(argv, stage_times=True)
+    finally:
+        torch.save = real_save
     train_launches = at_eval["launches"]
-    report = {"rank": rank, "history": state.history, "train_launches": train_launches,
+    report = {"rank": rank, "argv": argv, "history": state.history,
+              "train_launches": train_launches,
               "eval_launches": {k: counts[k] - train_launches[k] for k in counts},
               "eval_batches": at_eval["batches"], "backend": at_eval["backend"],
               "checkpoint_writes": writes, "collectives": dict(mesh.calls),
@@ -1414,6 +1548,110 @@ def phase_ddp_train(torch, np, root, card, world: int = DDP_WORLD):
     if frames != want_frames:
         fail(f"ddp_train: the merged result.pkl holds {frames}, not each train frame once")
     return [r["train_launches"] for r in reports], steps, [r["eval_launches"] for r in reports]
+
+
+def script_rank(argv) -> None:
+    """The ``python`` that scripts/torch_multihost_train.sh runs in phase
+    ddp_script: checks that the script asked for ``-m
+    modest_tpu_torch.cli.train``, then runs ``train_rank`` on the rest of
+    the command line."""
+    if argv[:2] != ["-m", "modest_tpu_torch.cli.train"]:
+        raise SystemExit(f"ddp_script: the launch script ran python {argv[:2]}")
+    train_rank(argv[2:])
+
+
+def phase_ddp_script(torch, np, root, card):
+    """ddp_script: SECOND (DDP_SCRIPT_CFG) as DDP_WORLD processes, each
+    started by its own copy of scripts/torch_multihost_train.sh as a user
+    starts them (process id, count, coordinator, config, then the CLI's
+    flags), sharing the card (gloo): a global batch of DDP_BATCH for
+    DDP_SCRIPT_EPOCHS epochs at the rate the config's first epochs reach,
+    then --eval_after_train on the train scans, merged by rank 0. The
+    ``python`` first on the script's PATH is ``script_rank`` on this
+    interpreter. Checks: both exit 0 with the script's command line, every
+    loss finite, the ranks' weights and buffers equal (bound 0.0), rank 0
+    alone writing the checkpoints, the merged result.pkl holding each train
+    frame once, the batch-wide sparse batch norms on gloo, no FPS."""
+    import os
+    import shlex
+
+    from modest_tpu_torch.parallel.multihost import free_port
+
+    cfg = shipped_config(DDP_SCRIPT_CFG, root)
+    epochs = DDP_SCRIPT_EPOCHS
+    lr = one_cycle_early_lr(cfg.OPTIMIZATION, epochs)
+    out, bin_dir = root / "ddp_script", root / "ddp_script_bin"
+    out.mkdir()
+    bin_dir.mkdir()
+    code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+            "chip_smoke.script_rank(sys.argv[1:])")
+    shim = bin_dir / "python"
+    shim.write_text(f'#!/bin/sh\nexec {shlex.quote(sys.executable)} -c {shlex.quote(code)} "$@"\n')
+    shim.chmod(0o755)
+    coordinator = f"127.0.0.1:{free_port()}"
+    flags = ["--data_path", str(root), "--batch_size", str(DDP_BATCH), "--epochs", str(epochs),
+             "--fix_random_seed", "--output_dir", str(out), "--eval_after_train",
+             "--set", "OPTIMIZATION.LR", str(lr), "DATA_CONFIG.DATA_SPLIT.test", "train",
+             "DATA_CONFIG.INFO_PATH.test", "[kitti_infos_train.pkl]"]
+    cfg_file = str(REPO / DDP_SCRIPT_CFG)
+    cmds = [["bash", str(REPO / "scripts" / "torch_multihost_train.sh"), str(r), str(DDP_WORLD),
+             coordinator, cfg_file, *flags] for r in range(DDP_WORLD)]
+    env = {**os.environ, "PATH": f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}"}
+    t0 = time.perf_counter()
+    run_processes(cmds, root, "ddp_script", env)
+    seconds = time.perf_counter() - t0
+    reports = [json.loads((out / f"rank{r}.json").read_text()) for r in range(DDP_WORLD)]
+    states = [torch.load(out / f"state_rank{r}.pth") for r in range(DDP_WORLD)]
+    rank_gap = max(float((states[0][k].double() - s[k].double()).abs().max())
+                   for s in states[1:] for k in states[0])
+    with open(out / "eval" / f"epoch_{epochs}" / "val" / "result.pkl", "rb") as f:
+        frames = [a["frame_id"] for a in pickle.load(f)]
+    steps = TRAIN_SCANS // DDP_BATCH * epochs
+    hist = reports[0]["history"]
+    timed = hist[2:]
+    stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
+    row = {"phase": "ddp_script", "model": "second", "processes": DDP_WORLD,
+           "script": "scripts/torch_multihost_train.sh", "global_batch": DDP_BATCH,
+           "steps": [len(r["history"]) for r in reports], "epochs": epochs, "lr": lr,
+           "backend": [r["backend"] for r in reports],
+           "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
+           "global_scans_per_s": DDP_BATCH * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"]),
+           "timed_steps": len(timed),
+           "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[1]["end_s"]) / len(timed),
+           "stage_ms": stage_ms, "grad_reduce_ms": stage_ms.get("grad_reduce"),
+           "collectives_per_step": {k: v / steps for k, v in reports[0]["collectives"].items()},
+           "peak_mem_gb": [r["peak_mem_gb"] for r in reports],
+           "rank_param_max_abs_diff": rank_gap, "rank_param_bound": 0.0,
+           "checkpoint_writes": [len(r["checkpoint_writes"]) for r in reports],
+           "ckpt_files": sorted(p.name for p in (out / "ckpt").iterdir()),
+           "result_frames": len(frames), "result_unique_frames": len(set(frames)),
+           "eval_batches": [r["eval_batches"] for r in reports],
+           "fps_train_launches": [r["train_launches"] for r in reports],
+           "fps_eval_launches": [r["eval_launches"] for r in reports],
+           "seconds": seconds, "card": card}
+    emit(row)
+    for r in reports:
+        want_argv = ["--cfg_file", cfg_file, "--launcher", "manual", "--coordinator",
+                     coordinator, "--num_processes", str(DDP_WORLD), "--process_id",
+                     str(r["rank"]), *flags]
+        if r["argv"] != want_argv:
+            fail(f"ddp_script: rank {r['rank']} ran cli/train.py with {r['argv']}")
+        if len(r["history"]) != steps:
+            fail(f"ddp_script: rank {r['rank']} took {len(r['history'])} steps, not {steps}")
+        check_history(np, r["history"], f"ddp_script rank {r['rank']}")
+        if r["backend"] != "gloo":
+            fail(f"ddp_script: backend {r['backend']} where the processes share the card")
+        if any(r["train_launches"].values()) or any(r["eval_launches"].values()):
+            fail(f"ddp_script: SECOND launched the fps kernels {r['train_launches']} in "
+                 f"training, {r['eval_launches']} in the evaluation")
+    if rank_gap != 0.0:
+        fail(f"ddp_script: the processes' weights part by {rank_gap}")
+    if row["checkpoint_writes"] != [epochs] + [0] * (DDP_WORLD - 1) or row["ckpt_files"] != [
+            f"checkpoint_epoch_{e}.pth" for e in range(1, epochs + 1)]:
+        fail(f"ddp_script: checkpoint writes {row['checkpoint_writes']}, files "
+             f"{row['ckpt_files']}")
+    if frames != [f"{i:06d}" for i in range(TRAIN_SCANS)]:
+        fail(f"ddp_script: the merged result.pkl holds {frames}, not each train frame once")
 
 
 def ddp_batch(torch, root):
@@ -2565,43 +2803,65 @@ def phase_kitti_forward(torch, np, api, build_network, stem, root, dev, card):
 
 
 def phase_kitti_train(torch, np, dev, root, stem, card):
-    """cli/train.py on one KITTI config at full width and its batch for 8
-    steps over the synthetic scans, peaking at ``one_cycle_early_lr`` of the
-    smoke's epochs: every loss finite, the FPS launches 8 steps take."""
+    """cli/train.py on one KITTI config at full width and its batch for whole
+    epochs of at least KITTI_TRAIN_STEPS steps over the synthetic scans,
+    peaking at ``one_cycle_early_lr`` of the smoke's epochs: every loss
+    finite, the FPS launches the steps take; then cli/test.py on its
+    checkpoint over the training scans at the config's batch, each scan
+    once with finite boxes, and its FPS launches. Returns the launches of
+    training and of the test, and the steps."""
+    from modest_tpu_torch.cli import test as test_cli
     from modest_tpu_torch.cli import train as train_cli
 
     cfg = kitti_config(stem, root)
+    cfg_file = str(REPO / KITTI_CFG.format(stem))
+    out = root / f"kitti_{stem}"
     batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
-    epochs = 8 * batch // KITTI_SCANS
+    per_epoch = KITTI_SCANS // batch
+    epochs = -(-KITTI_TRAIN_STEPS // per_epoch)
     lr = one_cycle_early_lr(cfg.OPTIMIZATION, epochs)
     counts = reset_fps_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    state = train_cli.main(["--cfg_file", str(REPO / KITTI_CFG.format(stem)), "--data_path",
-                            str(root), "--epochs", str(epochs), "--fix_random_seed",
-                            "--output_dir", str(root / f"kitti_{stem}"),
+    state = train_cli.main(["--cfg_file", cfg_file, "--data_path", str(root), "--epochs",
+                            str(epochs), "--fix_random_seed", "--output_dir", str(out),
                             "--set", "OPTIMIZATION.LR", str(lr)], stage_times=True)
     seconds = time.perf_counter() - t0
     launches = dict(counts)
     hist = state.history
-    if len(hist) != 8:
-        fail(f"kitti {stem} train: {len(hist)} steps, not 8")
+    if len(hist) != epochs * per_epoch:
+        fail(f"kitti {stem} train: {len(hist)} steps, not {epochs * per_epoch}")
     check_history(np, hist, f"kitti {stem} train")
     timed = hist[2:]
     stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
+    train_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    counts = reset_fps_counts()
+    t0 = time.perf_counter()
+    annos, _ = test_cli.main(["--cfg_file", cfg_file, "--ckpt_dir", str(out / "ckpt"),
+                              "--data_path", str(root), "--output_dir", str(out / "test"),
+                              "--workers", "0", "--set", "DATA_CONFIG.DATA_SPLIT.test", "train",
+                              "DATA_CONFIG.INFO_PATH.test", "[kitti_infos_train.pkl]"])
+    test_s = time.perf_counter() - t0
+    test_launches = dict(counts)
+    test_batches = -(-KITTI_SCANS // batch)
+    check_result(np, annos, (root / "ImageSets" / "train.txt").read_text().split(),
+                 f"kitti {stem} cli/test.py")
     emit({"phase": "kitti_train", "model": stem, "batch": batch, "steps": len(hist),
           "epochs": epochs, "lr": lr, "losses": [{"step": r["step"], **r["metrics"]}
                                                  for r in hist],
           "scans_per_s": batch * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"]),
           "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[1]["end_s"]) / len(timed),
           "data_wait_ms": sum(r["data_wait_ms"] for r in timed) / len(timed),
-          "stage_ms": stage_ms, "fps_kernel_launches": launches,
-          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "cli_seconds": seconds,
-          "card": card})
+          "stage_ms": stage_ms, "fps_kernel_launches": launches, "peak_mem_gb": train_peak,
+          "cli_seconds": seconds, "test_seconds": test_s, "test_batches": test_batches,
+          "test_detections": int(sum(len(a["score"]) for a in annos)),
+          "test_fps_kernel_launches": test_launches, "card": card})
     want = expected_fps(stem, len(hist))
     if launches != want:
         fail(f"kitti {stem} train: fps launches {launches}, not {want}")
-    return launches
+    if test_launches != expected_fps(stem, test_batches):
+        fail(f"kitti {stem} cli/test.py: {test_batches} batches launched fps {test_launches}")
+    return launches, test_launches, len(hist)
 
 
 def phase_nuscenes_dataset(torch, np, root, card):
@@ -2805,35 +3065,42 @@ def phase_waymo_dataset(torch, np, root, card):
     emit(row)
 
 
-def phase_waymo_pv_train(torch, np, dev, root, card):
-    """cli/train.py on Waymo's PV-RCNN from its dict at full width and its
-    B = 2 for one epoch (4 steps) at the rate the config's first epoch
-    reaches; then cli/test.py on its checkpoint under EVAL_METRIC kitti and
-    waymo (``--set``): the R40 AP table and the AP/APH LEVEL_1/2 table. One
-    FPS launch a step and a test batch."""
+def phase_waymo_train(torch, np, dev, root, stem, card):
+    """cli/train.py on one Waymo config from its dict at full width and its
+    batch for whole epochs of at least WAYMO_TRAIN_STEPS steps, at the rate
+    the config's first epochs reach; then cli/test.py on its checkpoint under
+    EVAL_METRIC kitti and waymo (``--set``): the R40 AP table and the AP/APH
+    LEVEL_1/2 table. FPS launches a step and a test batch: WAYMO_FPS. Returns
+    the FPS launches of training, the steps, and the cluster kernel's
+    launches in each test."""
     from modest_tpu_torch.cli import test as test_cli
     from modest_tpu_torch.cli import train as train_cli
 
-    cfg_file = str(REPO / WAYMO_CFG.format("pv_rcnn"))
-    cfg = shipped_config(WAYMO_CFG.format("pv_rcnn"), root)
-    lr = one_cycle_early_lr(cfg.OPTIMIZATION, 1)
-    out = root / "waymo_pv_rcnn"
+    cfg_file = str(REPO / WAYMO_CFG.format(stem))
+    cfg = shipped_config(WAYMO_CFG.format(stem), root)
+    batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    per_epoch = WAYMO_TRAIN_FRAMES // WAYMO_INTERVAL // batch
+    epochs = -(-WAYMO_TRAIN_STEPS // per_epoch)
+    lr = one_cycle_early_lr(cfg.OPTIMIZATION, epochs)
+    out = root / f"waymo_{stem}"
     counts = reset_fps_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    state = train_cli.main(["--cfg_file", cfg_file, "--data_path", str(root), "--epochs", "1",
-                            "--fix_random_seed", "--output_dir", str(out),
+    state = train_cli.main(["--cfg_file", cfg_file, "--data_path", str(root), "--epochs",
+                            str(epochs), "--fix_random_seed", "--output_dir", str(out),
                             "--set", "OPTIMIZATION.LR", str(lr)], stage_times=True)
     seconds = time.perf_counter() - t0
     train_launches = dict(counts)
     hist = state.history
-    steps = WAYMO_TRAIN_FRAMES // WAYMO_INTERVAL // WAYMO_BATCH
+    steps = epochs * per_epoch
     if len(hist) != steps:
-        fail(f"waymo pv_rcnn train: {len(hist)} steps, not {steps}")
-    check_history(np, hist, "waymo pv_rcnn train")
+        fail(f"waymo {stem} train: {len(hist)} steps, not {steps}")
+    check_history(np, hist, f"waymo {stem} train")
     timed = hist[2:]
     stage_ms = {k: sum(r["stage_ms"][k] for r in timed) / len(timed) for k in timed[0]["stage_ms"]}
     train_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    per_forward = WAYMO_FPS.get(stem, 0)
+    test_batches = -(-WAYMO_VAL_FRAMES // WAYMO_INTERVAL // batch)
     tests, test_launches = {}, {}
     for metric in ("kitti", "waymo"):
         counts = reset_fps_counts()
@@ -2850,21 +3117,23 @@ def phase_waymo_pv_train(torch, np, dev, root, card):
         want_key = ("Vehicle_bev_iou0.7_R40" if metric == "kitti"
                     else "OBJECT_TYPE_TYPE_VEHICLE_LEVEL_2/APH")
         if len(annos) != WAYMO_VAL_FRAMES // WAYMO_INTERVAL or want_key not in ap:
-            fail(f"waymo pv_rcnn cli/test.py ({metric}): {len(annos)} frames, {sorted(ap)}")
-    want = {"fps_cluster_kernel": steps, "fps_warp_kernel": 0}
-    emit({"phase": "waymo_pv_rcnn_train", "batch": WAYMO_BATCH, "steps": len(hist), "lr": lr,
-          "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
-          "scans_per_s": WAYMO_BATCH * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"]),
+            fail(f"waymo {stem} cli/test.py ({metric}): {len(annos)} frames, {sorted(ap)}")
+    emit({"phase": f"waymo_{stem}_train", "model": stem, "batch": batch, "steps": len(hist),
+          "epochs": epochs, "lr": lr, "losses": [{"step": r["step"], **r["metrics"]} for r in hist],
+          "scans_per_s": batch * len(timed) / (hist[-1]["end_s"] - hist[1]["end_s"]),
           "step_ms_mean": 1e3 * (hist[-1]["end_s"] - hist[1]["end_s"]) / len(timed),
           "data_wait_ms": sum(r["data_wait_ms"] for r in timed) / len(timed),
           "forward_ms": sum(stage_ms[k] for k in state.model.stages), "stage_ms": stage_ms,
           "peak_mem_gb": train_peak, "cli_seconds": seconds, "fps_kernel_launches": train_launches,
-          "tests": tests, "test_fps_kernel_launches": test_launches, "card": card})
+          "tests": tests, "test_batches": test_batches,
+          "test_fps_kernel_launches": test_launches, "card": card})
+    want = {"fps_cluster_kernel": per_forward * steps, "fps_warp_kernel": 0}
     if train_launches != want:
-        fail(f"waymo pv_rcnn train: {steps} steps launched fps {train_launches}, not {want}")
+        fail(f"waymo {stem} train: {steps} steps launched fps {train_launches}, not {want}")
     for metric, launches in test_launches.items():
-        if launches != {"fps_cluster_kernel": 1, "fps_warp_kernel": 0}:
-            fail(f"waymo pv_rcnn cli/test.py ({metric}): one batch launched fps {launches}")
+        if launches != {"fps_cluster_kernel": per_forward * test_batches, "fps_warp_kernel": 0}:
+            fail(f"waymo {stem} cli/test.py ({metric}): {test_batches} batches launched fps "
+                 f"{launches}")
     return train_launches, len(hist), {m: n["fps_cluster_kernel"] for m, n in
                                        test_launches.items()}
 
@@ -2875,7 +3144,8 @@ def phase_waymo(torch, np, api, build_network, dev, card):
     launch a forward, its indices equal to the plain FPS's), the share of
     occupied voxels the 16000-voxel cap keeps, card vs CPU, training and
     cli/test.py; then SECOND and Part-A2 at B = 2 with their card vs CPU
-    chains (no FPS). Returns the FPS launches of PV-RCNN's paths."""
+    chains, training and cli/test.py (no FPS). Returns the FPS launches of
+    PV-RCNN's paths."""
     from modest_tpu_torch.models.grid_detectors import MAX_VOXELS
     from modest_tpu_torch.models.voxelize import voxel_counts
 
@@ -2902,7 +3172,7 @@ def phase_waymo(torch, np, api, build_network, dev, card):
                              phase="waymo_pv_rcnn_card_vs_cpu")
         del model
         torch.cuda.empty_cache()
-        train = phase_waymo_pv_train(torch, np, dev, tmp, card)
+        train = phase_waymo_train(torch, np, dev, tmp, "pv_rcnn", card)
         torch.cuda.empty_cache()
         counts = reset_fps_counts()
         for stem in ("second", "PartA2"):
@@ -2918,6 +3188,8 @@ def phase_waymo(torch, np, api, build_network, dev, card):
                 phase_two_stage_forward(torch, np, api, build_network, "waymo_PartA2", cfg, ds,
                                         batch, card)
             torch.cuda.empty_cache()
+            phase_waymo_train(torch, np, dev, tmp, stem, card)
+            torch.cuda.empty_cache()
         emit({"phase": "waymo_grid", "models": ["second", "PartA2"], "batch": WAYMO_BATCH,
               "fps_kernel_launches": dict(counts), "card": card})
         if any(counts.values()):
@@ -2929,25 +3201,26 @@ def phase_waymo(torch, np, api, build_network, dev, card):
 
 
 def phase_kitti(torch, np, api, build_network, dev, card):
-    """KITTI's 3-class configs: the dataset, every model's forward (card vs
-    CPU for the routes slice 12 ported), 8 train steps of KITTI_TRAIN's.
-    Returns the FPS launches by model of the forwards and of the
-    trainings."""
+    """KITTI's 3-class configs: the dataset, then per model its forward (card
+    vs CPU for the multi-class and anchor-free routes), its training and
+    cli/test.py. Returns by model the FPS launches of the forwards, of the
+    trainings and of the tests, and the train steps."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_kitti_"))
-    forward_launches, train_launches = {}, {}
+    forward_launches, train_launches, test_launches, steps = {}, {}, {}, {}
     t0 = time.perf_counter()
     try:
         phase_kitti_dataset(tmp, card)
-        for stem in (*KITTI_TRAIN, *KITTI_EVAL_ONLY):
+        for stem in KITTI_MODELS:
             forward_launches[stem] = phase_kitti_forward(torch, np, api, build_network, stem,
                                                          tmp, dev, card)
-            if stem in KITTI_TRAIN:
-                train_launches[stem] = phase_kitti_train(torch, np, dev, tmp, stem, card)
+            torch.cuda.empty_cache()
+            train_launches[stem], test_launches[stem], steps[stem] = phase_kitti_train(
+                torch, np, dev, tmp, stem, card)
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "kitti_seconds", "seconds": time.perf_counter() - t0, "card": card})
-    return forward_launches, train_launches
+    return forward_launches, train_launches, test_launches, steps
 
 
 def phase_caddn_dataset(root, card):
@@ -4090,6 +4363,118 @@ def phase_self_train(torch, np, dev, root, data_root, card):
                                 "data": round0}
 
 
+def phase_self_train_second(torch, np, dev, root, data_root, card):
+    """self_train_second: one self-training round with SECOND
+    (ROUND_SECOND_CFG) through the CLIs on the pipeline dataset's origin
+    frames, as phase_self_train's with PointRCNN: that phase's seed label
+    files, a round-0 dataset with SECOND's infos and gt database, one epoch
+    of cli/train.py at the config's batch and the rate its first epoch
+    reaches, cli/test.py on the train split at B = ROUND_EVAL_BATCH (round
+    0's result.pkl), then cli/self_train.py --max_iter 1 (combine, round
+    dataset, infos, one epoch at the config's rate, train-split inference).
+    Its work dir links the pipeline's PP scores, seed boxes and metadata and
+    holds its own round labels. Reports the files, detections and fused
+    labels; every train loss finite (round 1's from its metrics.jsonl),
+    no FPS launch."""
+    from modest_tpu_torch.cli import self_train
+    from modest_tpu_torch.cli import test as test_cli
+    from modest_tpu_torch.cli import train as train_cli
+    from modest_tpu_torch.data.kitti_dataset import create_kitti_infos
+
+    root = Path(root)
+    device = dev.type
+    ids = [f"{g:06d}" for g in origin_ids(root)]
+    cfg_file = str(REPO / ROUND_SECOND_CFG)
+    cfg = train_cli.load_model_config(cfg_file)
+    batch = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    lr = one_cycle_early_lr(cfg.OPTIMIZATION, ROUND_EPOCHS)
+    work = root / "second_round"
+    (work / "intermediate_results").mkdir(parents=True)
+    (work / "meta_data").symlink_to(root / "meta_data")
+    for entry in (root / "intermediate_results").iterdir():
+        if not entry.name.startswith("round_"):  # the PointRCNN round's labels stay apart
+            (work / "intermediate_results" / entry.name).symlink_to(entry)
+    label_dir = root / "intermediate_results/lyft_labels_pp_score_fw70_2m_r0.3_fov"
+    rounds = root / "rounds_second"
+    round0, out0 = rounds / "round_0", work / "self_training" / "round_0"
+    stages = {}
+    counts = reset_fps_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return result
+
+    def make_round0():
+        self_train.make_round_dataset(root, round0, label_dir)
+        create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, round0, round0, if_val=False)
+
+    timed("infos", make_round0)
+    state = timed("train", lambda: train_cli.main([
+        "--cfg_file", cfg_file, "--data_path", str(round0), "--batch_size", str(batch),
+        "--epochs", str(ROUND_EPOCHS), "--fix_random_seed", "--output_dir", str(out0),
+        "--device", device, "--set", "OPTIMIZATION.LR", str(lr)]))
+    r0_annos, r0_ret = timed("inference", lambda: test_cli.main(
+        round0_test_argv(cfg_file, out0, round0, device)))
+    r0_result = out0 / "eval_train_root" / "eval" / f"epoch_{ROUND_EPOCHS}" / "train" / "result.pkl"
+    with open(r0_result, "rb") as f:
+        check_result(np, pickle.load(f), ids, "SECOND round 0")
+    check_history(np, state.history, "SECOND round-0 train")
+
+    st_out = work / "self_training"
+    t0 = time.perf_counter()
+    timings = self_train.main([
+        "--cfg_file", cfg_file, "--base_data", str(root), "--work_dir", str(work),
+        "--seed_result", str(r0_result), "--max_iter", "1", "--epochs", str(ROUND_EPOCHS),
+        "--output_root", str(st_out), "--rounds_dir", str(rounds), "--device", device])
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    r1_labels = work / "intermediate_results" / "round_1_labels"
+    r1_result = st_out / "round_1" / "eval_train" / "result.pkl"
+    outputs = [round0 / "kitti_infos_train.pkl", round0 / "kitti_dbinfos_train.pkl",
+               out0 / "ckpt" / f"checkpoint_epoch_{ROUND_EPOCHS}.pth", r0_result,
+               self_train.token(r1_labels), self_train.token(rounds / "round_1"),
+               rounds / "round_1" / "kitti_infos_train.pkl",
+               rounds / "round_1" / "kitti_dbinfos_train.pkl",
+               st_out / "round_1" / "ckpt" / f"checkpoint_epoch_{ROUND_EPOCHS}.pth", r1_result]
+    missing = [str(p) for p in outputs if not p.exists()]
+    if missing:
+        fail(f"self_train_second: stage outputs missing: {missing}")
+    with open(r1_result, "rb") as f:
+        r1_annos = pickle.load(f)
+    check_result(np, r1_annos, ids, "SECOND round 1")
+    with open(st_out / "round_1" / "metrics.jsonl") as f:
+        r1_steps = [json.loads(line) for line in f]
+    r1_losses = [{k: v for k, v in r.items() if k.startswith("train/")} for r in r1_steps]
+    n_seed = sum(map(len, label_lines(label_dir, ids).values()))
+    n_fused = sum(map(len, label_lines(r1_labels, ids).values()))
+    emit({"phase": "self_train_second", "model": "second", "frames": len(ids),
+          "train_batch": batch, "round0_lr": lr, "round0_train_steps": len(state.history),
+          "round0_losses": [{"step": r["step"], **r["metrics"]} for r in state.history],
+          "round1_train_steps": len(r1_steps), "round1_losses": r1_losses,
+          "seed_labels": n_seed, "fused_labels": n_fused,
+          "fused_labels_per_frame": n_fused / len(ids),
+          "round0_detections": sum(len(a["score"]) for a in r0_annos),
+          "round1_detections": sum(len(a["score"]) for a in r1_annos),
+          "round0_ap": {k: float(v) for k, v in r0_ret.items() if k.endswith("_R40")},
+          "files": [str(p.relative_to(root)) for p in outputs],
+          "round0_stage_s": stages, "round1_stage_s": timings.get("round_1"),
+          "round1_s": round_s, "fps_kernel_launches": dict(counts),
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "card": card})
+    if len(r1_steps) != len(ids) // batch:
+        fail(f"self_train_second: round 1 trained {len(r1_steps)} steps, not {len(ids) // batch}")
+    bad = [r for r in r1_losses if not all(math.isfinite(v) for v in r.values())]
+    if bad:
+        fail(f"self_train_second: round 1's train losses not finite: {bad}")
+    if n_fused < len(ids):
+        fail(f"self_train_second: {n_fused} fused labels over {len(ids)} frames (< 1 a frame)")
+    if any(counts.values()):
+        fail(f"self_train_second: SECOND's round launched the fps kernels {dict(counts)}")
+
+
 def phase_self_train_card_vs_cpu(torch, np, root, data_root, round0, card):
     """The round on the card against the port's CPU path: one scan's
     train-split detections (the round-0 checkpoint, the first test batch's
@@ -4477,6 +4862,7 @@ def main() -> int:
     scenes = bench_scans(BATCH, N_POINTS, seed=0)
     fps_in = fps_inputs(torch, dev, scenes)
     fps_rows = phase_fps(torch, fps_in, card)
+    stack_rows = phase_stack_fps(torch, dev, card)
 
     cfg = Config(POINTRCNN_DYNAMIC_OBJ)
     model = build_network(cfg, len(POINTRCNN_DYNAMIC_OBJ_CLASS_NAMES), device="cuda", seed=0)
@@ -4497,6 +4883,7 @@ def main() -> int:
         ddp_fps = phase_ddp_step_vs_single(torch, np, dev, tmp, card)
         phase_nccl_world1(torch, np, dev, tmp, card)
         phase_grid(torch, np, api, build_network, dev, tmp, card)
+        phase_ddp_script(torch, np, tmp, card)
         pv_row, (pv_train_launches, pv_steps, pv_test_batches) = phase_pv_rcnn(
             torch, np, api, build_network, dev, tmp, card)
         phase_two_stage(torch, np, api, build_network, dev, tmp, card)
@@ -4505,8 +4892,8 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    kitti_forward_launches, kitti_train_launches = phase_kitti(torch, np, api, build_network,
-                                                               dev, card)
+    kitti_forward_launches, kitti_train_launches, kitti_test_launches, kitti_steps = phase_kitti(
+        torch, np, api, build_network, dev, card)
     waymo_row, (waymo_train_launches, waymo_steps, waymo_test_launches) = phase_waymo(
         torch, np, api, build_network, dev, card)
     phase_nuscenes_cbgs(torch, np, api, build_network, dev, card)
@@ -4527,6 +4914,7 @@ def main() -> int:
         phase_pipeline_card_vs_cpu(torch, np, dev, data_root, root, rc_state, card)
         st_launches, st_forwards, round0 = phase_self_train(torch, np, dev, root, data_root, card)
         phase_self_train_card_vs_cpu(torch, np, root, data_root, round0, card)
+        phase_self_train_second(torch, np, dev, root, data_root, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4621,7 +5009,10 @@ def main() -> int:
             "kitti_forwards": KITTI_TIMED_ITERS + 1,
             "kitti_train_launches": {stem: n[kernel] for stem, n in kitti_train_launches.items()
                                      if n[kernel]},
-            "kitti_train_steps": 8,
+            "kitti_train_steps": {stem: n for stem, n in kitti_steps.items()
+                                  if kitti_train_launches[stem][kernel]},
+            "kitti_test_launches": {stem: n[kernel] for stem, n in kitti_test_launches.items()
+                                    if n[kernel]},
             **({"kitti": {stage: {key: fps_rows[stage][key] for key in row_keys}
                           for stage in ("kitti_sa1", "train_kitti_sa1")}}
                if kernel == "fps_cluster_kernel" else {}),
@@ -4639,11 +5030,20 @@ def main() -> int:
             "demo_shapes": "cli/demo.py, the flagship PointRCNN at B=1 on raw .bin scans "
                            "sampled to 12288 points; the first frame's calls held against "
                            "the plain FPS (phase demo)",
-            "kitti_shapes": "KITTI PointRCNN (16384 points: SA1 kitti_sa1 at B=4, "
-                            "train_kitti_sa1 at B=2; its other levels and RoI tower the "
-                            "flagship's shapes) and KITTI PV-RCNN's keypoints (pv_keypoints, "
-                            "train_pv_keypoints); launches over each model's timed forwards "
-                            "and 8 train steps"})
+            "kitti_shapes": "KITTI PointRCNN and PointRCNN-IoU (16384 points: SA1 kitti_sa1 "
+                            "at B=4, train_kitti_sa1 at B=2; its other levels and RoI tower "
+                            "the flagship's shapes) and KITTI PV-RCNN's keypoints "
+                            "(pv_keypoints, train_pv_keypoints); launches over each model's "
+                            "timed forwards, its train steps (PointRCNN-IoU at its B=3) and "
+                            "its cli/test.py batches over the 16 scans",
+            "stack_launches": {stage: r["fps_kernel_launches"][kernel]
+                               for stage, r in stack_rows.items() if r["kernel"] == kernel},
+            "stack": {stage: {key: r[key] for key in ("counts", *row_keys)}
+                      for stage, r in stack_rows.items() if r["kernel"] == kernel},
+            "stack_shapes": "ops/pointnet2_stack.py::farthest_point_sample_stack on ragged "
+                            "batches (phase stack_fps_vs_plain): one launch a call, each "
+                            "call's indices equal to the plain masked FPS's; bound_ms from "
+                            "the valid points only"})
     emit({"kernels": [*fps_kernels, {
         "name": "radius_count", "route": "cuda", "source": "modest_tpu_torch/csrc/radius_count.cu",
         "replaces": "modest_tpu/ops/pallas_radius_count.py:81",

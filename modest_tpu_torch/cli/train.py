@@ -86,6 +86,9 @@ def parse_config(argv=None):
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--extra_tag", type=str, default="default")
+    parser.add_argument("--ckpt", type=str, default=None,
+                        help="accepted for the JAX CLI's sake, which parses it and never "
+                             "reads it: a run resumes from its own newest checkpoint")
     parser.add_argument("--pretrained_model", type=str, default=None,
                         help="a .pth file (this package's or pcdet's) or a checkpoint "
                              "directory: a shape-checked partial load")

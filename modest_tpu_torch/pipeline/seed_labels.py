@@ -24,6 +24,28 @@ from .clustering import dbscan_pp, dbscan_pp_many
 from .ground_plane import above_plane, distance_to_plane, estimate_plane
 
 
+def is_valid_cluster(ptc, pp_score, plane, min_points=10, max_volume=40, min_volume=0.5,
+                     max_min_height=4, min_max_height=0, percentile=10,
+                     min_percentile_pp_score=0.7) -> bool:
+    """The validity rule of one cluster (reference clustering_utils.py:94-135)
+    that ``filter_labels`` applies to every cluster at once: at least
+    ``min_points`` points, touching the ground (lowest point at most
+    ``max_min_height`` over ``plane``), tall enough (highest at least
+    ``min_max_height``), and ephemeral (the ``percentile`` of its PP scores at
+    most ``min_percentile_pp_score``). The volume bounds are the box fit's and
+    unused here, as in the JAX package."""
+    if ptc.shape[0] < min_points:
+        return False
+    dist = distance_to_plane(ptc, plane, directional=True)
+    if dist.min() > max_min_height:
+        return False
+    if dist.max() < min_max_height:
+        return False
+    if np.percentile(pp_score, percentile) > min_percentile_pp_score:
+        return False
+    return True
+
+
 def _compact_ids(labels: np.ndarray) -> np.ndarray:
     """Each label → its rank among the distinct values present (what
     np.unique + searchsorted give), through a lookup table over the id range."""

@@ -397,6 +397,19 @@ def save_config(config: Config, path) -> None:
         f.write(config_text(config) + "\n")
 
 
+def log_config_to_file(cfg: Config, pre="cfg", logger=None):
+    """Every leaf of ``cfg`` as a line ``<pre>.<key path>: <value>``, a
+    ``----------- KEY -----------`` line before each nested mapping, to
+    ``logger.info`` (or printed without a logger)."""
+    emit = logger.info if logger is not None else print
+    for key, val in cfg.items():
+        if isinstance(val, Config):
+            emit(f"----------- {key} -----------")
+            log_config_to_file(val, pre=f"{pre}.{key}", logger=logger)
+        else:
+            emit(f"{pre}.{key}: {val}")
+
+
 def resolve_interpolations(cfg: Config) -> Config:
     """Resolve ``${a.b.c}`` references against the root config until a fixed
     point; a whole-string reference keeps the referenced value's type."""

@@ -1,7 +1,8 @@
-"""BEV rendering of a point cloud and its boxes — port of ``plot_bev`` in
-``modest_tpu/utils/visualize.py`` (the headless stand-in for the
-reference's mayavi views). matplotlib is imported inside ``plot_bev`` only:
-the rest of the port does not need it."""
+"""Views of a point cloud and its boxes — port of
+``modest_tpu/utils/visualize.py`` (the stand-ins for the reference's mayavi
+views): ``plot_bev``, a headless BEV image, and ``plot_scene_3d``, an
+interactive 3D scatter. matplotlib and plotly are imported inside the
+function that draws with them only: the rest of the port needs neither."""
 from __future__ import annotations
 
 import numpy as np
@@ -45,4 +46,37 @@ def plot_bev(points, boxes=None, point_color=None, save_path=None, *, title=None
     if save_path:
         fig.savefig(save_path, dpi=120, bbox_inches="tight")
         plt.close(fig)
+    return fig
+
+
+def plot_scene_3d(points, boxes=None, point_color=None, max_points=50000):
+    """An interactive 3D scatter of ``points`` (N, ≥3) with the edges of
+    ``boxes`` (M, 7) in red, as a plotly figure; None when plotly is not
+    installed. Past ``max_points`` a fixed random subset (seed 0) is drawn."""
+    try:
+        import plotly.graph_objects as go
+    except ImportError:
+        return None
+    pts = np.asarray(points)
+    if len(pts) > max_points:
+        sel = np.random.RandomState(0).choice(len(pts), max_points, replace=False)
+        pts = pts[sel]
+        point_color = None if point_color is None else np.asarray(point_color)[sel]
+    data = [go.Scatter3d(x=pts[:, 0], y=pts[:, 1], z=pts[:, 2], mode="markers",
+                         marker=dict(size=1, color=point_color))]
+    if boxes is not None:
+        from .box_np import boxes_to_corners_3d
+
+        edges = [(0, 1), (1, 2), (2, 3), (3, 0), (4, 5), (5, 6), (6, 7), (7, 4), (0, 4),
+                 (1, 5), (2, 6), (3, 7)]
+        for c in boxes_to_corners_3d(np.asarray(boxes).reshape(-1, 7)):
+            xs, ys, zs = [], [], []
+            for a, b in edges:
+                xs += [c[a, 0], c[b, 0], None]
+                ys += [c[a, 1], c[b, 1], None]
+                zs += [c[a, 2], c[b, 2], None]
+            data.append(go.Scatter3d(x=xs, y=ys, z=zs, mode="lines",
+                                     line=dict(color="red", width=2)))
+    fig = go.Figure(data=data)
+    fig.update_layout(scene_aspectmode="data")
     return fig

@@ -14,7 +14,12 @@ each tensor's norm (the unbiased variance torch's BatchNorm1d would use is
 Over several steps: the flagship's one-cycle Adam squeezed into 10 steps
 (peak rate 0.01 at step 4) on the one batch, each side with its own
 optimizer, every step's losses and gradient norm within rtol 1e-4 (atol
-1e-5); the two sides part by ~6e-6 at most there."""
+1e-5). JAX runs in float32 (its MLPs compute in float32 whatever the
+parameters' type) and the port in float64, with FPS on a float32 copy of
+the coordinates as on the card, so the port's side does not depend on its
+summation order: a float32 port parts from JAX by up to 5.7 times the bound
+at step 8 on one torch thread and stays within 0.1 of it on eight, while the
+float64 port stays within 0.1 of it on either (9e-6 relative at most)."""
 import copy
 
 import jax
@@ -37,6 +42,7 @@ from modest_tpu_torch.models import build_network
 from modest_tpu_torch.models.convert import state_dict_from_jax
 from modest_tpu_torch.models.layers import BatchNorm
 from modest_tpu_torch.models.pointrcnn import pointrcnn_loss
+from modest_tpu_torch.ops import pointnet2 as tp2
 from modest_tpu_torch.train.state import create_train_state, step_roi_draws, train_step
 from modest_tpu_torch.utils.config import Config
 
@@ -44,6 +50,7 @@ import synth_kitti
 from test_pointrcnn_model import tiny_model_cfg
 from test_torch_losses import jax_draws
 from test_torch_slice import _jax_model as jax_model
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NUM_POINTS = 512
 
@@ -238,19 +245,24 @@ def test_train_step_updates_and_draws_by_step(batch):
     assert all(torch.equal(a[k], b[k]) for k in a) and not torch.equal(a["u_fg"], c["u_fg"])
 
 
-def test_squeezed_one_cycle_tracks_jax(batch, jax_steps):
+def test_squeezed_one_cycle_tracks_jax(batch, jax_steps, monkeypatch):
     """SQUEEZED_STEPS steps on one batch with the flagship's one-cycle Adam
     squeezed into them: JAX's step (train/state.py::_train_step_body with
-    its optimizer) and the port's train_step, from the same weights, the
-    port taking JAX's sampler draws at every step. Both stay finite and
-    agree step by step (on the tests' scenes that includes the
-    regression-loss spike the first foreground RoIs bring)."""
+    its optimizer, float32) and the port's train_step in float64, from the
+    same weights, the port taking JAX's sampler draws at every step. Both
+    stay finite and agree step by step (on the tests' scenes that includes
+    the regression-loss spike the first foreground RoIs bring), on any
+    number of torch threads."""
+    fps = tp2.furthest_point_sample
+    monkeypatch.setattr(tp2, "furthest_point_sample", lambda xyz, npoint: fps(xyz.float(), npoint))
     params, stats = jax_steps["params"], jax_steps["stats"]
     tcfg = Config(tiny_model_cfg())
     port = build_network(tcfg, 1, device="cpu")
     port.load_state_dict(state_dict_from_jax(params, stats))
+    port.double()
     state = create_train_state(port, Config(POINTRCNN_DYNAMIC_OBJ_OPTIMIZATION), SQUEEZED_STEPS)
-    tpoints, tgt = torch.from_numpy(batch["points"]), torch.from_numpy(batch["gt_boxes"])
+    tpoints = torch.from_numpy(batch["points"]).double()
+    tgt = torch.from_numpy(batch["gt_boxes"]).double()
     rh = tcfg.ROI_HEAD
     rows = []
     for record in jax_steps["steps"]:
@@ -258,7 +270,8 @@ def test_squeezed_one_cycle_tracks_jax(batch, jax_steps):
         want = dict(record["metrics"], grad_norm=record["grad_norm"])
         draws = jax_draws(record["key"], 2, int(rh.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE),
                           int(rh.TARGET_CONFIG.ROI_PER_IMAGE))
-        got = train_step(state, tcfg, tpoints, tgt, roi_draws=draws)
+        got = train_step(state, tcfg, tpoints, tgt,
+                         roi_draws={k: v.double() for k, v in draws.items()})
         rows.append((lr, {k: float(want[k]) for k in STEP_METRICS},
                      {k: float(got[k]) for k in STEP_METRICS}))
     assert max(lr for lr, _, _ in rows) == pytest.approx(0.01, rel=1e-6)  # the peak is reached
@@ -267,4 +280,4 @@ def test_squeezed_one_cycle_tracks_jax(batch, jax_steps):
         for k in STEP_METRICS:
             np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5,
                                        err_msg=f"step {s} {k}")
-    assert all(torch.isfinite(p).all() for p in port.parameters())
+    assert all(p.dtype == torch.float64 and torch.isfinite(p).all() for p in port.parameters())
