@@ -18,6 +18,12 @@ into pinned memory and onto the device without blocking, one batch ahead.
 In a process group (``parallel/``) ``build_dataloader`` gives each process
 its shard of every global batch: all shuffle one order and process p keeps
 every nproc-th sample from p, in batches of the global batch / nproc.
+
+Traced (``utils/trace.py``): the span ``loader.epoch_start`` from an epoch's
+first request to its first batch handed over, ``loader.wait`` around each
+wait for a worker's batch, ``loader.to_device`` around ``batch_to_device``;
+the counters ``loader.asks`` (batches requested) and ``loader.ready`` (the
+workers' batches already done at each request, summed).
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ import collections
 import multiprocessing as mp
 
 import numpy as np
+
+from ..utils import trace
 
 
 MAX_GT_DEFAULT = 64
@@ -186,6 +194,7 @@ class DataLoader:
         use_procs = use_procs and self.num_workers > 0
         if not use_procs:
             for bi, idx in enumerate(self._batch_indices()):
+                trace.count("loader.asks")
                 yield self._build(idx, bi)
             return
         # a bounded number in flight, so results never pile up faster than
@@ -193,13 +202,21 @@ class DataLoader:
         depth = 2 * self.num_workers
         pool = self._get_pool()
         pending: collections.deque = collections.deque()
+
+        def take():
+            trace.count("loader.asks")
+            if trace.active():
+                trace.count("loader.ready", sum(r.ready() for r in pending))
+            with trace.span("loader.wait"):
+                return pending.popleft().get()
+
         for bi, idx in enumerate(self._batch_indices()):
             pending.append(
                 pool.apply_async(_worker_build, ((self._seed_for(bi), idx),)))
             if len(pending) >= depth:
-                yield pending.popleft().get()
+                yield take()
         while pending:
-            yield pending.popleft().get()
+            yield take()
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -210,24 +227,29 @@ def batch_to_device(batch: dict, device) -> dict:
 
     dev = torch.device(device)
     out = dict(batch)
-    for key in ("points", "gt_boxes", *CAMERA_KEYS):
-        if key not in batch:
-            continue
-        t = torch.from_numpy(batch[key])
-        if dev.type == "cuda":
-            t = t.pin_memory().to(dev, non_blocking=True)
-        out[key] = t
+    with trace.span("loader.to_device"):
+        for key in ("points", "gt_boxes", *CAMERA_KEYS):
+            if key not in batch:
+                continue
+            t = torch.from_numpy(batch[key])
+            if dev.type == "cuda":
+                t = t.pin_memory().to(dev, non_blocking=True)
+            out[key] = t
     return out
 
 
 def prefetch_to_device(loader, device):
     """Yield the loader's batches on ``device`` (``batch_to_device``), each
     copy started one batch ahead of its use."""
-    ahead = None
-    for batch in loader:
-        if ahead is not None:
-            yield ahead
+    batches = iter(loader)
+    with trace.span("loader.epoch_start"):
+        first = next(batches, None)
+        ahead = None if first is None else batch_to_device(first, device)
+        batch = None if first is None else next(batches, None)
+    while batch is not None:
+        yield ahead
         ahead = batch_to_device(batch, device)
+        batch = next(batches, None)
     if ahead is not None:
         yield ahead
 

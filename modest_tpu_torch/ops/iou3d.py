@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 EPS = 1e-8
 MAXV = 8  # max vertices of a quad ∩ quad intersection
 NMS_BLOCK = 256  # candidates per NMS block
@@ -93,10 +95,12 @@ def _overlap_sh(ax, ay, bx, by):
 
 def boxes_overlap_bev(boxes_a, boxes_b):
     """(..., N, 7), (..., M, 7) → (..., N, M) BEV intersection areas; the
-    box of row n clips the box of column m."""
-    ax, ay = _bev_corners(boxes_a[..., :, None, :])
-    bx, by = _bev_corners(boxes_b[..., None, :, :])
-    return _overlap_sh(ax, ay, bx, by)
+    box of row n clips the box of column m. Traced as the span
+    ``iou.overlap``, whoever calls it."""
+    with trace.span("iou.overlap"):
+        ax, ay = _bev_corners(boxes_a[..., :, None, :])
+        bx, by = _bev_corners(boxes_b[..., None, :, :])
+        return _overlap_sh(ax, ay, bx, by)
 
 
 def boxes_iou_bev(boxes_a, boxes_b):
@@ -137,7 +141,16 @@ def nms_bev(boxes, scores, thresh: float, max_keep: int):
     and a Jacobi iteration reaches it; it usually settles in a few rounds.
     The loop stops once every scene has ``max_keep`` boxes or runs out of
     candidates: a greedy keep depends only on higher-scored boxes.
+
+    Traced as the span ``nms``, with the counters ``nms.blocks`` (blocks
+    run) and ``nms.rounds`` (Jacobi rounds); each host read of the device,
+    the block test and each round's, is a span ``nms.host_read``.
     """
+    with trace.span("nms"):
+        return _nms_bev(boxes, scores, thresh, max_keep)
+
+
+def _nms_bev(boxes, scores, thresh: float, max_keep: int):
     b, n, _ = boxes.shape
     dev = boxes.device
     neg_inf = float("-inf")
@@ -151,8 +164,11 @@ def nms_bev(boxes, scores, thresh: float, max_keep: int):
     krow = torch.arange(max_keep, device=dev)
     for f0 in range(0, n, NMS_BLOCK):
         open_ = (kcnt < max_keep) & (sscores[:, f0] > neg_inf)
-        if not bool(open_.any()):
+        with trace.span("nms.host_read"):
+            done = not bool(open_.any())
+        if done:
             break
+        trace.count("nms.blocks")
         cand = sboxes[:, f0:f0 + NMS_BLOCK]
         t = cand.shape[1]
         valid = (sscores[:, f0:f0 + t] > neg_inf) & open_[:, None]
@@ -164,7 +180,10 @@ def nms_bev(boxes, scores, thresh: float, max_keep: int):
         keep = base
         while True:
             new = base & ~(s_in & keep[:, :, None]).any(1)
-            if torch.equal(new, keep):
+            trace.count("nms.rounds")
+            with trace.span("nms.host_read"):
+                settled = torch.equal(new, keep)
+            if settled:
                 break
             keep = new
         keep = keep & (torch.cumsum(keep.long(), -1) <= (max_keep - kcnt)[:, None])
