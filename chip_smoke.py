@@ -409,7 +409,11 @@ TRAIN_LOSS_RTOL = 1e-3
 MAX_DIFFER_SHARE = 1e-4
 TRAIN_GRAD_F64_RATIO = 2.0
 MIN_ROI_MATCH = 0.98
-KERNEL_SOURCES = ("fps", "radius_count", "dbscan", "knn", "gather")
+KERNEL_SOURCES = ("fps", "radius_count", "dbscan", "knn", "gather", "iou3d")
+# the rotated-IoU clip's work a pair (csrc/iou3d.cu's header): 4 edges x 16
+# candidates x ~12 float operations; timed over this many calls
+IOU_OPS_PER_PAIR = 4 * 16 * 12
+IOU_ITERS, IOU_NMS_ITERS = 20, 3
 # seed path: the PP dataset (bench_pipeline.py sizes) and the seed-mask groups
 PP_TRAVERSALS, PP_FRAMES_PER_TRAVERSAL, PP_ORIGINS = 5, 8, 16
 FRAME = {"n_ground": 60000, "n_objects": 12, "n_wall": 20000}  # tools/pipeline_scenes.synth_frame
@@ -952,13 +956,18 @@ def timed_forwards(torch, api, model, cfg, points, iters, where):
 def phase_forward(torch, dev, api, model, cfg, scenes, card):
     from modest_tpu_torch.models.pointrcnn import STAGES
     from modest_tpu_torch.ops.fps import furthest_point_sample_cuda
+    from modest_tpu_torch.ops.iou3d import boxes_overlap_bev_cuda
 
     points = torch.from_numpy(scenes).to(dev)
     counts = furthest_point_sample_cuda.launches  # per kernel
     counts.update(dict.fromkeys(counts, 0))
+    iou_before = boxes_overlap_bev_cuda.launches
     final = run_path(api, model, cfg, points)
     torch.cuda.synchronize()
     kernel_launches = dict(counts)
+    iou_launches = boxes_overlap_bev_cuda.launches - iou_before
+    if iou_launches == 0:
+        fail("one forward's NMS stages never launched the rotated-IoU kernel")
     launches = sum(kernel_launches.values())
     # SA1-3 (N >= 1024) take the cluster kernel; SA4 and the RoI tower the warp kernel
     if kernel_launches != {"fps_cluster_kernel": 3, "fps_warp_kernel": 3}:
@@ -995,12 +1004,12 @@ def phase_forward(torch, dev, api, model, cfg, scenes, card):
     check_final(torch, final, BATCH, "timed forward on the card")
     emit({"phase": "forward", "batch": BATCH, "points_per_scan": N_POINTS,
           "fps_launches_per_forward": launches, "fps_kernel_launches": kernel_launches,
-          "detections": detections,
+          "iou_launches_per_forward": iou_launches, "detections": detections,
           "stage_ms": stage_ms, "forward_ms_median": forward_ms[len(forward_ms) // 2],
           "forward_ms_max": forward_ms[-1], "timed_forwards": TIMED_ITERS,
           "scans_per_s": BATCH * TIMED_ITERS / wall,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "card": card})
-    return kernel_launches
+    return kernel_launches, iou_launches
 
 
 def match_1to1(np, boxes, scores, rb, rs):
@@ -3721,6 +3730,90 @@ def build_kernels(card):
                   "card": card})
 
 
+def phase_iou_kernel_vs_plain(torch, np, dev, card):
+    """csrc/iou3d.cu against its plain twin (ops/iou3d.py::boxes_overlap_bev_plain)
+    on the card, bit for bit: tools/iou_cases.py's adversarial, tolerance-band
+    and near-coincident box sets and the NMS shapes of the benchmark's cells,
+    in float32 and float64, one launch a call, and a stride-0 batch against
+    8-value rows. At the NMS shapes (float32) the kernel's ms by CUDA events
+    and device ms by torch.profiler, the plain twin's ms and the operation
+    bound. Then nms_bev at each cell's NMS load through the kernel and
+    through the plain twin: keep sets equal, both timed. Returns the rows."""
+    from modest_tpu_torch.ops import iou3d
+    from modest_tpu_torch.tools import iou_cases
+    from modest_tpu_torch.utils.device import device_ms
+
+    kernel, plain = iou3d.boxes_overlap_bev_cuda, iou3d.boxes_overlap_bev_plain
+    rows = []
+
+    def check(case, a, b, timed):
+        before = kernel.launches
+        got = iou3d.boxes_overlap_bev(a, b)
+        want = plain(a, b)
+        torch.cuda.synchronize()
+        row = {"phase": "iou_kernel_vs_plain", "case": case, "dtype": str(a.dtype)[6:],
+               "shape": list(got.shape), "launches": kernel.launches - before,
+               "mismatches": int((got != want).sum()),
+               "max_abs_err": float((got - want).abs().max())}
+        if timed:
+            pairs = got.numel()
+            nbytes = (a.numel() + b.numel() + pairs) * got.element_size()
+            row["ms"] = device_ms(lambda: kernel(a, b), dev, IOU_ITERS)
+            row["kernel_device_ms"] = kernel_device_ms(lambda: kernel(a, b), IOU_ITERS,
+                                                       "overlap_kernel")
+            row["plain_ms"] = device_ms(lambda: plain(a, b), dev, 3)
+            row["bound_ms"], row["bound_by"] = bound(pairs * IOU_OPS_PER_PAIR, nbytes)
+        emit({**row, "card": card})
+        if row["mismatches"] or not torch.equal(got, want) or row["launches"] != 1:
+            fail(f"iou kernel vs plain, {case} {a.dtype}: {row['mismatches']} areas differ "
+                 f"(max {row['max_abs_err']}), {row['launches']} launches")
+        rows.append(row)
+
+    cases = [("adversarial", *[iou_cases.adversarial_boxes()[1]] * 2),
+             ("tolerance", *[iou_cases.tolerance_boxes()[1]] * 2),
+             ("near_coincident", *[iou_cases.near_coincident_boxes()] * 2)]
+    for name, b, kept, block in iou_cases.NMS_SHAPES:
+        cases.append((f"nms_{name}", *iou_cases.nms_operands(b, kept, block)))
+    for dtype in (torch.float32, torch.float64):
+        for case, a, b in cases:
+            check(case, torch.as_tensor(a, dtype=dtype, device=dev),
+                  torch.as_tensor(b, dtype=dtype, device=dev),
+                  timed=case.startswith("nms_") and dtype == torch.float32)
+        rng = np.random.RandomState(3)
+        anchors = torch.as_tensor(iou_cases.scene_boxes(rng, (300,)), dtype=dtype, device=dev)
+        gt = torch.as_tensor(np.concatenate([iou_cases.scene_boxes(rng, (4, 20)),
+                                             np.ones((4, 20, 1))], -1), dtype=dtype, device=dev)
+        check("stride0_vs_rows_of_8", anchors.expand(4, -1, -1), gt[..., :7], False)
+
+    for cell, b, n, valid, max_keep, thresh in iou_cases.NMS_CELLS:
+        boxes, scores = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                         for x in iou_cases.nms_inputs(b, n, valid))
+
+        def nms():
+            return iou3d.nms_bev(boxes, scores, thresh, max_keep)
+
+        before = kernel.launches
+        got = nms()
+        launches = kernel.launches - before
+        ms = device_ms(nms, dev, IOU_NMS_ITERS)
+        iou3d.boxes_overlap_bev_cuda = plain  # the dispatcher's CUDA branch, for the twin
+        try:
+            want = nms()
+            plain_ms = device_ms(nms, dev, IOU_NMS_ITERS)
+        finally:
+            iou3d.boxes_overlap_bev_cuda = kernel
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        row = {"phase": "iou_nms_keep_sets", "cell": cell, "batch": b, "candidates": n,
+               "valid": valid, "max_keep": max_keep, "thresh": thresh,
+               "kept": got[1].sum(1).tolist(), "keep_sets_equal": same,
+               "kernel_launches": launches, "nms_ms": ms, "plain_nms_ms": plain_ms}
+        emit({**row, "card": card})
+        if not same or launches == 0:
+            fail(f"nms_bev at {cell}: keep sets equal {same}, {launches} kernel launches")
+        rows.append(row)
+    return rows
+
+
 def bound(ops: float, nbytes: float):
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -4863,11 +4956,13 @@ def main() -> int:
     fps_in = fps_inputs(torch, dev, scenes)
     fps_rows = phase_fps(torch, fps_in, card)
     stack_rows = phase_stack_fps(torch, dev, card)
+    iou_rows = phase_iou_kernel_vs_plain(torch, np, dev, card)
 
     cfg = Config(POINTRCNN_DYNAMIC_OBJ)
     model = build_network(cfg, len(POINTRCNN_DYNAMIC_OBJ_CLASS_NAMES), device="cuda", seed=0)
     randomise_bn(torch, model, seed=0)
-    fps_launches = phase_forward(torch, dev, api, model, cfg, scenes, card)
+    fps_launches, iou_forward_launches = phase_forward(torch, dev, api, model, cfg, scenes,
+                                                      card)
     phase_card_vs_cpu(torch, np, api, build_network, model, cfg, scenes, card)
     del model
     torch.cuda.empty_cache()
@@ -5132,6 +5227,19 @@ def main() -> int:
             "bound_by", "launch_floor_ms", "bound_with_floor_ms", "library_ms",
             "library_device_ms")},
         "shapes": "tab (256, 4096), idx (256, 70); launches over tools/gather_probe.py",
+    }, {
+        "name": "iou3d_overlap", "route": "cuda", "source": "modest_tpu_torch/csrc/iou3d.cu",
+        "replaces": None, "launches": iou_forward_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in iou_rows if "case" in r),
+        "mismatches": sum(r["mismatches"] for r in iou_rows if "case" in r),
+        **{key: {r["case"]: r[key] for r in iou_rows if "ms" in r} for key in (
+            "ms", "kernel_device_ms", "plain_ms", "bound_ms")},
+        "bound_by": "operations", "library_ms": None,
+        "nms_ms": {r["cell"]: r["nms_ms"] for r in iou_rows if "cell" in r},
+        "plain_nms_ms": {r["cell"]: r["plain_nms_ms"] for r in iou_rows if "cell" in r},
+        "shapes": "ms by NMS shape (float32, tools/iou_cases.py::NMS_SHAPES); launches over "
+                  "one B=4 flagship forward (its proposal and post NMS); nms_ms: nms_bev at "
+                  "each cell's NMS load through the kernel, plain_nms_ms through the twin",
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,18 +2,28 @@
 ``modest_tpu/ops/iou3d.py``.
 
 The overlap of two rotated boxes is a Sutherland–Hodgman clip of the subject
-quad against the clip quad's four half-planes, done on broadcast tensors:
-polygon state is (..., 8) coordinate tensors (a quad ∩ quad has at most 8
-vertices), and every operation runs over all pairs at once. The arithmetic
-follows the JAX version step for step.
+quad against the clip quad's four half-planes. ``boxes_overlap_bev`` sends
+CUDA tensors to the hand-written kernel ``csrc/iou3d.cu``
+(``boxes_overlap_bev_cuda``: a thread per pair, the polygon in registers)
+and CPU tensors to its plain twin ``boxes_overlap_bev_plain``,
+the clip on broadcast tensors: polygon state is (..., 8) coordinate tensors
+(a quad ∩ quad has at most 8 vertices), and every operation runs over all
+pairs at once. The twin's arithmetic follows the JAX version step for step,
+and the kernel's follows the twin's operation for operation, so on the card
+the two agree bit for bit.
 
 Box layout: (x, y, z, dx, dy, dz, heading), center z, heading CCW around +z.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+
 import torch
 
 from ..utils import trace
+from ._build import load_library
 
 EPS = 1e-8
 MAXV = 8  # max vertices of a quad ∩ quad intersection
@@ -93,14 +103,111 @@ def _overlap_sh(ax, ay, bx, by):
     return torch.where(count >= 3, 0.5 * area.abs(), torch.zeros_like(area))
 
 
+def boxes_overlap_bev_plain(boxes_a, boxes_b):
+    """(..., N, 7), (..., M, 7) → (..., N, M) BEV intersection areas in
+    PyTorch, on any device: the kernel's plain twin."""
+    ax, ay = _bev_corners(boxes_a[..., :, None, :])
+    bx, by = _bev_corners(boxes_b[..., None, :, :])
+    return _overlap_sh(ax, ay, bx, by)
+
+
+@functools.cache
+def _lib():
+    lib = load_library("iou3d")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.iou3d_overlap_launch.argtypes = [vp, ll, ll, vp, vp, ll, i, vp, ll, ll, vp, vp, ll, i,
+                                         i, i, vp, vp]
+    lib.iou3d_overlap_launch.restype = i
+    lib.iou3d_tile.argtypes = []
+    lib.iou3d_tile.restype = i
+    lib.iou3d_max_batch.argtypes = []
+    lib.iou3d_max_batch.restype = i
+    lib.iou3d_error_string.argtypes = [i]
+    lib.iou3d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _kernel_operand(boxes, lead, rows: int):
+    """``boxes`` broadcast to (*lead, rows, 7), as the kernel reads it: the
+    (L, rows, 7) boxes, whose batch and row strides it is given, and the
+    (L, rows) cosine and sine of their headings, by ``torch.cos`` and
+    ``torch.sin`` as ``_bev_corners`` takes them, at a batch stride of their
+    own and row stride 1. Views wherever the strides allow (a broadcast batch
+    keeps stride 0, a sliced batch or a row of more than 7 values its own
+    strides), else copies. A row's seven values are always consecutive."""
+    size = math.prod(lead)
+    x = boxes.expand(*lead, rows, 7).reshape(size, rows, 7)
+    trig = [f(boxes[..., 6]).expand(*lead, rows).reshape(size, rows)
+            for f in (torch.cos, torch.sin)]
+    cos, sin = (t if t.stride(1) == 1 or rows == 1 else t.contiguous() for t in trig)
+    return x if x.stride(2) == 1 else x.contiguous(), cos, sin
+
+
+def boxes_overlap_bev_cuda(boxes_a, boxes_b):
+    """(..., N, 7), (..., M, 7) CUDA tensors, both float32 or both float64,
+    their leading dims broadcasting → (..., N, M) BEV intersection areas by
+    the kernel in ``csrc/iou3d.cu``, one launch on the current stream
+    after ``torch.cos`` and ``torch.sin`` of each operand's headings. The
+    box of row n clips the box of column m, as in the plain twin, which it
+    equals bit for bit. The areas carry no gradient. Raises on any other
+    input, and then counts no launch."""
+    where = "boxes_overlap_bev_cuda"
+    for name, x in (("boxes_a", boxes_a), ("boxes_b", boxes_b)):
+        if x.ndim < 2 or x.shape[-1] != 7:
+            raise ValueError(f"{where} needs (..., rows, 7) boxes, {name} is {tuple(x.shape)}")
+        if x.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"{where} needs float32 or float64, {name} is {x.dtype}")
+    if boxes_a.dtype != boxes_b.dtype:
+        raise ValueError(f"{where} needs one dtype, got {boxes_a.dtype} and {boxes_b.dtype}")
+    try:
+        lead = torch.broadcast_shapes(boxes_a.shape[:-2], boxes_b.shape[:-2])
+    except RuntimeError as err:
+        raise ValueError(f"{where}: leading dims {tuple(boxes_a.shape[:-2])} and "
+                         f"{tuple(boxes_b.shape[:-2])} do not broadcast") from err
+    if not (boxes_a.is_cuda and boxes_b.is_cuda) or boxes_a.device != boxes_b.device:
+        raise ValueError(f"{where} needs CUDA tensors on one device, got {boxes_a.device} "
+                         f"and {boxes_b.device}")
+    n, m = boxes_a.shape[-2], boxes_b.shape[-2]
+    out = torch.empty(*lead, n, m, dtype=boxes_a.dtype, device=boxes_a.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    batch, tile = math.prod(lead), lib.iou3d_tile()
+    if batch > lib.iou3d_max_batch() or -(-n // tile) * -(-m // tile) > 2**31 - 1:
+        raise ValueError(f"{where}: {batch} x {n} x {m} pairs exceed the kernel's grid "
+                         f"(batch <= {lib.iou3d_max_batch()})")
+    a, a_cos, a_sin = _kernel_operand(boxes_a, lead, n)
+    b, b_cos, b_sin = _kernel_operand(boxes_b, lead, m)
+    with torch.cuda.device(out.device):
+        err = lib.iou3d_overlap_launch(
+            a.data_ptr(), a.stride(0), a.stride(1), a_cos.data_ptr(), a_sin.data_ptr(),
+            a_cos.stride(0), n, b.data_ptr(), b.stride(0), b.stride(1), b_cos.data_ptr(),
+            b_sin.data_ptr(), b_cos.stride(0), m, batch, int(out.dtype == torch.float64),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"iou3d kernel launch failed: {lib.iou3d_error_string(err).decode()}")
+    boxes_overlap_bev_cuda.launches += 1
+    trace.count("iou.pairs", batch * n * m)
+    return out
+
+
+# kernel launches since the last reset
+boxes_overlap_bev_cuda.launches = 0
+
+
 def boxes_overlap_bev(boxes_a, boxes_b):
     """(..., N, 7), (..., M, 7) → (..., N, M) BEV intersection areas; the
-    box of row n clips the box of column m. Traced as the span
-    ``iou.overlap``, whoever calls it."""
+    box of row n clips the box of column m. CUDA tensors go to the kernel
+    (``boxes_overlap_bev_cuda``, which counts the pairs in ``iou.pairs``),
+    CPU tensors to the plain twin; there is no fallback between the two.
+    Traced as the span ``iou.overlap``, whoever calls it."""
     with trace.span("iou.overlap"):
-        ax, ay = _bev_corners(boxes_a[..., :, None, :])
-        bx, by = _bev_corners(boxes_b[..., None, :, :])
-        return _overlap_sh(ax, ay, bx, by)
+        if boxes_a.is_cuda or boxes_b.is_cuda:
+            return boxes_overlap_bev_cuda(boxes_a, boxes_b)
+        if boxes_a.device.type == "cpu" and boxes_b.device.type == "cpu":
+            return boxes_overlap_bev_plain(boxes_a, boxes_b)
+        raise ValueError(f"boxes_overlap_bev: unsupported devices {boxes_a.device}, "
+                         f"{boxes_b.device}")
 
 
 def boxes_iou_bev(boxes_a, boxes_b):
