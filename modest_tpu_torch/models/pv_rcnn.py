@@ -20,6 +20,12 @@ Module names follow the JAX package's (``vsa.<source>``, ``vsa_fusion``,
 ``pkw_head``, ``roi_grid_pool``, ``roi_shared_fc``, ``rcnn_cls``,
 ``rcnn_reg``); stage 1 keeps pcdet's (``backbone_3d``, ``backbone_2d``,
 ``dense_head``).
+
+Traced (``utils/trace.py``): the span ``vsa.bev`` around the BEV
+interpolation, and inside every VSA source and the RoI-grid pool the spans
+``ball_query`` and ``group`` of ``ops/pointnet2_stack.py``. No counter of
+empty balls: the empty flags live on the device, and counting them would
+read them to the host.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from ..ops import pointnet2 as p2
 from ..ops.box_torch import points_in_boxes_index
 from ..ops.pointnet2_stack import query_and_group_masked
 from ..parallel.mesh import global_mean
+from ..utils import trace
 from .box_coders import ResidualCoder
 from .grid_detectors import MAX_VOXELS, GridDetector, grid_detector_loss
 from .layers import FCHead, SharedMLP
@@ -190,7 +197,8 @@ class PVRCNN(GridDetector):
         feats = []
         for name in cfg.PFE.FEATURES_SOURCE:
             if name == "bev":
-                feats.append(bilinear_bev(bev, keypoints[..., :2], pcr, vs, BEV_STRIDE))
+                with trace.span("vsa.bev"):
+                    feats.append(bilinear_bev(bev, keypoints[..., :2], pcr, vs, BEV_STRIDE))
             elif name == "raw_points":
                 all_mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device=xyz.device)
                 feats.append(self.vsa[name](xyz, all_mask, points[..., 3:], keypoints))

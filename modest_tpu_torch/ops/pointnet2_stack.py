@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from .fps import furthest_point_sample_cuda
 from .pointnet2 import ball_query_from_dist2, gather_points, pairwise_dist2, three_nn
 
@@ -138,16 +139,17 @@ def ball_query_stack(xyz, xyz_cnt, new_xyz, new_cnt, radius: float, nsample: int
 
 def _group(xyz, features, new_xyz, idx, empty, use_xyz: bool):
     """Gather the (B, M, nsample) sources around their centres, offsets to
-    the centre first, zeros for an empty ball."""
-    b, m, ns = idx.shape
-    flat = idx.reshape(b, m * ns)
-    grouped_xyz = gather_points(xyz, flat).reshape(b, m, ns, 3) - new_xyz[:, :, None, :]
-    if features is not None:
-        grouped_feat = gather_points(features, flat).reshape(b, m, ns, -1)
-        out = torch.cat([grouped_xyz, grouped_feat], dim=-1) if use_xyz else grouped_feat
-    else:
-        out = grouped_xyz
-    return torch.where(empty[:, :, None, None], 0.0, out), empty
+    the centre first, zeros for an empty ball. Traced as the span ``group``."""
+    with trace.span("group"):
+        b, m, ns = idx.shape
+        flat = idx.reshape(b, m * ns)
+        grouped_xyz = gather_points(xyz, flat).reshape(b, m, ns, 3) - new_xyz[:, :, None, :]
+        if features is not None:
+            grouped_feat = gather_points(features, flat).reshape(b, m, ns, -1)
+            out = torch.cat([grouped_xyz, grouped_feat], dim=-1) if use_xyz else grouped_feat
+        else:
+            out = grouped_xyz
+        return torch.where(empty[:, :, None, None], 0.0, out), empty
 
 
 def query_and_group_stack(xyz, xyz_cnt, features, new_xyz, new_cnt, radius: float,
@@ -171,11 +173,17 @@ def three_nn_stack(unknown, unknown_cnt, known, known_cnt):
 def ball_query_masked(xyz, xyz_mask, new_xyz, radius: float, nsample: int):
     """xyz (B, N, 3), xyz_mask (B, N), new_xyz (B, M, 3) → (idx (B, M,
     nsample) int64, empty (B, M)). The (B, M, N) distance matrix is masked
-    in place, and one such matrix lives at a time."""
-    d2 = pairwise_dist2(new_xyz, xyz)
-    d2.masked_fill_(~xyz_mask[:, None, :], BIG)
-    idx, valid = ball_query_from_dist2(d2, radius, nsample)
-    return idx, ~valid[..., 0]
+    in place, and one such matrix lives at a time. Traced as the span
+    ``ball_query``, with the counters ``ball_query.pairs`` (the B·M·N
+    distances) and ``ball_query.centres`` (B·M), both known from the shapes."""
+    b, m, n = new_xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
+    trace.count("ball_query.pairs", b * m * n)
+    trace.count("ball_query.centres", b * m)
+    with trace.span("ball_query"):
+        d2 = pairwise_dist2(new_xyz, xyz)
+        d2.masked_fill_(~xyz_mask[:, None, :], BIG)
+        idx, valid = ball_query_from_dist2(d2, radius, nsample)
+        return idx, ~valid[..., 0]
 
 
 def query_and_group_masked(xyz, xyz_mask, features, new_xyz, radius: float, nsample: int,

@@ -1,16 +1,22 @@
 """The port's tracer (``modest_tpu_torch/utils/trace.py``): nothing recorded
 and no profiler range while off; counters, and spans as nested ``modest:``
 ranges under ``torch.profiler``, while on; the NMS's and the loader's
-spans and counters against the loops' own trips; and ``profile_eval``'s
-reading of the loader's."""
+spans and counters against the loops' own trips; ``profile_eval``'s
+reading of the loader's; and PV-RCNN's ball-query, grouping and BEV spans
+and counters over a tiny eval forward (the config of
+``tests/test_torch_pv_rcnn.py``)."""
 import numpy as np
 import pytest
 import torch
 
 from modest_tpu_torch.data import loader as tloader
+from modest_tpu_torch.models import build_network
 from modest_tpu_torch.ops import iou3d
 from modest_tpu_torch.tools import profile_eval
 from modest_tpu_torch.utils import trace
+from modest_tpu_torch.utils.config import Config
+from tests.test_torch_grid_detectors import geometry, toy_batch
+from tests.test_torch_pv_rcnn import GT_XY, MAX_VOXELS, pvrcnn_model_cfg
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -204,3 +210,99 @@ def test_profile_eval_reads_the_loaders_spans_and_counters(tmp_path, workers):
         assert 0 <= got["ready_per_ask"] <= 2 * workers
     else:
         assert "loader.wait" not in spans and got["ready_per_ask"] == 0
+
+
+@pytest.fixture(scope="module")
+def tiny_pvrcnn():
+    """The tiny PV-RCNN in eval mode on the CPU, and a batch of two scans."""
+    model = build_network(Config(pvrcnn_model_cfg()), 1, device="cpu", dataset=geometry("second"))
+    pts, _ = toy_batch(0, GT_XY)
+    return model.eval(), torch.from_numpy(pts)
+
+
+def staged_forward(model, points):
+    """The eval forward with each of ``model.stages`` a ``stage:`` profiler
+    range, as the benchmark's stage clock opens them."""
+    order = list(model.stages)
+    current = [torch.profiler.record_function("stage:" + order[0])]
+    current[0].__enter__()
+
+    def mark(name):
+        current[0].__exit__(None, None, None)
+        following = order[order.index(name) + 1] if name != order[-1] else "host"
+        current[0] = torch.profiler.record_function("stage:" + following)
+        current[0].__enter__()
+
+    with torch.inference_mode():
+        out = model(points, on_stage=mark, max_voxels=MAX_VOXELS)
+    current[0].__exit__(None, None, None)
+    return out
+
+
+def test_ball_query_counters_sum_the_distances_of_a_vsa_forward(tiny_pvrcnn):
+    model, points = tiny_pvrcnn
+    sources = {f"vsa.{k}": m for k, m in model.vsa.items()}
+    sources["roi_grid_pool"] = model.roi_grid_pool
+    pairs, centres, calls = [0], [0], []
+
+    def seen(module, args):  # xyz (B, N, 3), ..., centres (B, M, 3); a ball query a radius
+        (b, n, _), m = args[0].shape, args[3].shape[1]
+        pairs[0] += len(module.radii) * b * m * n
+        centres[0] += len(module.radii) * b * m
+        calls.append(module)
+
+    hooks = [m.register_forward_pre_hook(seen) for m in sources.values()]
+    trace.enable()
+    with torch.inference_mode():
+        model(points, max_voxels=MAX_VOXELS)
+    counts = trace.disable()
+    for hook in hooks:
+        hook.remove()
+    assert len(calls) == len(sources)
+    assert counts["ball_query.pairs"] == pairs[0]
+    assert counts["ball_query.centres"] == centres[0]
+    assert not any(k.startswith("vsa.") for k in counts)  # no empty-ball count: a host read
+
+
+def test_ball_query_and_group_are_siblings_inside_each_vsa_stage(tiny_pvrcnn):
+    model, points = tiny_pvrcnn
+    trace.enable()
+    with torch.profiler.profile(activities=CPU) as prof:
+        staged_forward(model, points)
+    trace.disable()
+    stages = {e.name[len("stage:"):]: e.time_range for e in prof.events()
+              if e.name.startswith("stage:")}
+    point_ops = {"modest:ball_query", "modest:group", "modest:vsa.bev"}
+    spans = [e for e in modest_events(prof) if e.name in point_ops]
+    assert {e.name for e in spans} == point_ops
+    assert all(parent_span(e) is None for e in spans)  # none inside another
+    for name in model.model_cfg.PFE.FEATURES_SOURCE:
+        stage = stages[f"vsa_{name}"]
+        inside = [e for e in spans
+                  if stage.start <= e.time_range.start and e.time_range.end <= stage.end]
+        names = [e.name[len(trace.PREFIX):] for e in inside]
+        if name == "bev":
+            assert names == ["vsa.bev"]
+            continue
+        radii = len(model.vsa[name].radii)
+        assert names == ["ball_query", "group"] * radii
+        for query, group in zip(inside[::2], inside[1::2]):
+            assert query.time_range.end <= group.time_range.start
+    grid = stages["grid_pool"]
+    names = [e.name[len(trace.PREFIX):] for e in spans
+             if grid.start <= e.time_range.start and e.time_range.end <= grid.end]
+    assert names == ["ball_query", "group"] * len(model.roi_grid_pool.radii)
+
+
+def test_pvrcnn_outputs_are_bit_identical_with_the_tracer_off_and_on(tiny_pvrcnn):
+    model, points = tiny_pvrcnn
+    with torch.inference_mode():
+        off = model(points, max_voxels=MAX_VOXELS)
+    assert trace.disable() == {}  # off: no counter kept
+    trace.enable()
+    with torch.profiler.profile(activities=CPU):
+        on = staged_forward(model, points)
+    assert trace.disable()["ball_query.pairs"] > 0
+    assert off.keys() == on.keys()
+    for key, value in off.items():
+        assert torch.equal(value, on[key]), key
