@@ -409,11 +409,18 @@ TRAIN_LOSS_RTOL = 1e-3
 MAX_DIFFER_SHARE = 1e-4
 TRAIN_GRAD_F64_RATIO = 2.0
 MIN_ROI_MATCH = 0.98
-KERNEL_SOURCES = ("fps", "radius_count", "dbscan", "knn", "gather", "iou3d")
+KERNEL_SOURCES = ("fps", "radius_count", "dbscan", "knn", "gather", "iou3d", "ball_query")
 # the rotated-IoU clip's work a pair (csrc/iou3d.cu's header): 4 edges x 16
 # candidates x ~12 float operations; timed over this many calls
 IOU_OPS_PER_PAIR = 4 * 16 * 12
 IOU_ITERS, IOU_NMS_ITERS = 20, 3
+# the masked ball query's pair test (csrc/ball_query.cu's header): |s|^2 is
+# staged once a source, so 10 float operations a pair, an FMA counted as two
+# as the peak counts it (the cross term's multiply and two FMAs, two adds,
+# the doubling, the clamp and the compare); timed over this many calls, its
+# plain twin over BALL_PLAIN_ITERS
+BALL_OPS_PER_PAIR = 10
+BALL_ITERS, BALL_PLAIN_ITERS = 20, 2
 # seed path: the PP dataset (bench_pipeline.py sizes) and the seed-mask groups
 PP_TRAVERSALS, PP_FRAMES_PER_TRAVERSAL, PP_ORIGINS = 5, 8, 16
 FRAME = {"n_ground": 60000, "n_objects": 12, "n_wall": 20000}  # tools/pipeline_scenes.synth_frame
@@ -2232,12 +2239,17 @@ def phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card,
                      phase="pv_rcnn_forward", iters=PV_TIMED_ITERS):
     """PV-RCNN's eval forward + post-process at full width (B = 4 scans of
     65536 points on Lyft; Waymo's B = 2 of 131072): a warm-up whose FPS
-    launch must pick the plain FPS's indices on the same xyz, then ``iters``
-    timed forwards (scans/s, stage ms by CUDA events, peak memory, FPS
-    launches: one a forward)."""
+    launch must pick the plain FPS's indices on the same xyz, and each of
+    whose masked ball queries (a VSA source or the grid pool at one radius:
+    12 on Lyft) must equal the plain twin's (idx, empty) bit for bit, after
+    the kernel's cross term is checked against torch.matmul's, so that a
+    change of cuBLAS's order is named as such; then ``iters`` timed forwards
+    (scans/s, stage ms by CUDA events, peak memory, FPS launches: one a
+    forward; ball-query kernel launches: one a query)."""
     from unittest import mock
 
     from modest_tpu_torch.ops import pointnet2 as p2
+    from modest_tpu_torch.ops import pointnet2_stack as stack
     from modest_tpu_torch.ops.fps import furthest_point_sample_plain
 
     dev = batch["points"].device
@@ -2246,16 +2258,30 @@ def phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card,
     points = batch["points"]
     b = int(points.shape[0])
     real, launched = p2.furthest_point_sample_cuda, []
+    real_ball, queried = stack.ball_query_masked, []
 
     def recording(xyz, npoint):
         idx = real(xyz, npoint)
         launched.append((xyz.clone(), npoint, idx))
         return idx
 
-    with mock.patch.object(p2, "furthest_point_sample_cuda", recording):
+    def recording_ball(xyz, xyz_mask, new_xyz, radius, nsample):
+        got = real_ball(xyz, xyz_mask, new_xyz, radius, nsample)
+        queried.append(((xyz.clone(), xyz_mask.clone(), new_xyz.clone(), radius, nsample), got))
+        return got
+
+    with mock.patch.object(p2, "furthest_point_sample_cuda", recording), \
+            mock.patch.object(stack, "ball_query_masked", recording_ball):
         out = api.apply_eval(model, cfg.MODEL, points)
     if len(launched) != 1:
         fail(f"{phase}: the warm-up forward launched FPS {len(launched)} times, not once")
+    ball_per_forward = sum(len(src.radii) for src in model.vsa.values()) + \
+        len(model.roi_grid_pool.radii)
+    ball = pv_ball_queries_vs_plain(torch, stack, queried, phase)
+    if len(queried) != ball_per_forward:
+        fail(f"{phase}: the warm-up forward ran {len(queried)} ball queries, the model "
+             f"has {ball_per_forward}")
+    del queried
     xyz, npoint, idx = launched[0]
     fps_shape = [*xyz.shape[:2], npoint]
     plain_idx = furthest_point_sample_plain(xyz, npoint)
@@ -2275,6 +2301,7 @@ def phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card,
     stage_ms = {stage: 0.0 for stage in (*model.stages, "post_nms")}
     forward_ms = []
     counts = reset_fps_counts()
+    stack.ball_query_cuda.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2290,6 +2317,7 @@ def phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card,
             stage_ms[stage] += a.elapsed_time(b_ev) / iters
     wall = time.perf_counter() - t0
     launches = dict(counts)
+    ball_launches = stack.ball_query_cuda.launches
     forward_ms.sort()
     check_final(torch, final, b, f"{phase} timed forward on the card")
     row = {"phase": phase, "batch": b,
@@ -2303,14 +2331,49 @@ def phase_pv_forward(torch, np, api, build_network, cfg, ds, batch, card,
            "scans_per_s": b * iters / wall,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "fps_kernel_launches": launches,
-           "fps_launches_per_forward": sum(launches.values()) / iters, "card": card}
+           "fps_launches_per_forward": sum(launches.values()) / iters,
+           "ball_query_calls_per_forward": ball_per_forward,
+           "ball_query_launches_per_forward": ball_launches / iters, **ball, "card": card}
     emit(row)
     if index_mismatches or keypoint_mismatches:
         fail(f"{phase}: {index_mismatches} FPS indices and {keypoint_mismatches} keypoints "
              f"differ from the plain FPS's")
     if launches != {"fps_cluster_kernel": iters, "fps_warp_kernel": 0}:
         fail(f"{phase}: {iters} forwards launched the fps kernels {launches} times")
+    if ball_launches != ball_per_forward * iters:
+        fail(f"{phase}: {iters} forwards launched the ball-query kernel {ball_launches} "
+             f"times, not {ball_per_forward} a forward")
     return model, row
+
+
+def pv_ball_queries_vs_plain(torch, stack, queried, phase):
+    """A forward's recorded ball queries ((xyz, mask, centres, radius,
+    nsample), (idx, empty)): first each query's cross term by the kernel's
+    FMA chain against ``pairwise_dist2``'s torch.matmul (a failure there is
+    cuBLAS's order, not the kernel), then the kernel's (idx, empty) against
+    the plain twin's, bit for bit. Returns the counts for the phase's row."""
+    cross_differ, idx_differ, empty_differ, shapes = [], [], [], []
+    for (xyz, mask, centres, radius, nsample), (idx, empty) in queried:
+        with torch.inference_mode():  # the forward's tensors are inference tensors
+            got = stack.ball_query_cross_cuda(xyz.contiguous(), centres.contiguous())
+            cross_differ.append(int((got != torch.matmul(centres, xyz.transpose(-1, -2))).sum()))
+            del got
+            want_idx, want_empty = stack.ball_query_masked_plain(xyz, mask, centres, radius,
+                                                                 nsample)
+        idx_differ.append(int((idx != want_idx).sum()))
+        empty_differ.append(int((empty != want_empty).sum()))
+        shapes.append([*centres.shape[:2], xyz.shape[1], nsample])
+    row = {"ball_query_shapes": shapes, "ball_query_cross_differ": sum(cross_differ),
+           "ball_query_idx_differ": sum(idx_differ),
+           "ball_query_empty_differ": sum(empty_differ)}
+    if row["ball_query_cross_differ"]:
+        fail(f"{phase}: cuBLAS's K = 3 product parts from the ball-query kernel's FMA chain "
+             f"({cross_differ} products by query, shapes {shapes}): cuBLAS changed its order, "
+             f"and csrc/ball_query.cu's cross3 must follow it")
+    if row["ball_query_idx_differ"] or row["ball_query_empty_differ"]:
+        fail(f"{phase}: the ball-query kernel parts from its plain twin ({idx_differ} slots, "
+             f"{empty_differ} empty flags by query, shapes {shapes})")
+    return row
 
 
 def phase_pv_card_vs_cpu(torch, np, api, build_network, cfg, ds, model, batch, card,
@@ -3814,6 +3877,68 @@ def phase_iou_kernel_vs_plain(torch, np, dev, card):
     return rows
 
 
+def phase_ball_query_vs_plain(torch, dev, card):
+    """ball_query_vs_plain: csrc/ball_query.cu against its plain twin
+    (ops/pointnet2_stack.py::ball_query_masked_plain) on the card, bit for
+    bit, at pvrcnn.eval.b4's raw-point shape (4 scans of 65536 points, 2048
+    keypoints, radii 0.4 and 0.8) and grid-pool shape (100 RoIs x 6^3 grid
+    points a scan against the 2048 keypoints, radii 0.8 and 1.6), on
+    tools/ball_query_cases.py's scans: one launch a call, the kernel's ms by
+    CUDA events and its device ms by torch.profiler, the plain twin's ms,
+    and the bound (the B·M·N pair tests at BALL_OPS_PER_PAIR, or the inputs
+    read once and the indices written once). Before that, at each shape, the
+    kernel's cross term against torch.matmul's, so that a change of cuBLAS's
+    order fails as such. Returns the rows."""
+    from modest_tpu_torch.ops import pointnet2_stack as stack
+    from modest_tpu_torch.tools import ball_query_cases as cases
+    from modest_tpu_torch.utils.device import device_ms
+
+    xyz, mask, kp = cases.scan_clouds(4, cases.POINTS, 21, dev)
+    kp_mask = torch.ones(kp.shape[:2], dtype=torch.bool, device=dev)
+    grid = cases.grid_centres(kp, 22)
+    rows = []
+    for name, queries, (src, src_mask, centres) in (
+            ("raw_points", cases.RAW_QUERIES, (xyz, mask, kp)),
+            ("grid_pool", cases.GRID_QUERIES, (kp, kp_mask, grid))):
+        cross = stack.ball_query_cross_cuda(src, centres)
+        cross_differ = int((cross != torch.matmul(centres, src.transpose(-1, -2))).sum())
+        del cross
+        if cross_differ:
+            fail(f"ball query cross term, {name}: cuBLAS's K = 3 product parts from the "
+                 f"kernel's FMA chain in {cross_differ} products: cuBLAS changed its order, "
+                 f"and csrc/ball_query.cu's cross3 must follow it")
+        for radius, nsample in queries:
+            def kernel():
+                return stack.ball_query_cuda(src, src_mask, centres, radius, nsample)
+
+            def plain():
+                return stack.ball_query_masked_plain(src, src_mask, centres, radius, nsample)
+
+            before = stack.ball_query_cuda.launches
+            got = stack.ball_query_masked(src, src_mask, centres, radius, nsample)
+            launches = stack.ball_query_cuda.launches - before
+            want = plain()
+            torch.cuda.synchronize()
+            b, m, n = centres.shape[0], centres.shape[1], src.shape[1]
+            nbytes = src.numel() * 4 + src_mask.numel() + centres.numel() * 4 + \
+                got[0].numel() * 8 + got[1].numel()
+            row = {"phase": "ball_query_vs_plain", "case": name, "shape": [b, m, n],
+                   "radius": radius, "nsample": nsample, "launches": launches,
+                   "cross_differ": cross_differ, "idx_differ": int((got[0] != want[0]).sum()),
+                   "empty_differ": int((got[1] != want[1]).sum()),
+                   "empty_share": float(got[1].float().mean()),
+                   "ms": device_ms(kernel, dev, BALL_ITERS),
+                   "kernel_device_ms": kernel_device_ms(kernel, BALL_ITERS, "ball_query_kernel"),
+                   "plain_ms": device_ms(plain, dev, BALL_PLAIN_ITERS)}
+            row["bound_ms"], row["bound_by"] = bound(b * m * n * BALL_OPS_PER_PAIR, nbytes)
+            emit({**row, "card": card})
+            if row["idx_differ"] or row["empty_differ"] or launches != 1:
+                fail(f"ball query kernel vs plain, {name} r={radius}: {row['idx_differ']} "
+                     f"slots and {row['empty_differ']} empty flags differ, {launches} launches")
+            rows.append(row)
+    return rows
+
+
 def bound(ops: float, nbytes: float):
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -4957,6 +5082,7 @@ def main() -> int:
     fps_rows = phase_fps(torch, fps_in, card)
     stack_rows = phase_stack_fps(torch, dev, card)
     iou_rows = phase_iou_kernel_vs_plain(torch, np, dev, card)
+    ball_rows = phase_ball_query_vs_plain(torch, dev, card)
 
     cfg = Config(POINTRCNN_DYNAMIC_OBJ)
     model = build_network(cfg, len(POINTRCNN_DYNAMIC_OBJ_CLASS_NAMES), device="cuda", seed=0)
@@ -5240,6 +5366,19 @@ def main() -> int:
         "shapes": "ms by NMS shape (float32, tools/iou_cases.py::NMS_SHAPES); launches over "
                   "one B=4 flagship forward (its proposal and post NMS); nms_ms: nms_bev at "
                   "each cell's NMS load through the kernel, plain_nms_ms through the twin",
+    }, {
+        "name": "ball_query_masked", "route": "cuda",
+        "source": "modest_tpu_torch/csrc/ball_query.cu", "replaces": None,
+        "launches": pv_row["ball_query_launches_per_forward"],
+        "mismatches": sum(r["idx_differ"] + r["empty_differ"] for r in ball_rows)
+        + pv_row["ball_query_idx_differ"] + pv_row["ball_query_empty_differ"],
+        **{key: {f"{r['case']}_r{r['radius']}": r[key] for r in ball_rows} for key in (
+            "ms", "kernel_device_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shapes": "ms: pvrcnn.eval.b4's raw-point (4, 2048, 65536) and grid-pool (4, 21600, "
+                  "2048) ball queries at both radii (tools/ball_query_cases.py); launches over "
+                  "one PV-RCNN forward (its VSA sources and grid pool, each radius); "
+                  "mismatches over both and that forward's queries",
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,27 +10,35 @@ cloud from its first ``cnt`` points, the stacked ball query puts padding at
 squared distance ``BIG`` (an empty ball is flagged and groups zeros), and
 ``three_nn_stack`` moves padded known points to ``BIG`` coordinates.
 
-``farthest_point_sample_stack`` runs the FPS kernels of ``csrc/fps.cu`` on a
-CUDA tensor and its plain masked loop on a CPU tensor. The other stacked
-functions, the mask-based ops (``ball_query_masked``,
-``query_and_group_masked``: PV-RCNN's voxel set abstraction and RoI grid
-pooling, over sparse-conv voxel lists that are not front-packed) and
-``voxel_query`` (Voxel R-CNN's neighbour lookup in the sparse backbone's
-sorted voxel keys) are plain tensor code, as the JAX package's are XLA code
-outside Pallas.
+Two of these functions run hand-written kernels on a CUDA tensor and their
+plain twins on a CPU tensor, with no fallback between the two:
+``farthest_point_sample_stack`` (the FPS kernels of ``csrc/fps.cu``, or its
+plain masked loop) and ``ball_query_masked`` (``csrc/ball_query.cu``, a warp
+per centre that keeps the first in-ball sources by index, or
+``ball_query_masked_plain``, a (B, M, N) distance matrix and a top-k). The
+masked ball query serves ``query_and_group_masked``: PV-RCNN's voxel set
+abstraction and RoI-grid pooling, over sparse-conv voxel lists that are not
+front-packed. The other stacked functions and ``voxel_query`` (Voxel
+R-CNN's neighbour lookup in the sparse backbone's sorted voxel keys) are
+plain tensor code, as the JAX package's are XLA code outside Pallas.
 
 In the mask-based ops a source set is padded to a static length and carries
 a validity mask; masked sources sit at squared distance ``BIG``, so they
 never fall inside a ball; the first ``nsample`` in-ball sources by index fill
 the slots, as in ``ops/pointnet2.py::ball_query_from_dist2``; a centre with
-no source in its ball groups zeros.
+no source in its ball groups zeros. The kernel decides membership on the
+plain twin's squared distance (``pairwise_dist2``), bit for bit.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ..utils import trace
+from ._build import check_cuda, load_library
 from .fps import furthest_point_sample_cuda
 from .pointnet2 import ball_query_from_dist2, gather_points, pairwise_dist2, three_nn
 
@@ -170,20 +178,142 @@ def three_nn_stack(unknown, unknown_cnt, known, known_cnt):
 
 
 @torch.no_grad()
+def ball_query_masked_plain(xyz, xyz_mask, new_xyz, radius: float, nsample: int):
+    """The masked ball query in PyTorch, on any device: the kernel's plain
+    twin. The (B, M, N) distance matrix of ``pairwise_dist2`` is masked in
+    place, and one such matrix lives at a time."""
+    d2 = pairwise_dist2(new_xyz, xyz)
+    d2.masked_fill_(~xyz_mask[:, None, :], BIG)
+    idx, valid = ball_query_from_dist2(d2, radius, nsample)
+    return idx, ~valid[..., 0]
+
+
+@functools.cache
+def _lib():
+    lib = load_library("ball_query")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.ball_query_launch.argtypes = [vp, vp, vp, i, i, i, ctypes.c_float, i, vp, vp, vp]
+    lib.ball_query_launch.restype = i
+    lib.ball_query_cross_launch.argtypes = [vp, vp, i, i, i, vp, vp]
+    lib.ball_query_cross_launch.restype = i
+    lib.ball_query_error_string.argtypes = [i]
+    lib.ball_query_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+BALL_QUERY_MAX_SAMPLE = 64  # csrc/ball_query.cu's slots a centre
+BALL_QUERY_MAX_BATCH = 65535  # its grid's second dimension
+
+
+def ball_query_cuda(xyz, xyz_mask, new_xyz, radius: float, nsample: int):
+    """xyz (B, N, 3) float32, xyz_mask (B, N) bool, new_xyz (B, M, 3)
+    float32, contiguous CUDA tensors on one device, 1 <= nsample <= 64, N >=
+    1 and r² below ``BIG`` → (idx (B, M, nsample) int64, empty (B, M) bool)
+    by the kernel in ``csrc/ball_query.cu``, one launch on the tensors'
+    device and its current stream, equal to ``ball_query_masked_plain`` bit
+    for bit. r² is ``radius * radius`` in the host's double, rounded to
+    float32 once, as the plain twin's comparison of a float32 tensor with
+    that Python float rounds it; below ``BIG`` a masked source, at ``BIG``
+    in the twin, is in no ball. Raises on any other input before it builds
+    or launches anything, and then counts no launch."""
+    where = "ball_query_cuda"
+    named = {"xyz": xyz, "xyz_mask": xyz_mask, "new_xyz": new_xyz}
+    for name, x in (("xyz", xyz), ("new_xyz", new_xyz)):
+        if x.ndim != 3 or x.shape[-1] != 3:
+            raise ValueError(f"{where} needs (B, rows, 3) {name}, got {tuple(x.shape)}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{where} needs float32 {name}, got {x.dtype}")
+    if xyz_mask.dtype != torch.bool:
+        raise ValueError(f"{where} needs a bool xyz_mask, got {xyz_mask.dtype}")
+    b, n = xyz.shape[0], xyz.shape[1]
+    if tuple(xyz_mask.shape) != (b, n) or new_xyz.shape[0] != b:
+        raise ValueError(f"{where}: xyz {tuple(xyz.shape)}, xyz_mask {tuple(xyz_mask.shape)} "
+                         f"and new_xyz {tuple(new_xyz.shape)} disagree")
+    if not 1 <= nsample <= BALL_QUERY_MAX_SAMPLE:
+        raise ValueError(f"{where} takes 1 <= nsample <= {BALL_QUERY_MAX_SAMPLE}, "
+                         f"got {nsample}")
+    if n < 1 or b > BALL_QUERY_MAX_BATCH:
+        raise ValueError(f"{where} needs N >= 1 and B <= {BALL_QUERY_MAX_BATCH}, "
+                         f"got B={b}, N={n}")
+    r2 = float(np.float32(radius * radius))
+    if not r2 < BIG:
+        raise ValueError(f"{where} needs radius² below {BIG:g}, got radius {radius}")
+    for name, x in named.items():
+        if not x.is_contiguous():
+            raise ValueError(f"{where} needs contiguous {name}")
+    check_cuda(where, named)
+    m = new_xyz.shape[1]
+    idx = torch.empty((b, m, nsample), dtype=torch.int64, device=xyz.device)
+    empty = torch.empty((b, m), dtype=torch.bool, device=xyz.device)
+    if idx.numel() == 0:
+        return idx, empty
+    lib = _lib()
+    with torch.cuda.device(xyz.device):
+        err = lib.ball_query_launch(xyz.data_ptr(), xyz_mask.data_ptr(), new_xyz.data_ptr(), b,
+                                    n, m, r2, nsample, idx.data_ptr(), empty.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ball_query kernel launch failed: "
+                           f"{lib.ball_query_error_string(err).decode()}")
+    ball_query_cuda.launches += 1
+    trace.count("ball_query.kernel", 1)
+    return idx, empty
+
+
+# kernel launches since the last reset
+ball_query_cuda.launches = 0
+
+
+def ball_query_cross_cuda(xyz, new_xyz):
+    """The kernel's cross term alone: (B, M, N) float32, entry (b, i, j)
+    the product of centre i and source j as ``csrc/ball_query.cu`` rounds it
+    (cuBLAS's K = 3 order on the H100), for xyz (B, N, 3) and new_xyz (B, M,
+    3), contiguous float32 CUDA tensors on one device, B and M at most
+    65535. Where ``torch.matmul(new_xyz, xyz.transpose(-1, -2))``, the cross
+    term of ``pairwise_dist2``, parts from it, cuBLAS has changed its order,
+    and the kernel's memberships no longer follow the plain twin's."""
+    where = "ball_query_cross_cuda"
+    for name, x in (("xyz", xyz), ("new_xyz", new_xyz)):
+        if x.ndim != 3 or x.shape[-1] != 3 or x.dtype != torch.float32:
+            raise ValueError(f"{where} needs (B, rows, 3) float32 {name}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
+    if new_xyz.shape[0] != b or b > BALL_QUERY_MAX_BATCH or m > BALL_QUERY_MAX_BATCH:
+        raise ValueError(f"{where}: xyz {tuple(xyz.shape)} and new_xyz "
+                         f"{tuple(new_xyz.shape)} disagree or exceed the grid")
+    check_cuda(where, {"xyz": xyz, "new_xyz": new_xyz})
+    out = torch.empty((b, m, n), dtype=torch.float32, device=xyz.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(xyz.device):
+        err = lib.ball_query_cross_launch(xyz.data_ptr(), new_xyz.data_ptr(), b, n, m,
+                                          out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ball_query cross launch failed: "
+                           f"{lib.ball_query_error_string(err).decode()}")
+    return out
+
+
+@torch.no_grad()
 def ball_query_masked(xyz, xyz_mask, new_xyz, radius: float, nsample: int):
     """xyz (B, N, 3), xyz_mask (B, N), new_xyz (B, M, 3) → (idx (B, M,
-    nsample) int64, empty (B, M)). The (B, M, N) distance matrix is masked
-    in place, and one such matrix lives at a time. Traced as the span
-    ``ball_query``, with the counters ``ball_query.pairs`` (the B·M·N
-    distances) and ``ball_query.centres`` (B·M), both known from the shapes."""
+    nsample) int64, empty (B, M)). CUDA tensors go to the kernel
+    (``ball_query_cuda``, made contiguous first), CPU tensors to the plain
+    twin. Traced as the span ``ball_query``, with the counters
+    ``ball_query.pairs`` (the B·M·N source-centre pairs) and
+    ``ball_query.centres`` (B·M), both known from the shapes, and
+    ``ball_query.kernel`` (the kernel's launches)."""
     b, m, n = new_xyz.shape[0], new_xyz.shape[1], xyz.shape[1]
     trace.count("ball_query.pairs", b * m * n)
     trace.count("ball_query.centres", b * m)
     with trace.span("ball_query"):
-        d2 = pairwise_dist2(new_xyz, xyz)
-        d2.masked_fill_(~xyz_mask[:, None, :], BIG)
-        idx, valid = ball_query_from_dist2(d2, radius, nsample)
-        return idx, ~valid[..., 0]
+        if xyz.is_cuda:
+            return ball_query_cuda(xyz.contiguous(), xyz_mask.contiguous(),
+                                   new_xyz.contiguous(), radius, nsample)
+        if xyz.device.type == "cpu":
+            return ball_query_masked_plain(xyz, xyz_mask, new_xyz, radius, nsample)
+        raise ValueError(f"ball_query_masked: unsupported device {xyz.device}")
 
 
 def query_and_group_masked(xyz, xyz_mask, features, new_xyz, radius: float, nsample: int,
